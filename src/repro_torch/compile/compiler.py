@@ -1,0 +1,149 @@
+"""``compile_model``: optimized graph -> a bucketed, device-placed model.
+
+    qp = models.resnet.quantize_params(folded, cfg)        # dict or typed
+    cm = compile_model(cfg, qp, backend="cuda", batch_sizes=(1, 8, 32))
+    out = cm(images)          # bucket select + zero-pad + run + slice
+
+The graph is lowered once through the backend with the weights placed on
+the model's device; serving then only selects the smallest bucket that
+holds a batch, zero-pads up to it, chunks batches beyond the largest
+bucket, and slices the pad rows off the logits.  PyTorch runs eagerly, so a
+bucket is a fixed launch shape rather than a compiled executable.
+
+Entry points run on the GPU: ``device=None`` means ``"cuda"`` and raises
+when no CUDA device exists; pass ``device="cpu"`` to run the kernels'
+plain versions on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence, Union
+
+import torch
+
+from repro_torch.compile import lowering
+from repro_torch.compile.backends import Backend, get_backend
+from repro_torch.compile.params import QResNetParams, ensure_typed
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``.  Raises when a CUDA device is asked for (or
+    implied) and none exists; never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless "
+            "the caller passes device='cpu'")
+    return dev
+
+
+def _as_images(images, device) -> torch.Tensor:
+    return torch.as_tensor(images, dtype=torch.float32, device=device)
+
+
+class CompiledModel:
+    """A quantized network lowered through one backend, served in fixed
+    batch buckets.  Callable: ``logits = cm(images)``."""
+
+    def __init__(self, cfg, params: QResNetParams, backend: Backend,
+                 batch_sizes: Sequence[int], device: torch.device):
+        if not batch_sizes:
+            raise ValueError("need at least one batch bucket")
+        if any(b <= 0 for b in batch_sizes):
+            raise ValueError(f"batch buckets must be positive: {batch_sizes}")
+        self.cfg = cfg
+        self.device = device
+        self.params = params.to(device)
+        self.backend = backend
+        self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
+        self.graph = lowering.optimized_graph(cfg)
+        self._forward = backend.lower(self.graph, cfg, self.params)
+        self.run_counts: Dict[int, int] = {b: 0 for b in self.batch_sizes}
+
+    def warmup(self) -> "CompiledModel":
+        """Run every bucket once on zeros (builds the kernels, sizes the
+        allocator)."""
+        for b in self.batch_sizes:
+            self(torch.zeros((b, self.cfg.img, self.cfg.img, 3),
+                             device=self.device))
+        return self
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n (the largest if n exceeds every bucket — the
+        caller chunks in that case)."""
+        for b in self.batch_sizes:
+            if b >= n:
+                return b
+        return self.batch_sizes[-1]
+
+    def pad(self, images: torch.Tensor) -> torch.Tensor:
+        """Zero-pad a batch of at most the largest bucket up to its bucket:
+        the batch a bucket run computes on."""
+        n = images.shape[0]
+        bucket = self.bucket_for(n)
+        if n < bucket:
+            images = torch.cat([images, images.new_zeros(
+                (bucket - n,) + tuple(images.shape[1:]))], dim=0)
+        return images
+
+    def _run_batched(self, images: torch.Tensor) -> torch.Tensor:
+        n = images.shape[0]
+        if n == 0:
+            raise ValueError("empty batch")
+        cap = self.batch_sizes[-1]
+        if n > cap:
+            return torch.cat([self._run_batched(images[i:i + cap])
+                              for i in range(0, n, cap)], dim=0)
+        padded = self.pad(images)
+        self.run_counts[padded.shape[0]] += 1
+        return self._forward(padded)[:n]
+
+    def __call__(self, images) -> torch.Tensor:
+        return self._run_batched(_as_images(images, self.device))
+
+    def stats(self) -> dict:
+        return dict(backend=self.backend.name, device=str(self.device),
+                    batch_sizes=self.batch_sizes,
+                    run_counts=dict(self.run_counts))
+
+
+def _backend(backend: Union[str, Backend]) -> Backend:
+    return get_backend(backend) if isinstance(backend, str) else backend
+
+
+def compile_model(cfg, qparams, backend: Union[str, Backend] = "cuda",
+                  batch_sizes: Sequence[int] = (1, 8, 32), tune=None,
+                  device=None) -> CompiledModel:
+    """Lower the optimized graph of ``cfg`` through ``backend`` into a
+    :class:`CompiledModel` on ``device`` (default ``cuda``); call
+    ``.warmup()`` on it to run every bucket once before serving.
+
+    ``qparams`` may be the ``quantize_params`` dict or a typed
+    :class:`QResNetParams`, on any device; ``backend`` a registered name or
+    an instance.  Kernel tuning is not ported yet: ``tune`` must be None."""
+    if tune is not None:
+        raise ValueError(
+            f"tune={tune!r}: kernel tuning is not available in repro_torch "
+            f"yet; pass tune=None")
+    return CompiledModel(cfg, ensure_typed(qparams), _backend(backend),
+                         batch_sizes, resolve_device(device))
+
+
+def lower_forward(cfg, qparams, backend: Union[str, Backend],
+                  device=None) -> Callable:
+    """Un-bucketed lowering: the backend's ``images -> logits`` on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    params = ensure_typed(qparams).to(dev)
+    fwd = _backend(backend).lower(lowering.optimized_graph(cfg), cfg, params)
+    return lambda images: fwd(_as_images(images, dev))
+
+
+def lower_features(cfg, qparams, backend: Union[str, Backend],
+                   device=None) -> Callable:
+    """Un-bucketed ``images -> u8 feature map`` (the integer datapath up to
+    the classifier head) of ``backend`` on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    params = ensure_typed(qparams).to(dev)
+    feats = _backend(backend).features(lowering.optimized_graph(cfg), cfg,
+                                       params)
+    return lambda images: feats(_as_images(images, dev))

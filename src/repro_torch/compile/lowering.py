@@ -1,0 +1,223 @@
+"""Graph-driven lowering: optimized IR -> ordered task program.
+
+A node-kind -> handler registry (:func:`register_task`) drives a walk over
+the **topologically sorted** optimized graph.  The walk is strict: it
+requires the post-optimization invariants (no bn / relu / add nodes; skip
+streams wired) and raises :class:`LoweringError` naming the offending node,
+its kind and the failed check, so a backend never compiles the unoptimized
+dataflow.
+
+Entry point: :func:`plan_model` (conv graphs -> ``LoweringPlan``).  The
+``config`` field of the tasks is the slot for a tuned kernel configuration
+and is always ``None`` here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.core import graph as G
+from repro_torch.compile.params import QResNetParams
+
+
+class LoweringError(ValueError):
+    """The graph does not satisfy the optimized-IR invariants."""
+
+
+def _node_err(node: G.Node, check: str) -> LoweringError:
+    """Every strictness failure carries node id + kind + the check."""
+    return LoweringError(f"node {node.name!r} (kind={node.op}): {check}")
+
+
+# ---------------------------------------------------------------------------
+# Task records
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StemTask:
+    node: str                 # graph node name
+    och: int
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTask:
+    index: int                # block index (== params.blocks[index])
+    conv0: str                # graph node names, for provenance/debugging
+    conv1: str
+    stride: int
+    has_ds: bool              # 1x1 downsample merged into conv0 (loop_merge)
+    och: int
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadTask:
+    pool: str                 # pool kind ("avg")
+    num_classes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweringPlan:
+    stem: StemTask
+    blocks: List[BlockTask]
+    head: HeadTask
+
+
+# ---------------------------------------------------------------------------
+# Node-kind -> handler registry
+# ---------------------------------------------------------------------------
+
+# handler(node, state) -> None; mutates the walk state.
+TASK_HANDLERS: Dict[str, Callable] = {}
+
+
+def register_task(op: str):
+    """Register the lowering handler for one node kind (latest wins)."""
+    def deco(fn):
+        TASK_HANDLERS[op] = fn
+        return fn
+    return deco
+
+
+@dataclasses.dataclass
+class _WalkState:
+    """Accumulator the handlers write into while the walk runs."""
+    g: G.Graph
+    stem: Optional[StemTask] = None
+    blocks: List[BlockTask] = dataclasses.field(default_factory=list)
+    head_pool: Optional[str] = None
+    head_fc: Optional[int] = None
+    pending_conv0: Optional[G.Node] = None
+
+
+def _walk(g: G.Graph) -> _WalkState:
+    """Topological sort, then registry dispatch per node.  Unregistered
+    kinds fail loudly with the node id."""
+    state = _WalkState(g=g)
+    for n in G.topological_sort(g):
+        handler = TASK_HANDLERS.get(n.op)
+        if handler is None:
+            raise _node_err(
+                n, f"no lowering handler registered for this kind "
+                   f"(registered: {sorted(TASK_HANDLERS)})")
+        handler(n, state)
+    return state
+
+
+@register_task("input")
+@register_task("output")
+def _lower_noop(n: G.Node, state: _WalkState) -> None:
+    del n, state
+
+
+@register_task("conv")
+def _lower_conv(n: G.Node, state: _WalkState) -> None:
+    """The conv pipeline's pairing walk (stem, conv0/conv1 pairs)."""
+    role = n.attrs.get("role")
+    if role == "stem":
+        if not {"bn", "relu"} <= set(n.fused):
+            raise _node_err(n, "stem conv must have bn+relu folded in "
+                               "(fold_bn/merge_relu did not run)")
+        state.stem = StemTask(node=n.name, och=n.attrs["och"])
+    elif role == "conv0":
+        if state.pending_conv0 is not None:
+            raise _node_err(
+                n, f"conv0 follows unpaired conv0 "
+                   f"{state.pending_conv0.name!r}")
+        if not n.skip_out:
+            raise _node_err(n, "conv0 emits no skip stream — "
+                               "loop_merge/temporal_reuse did not run")
+        state.pending_conv0 = n
+    elif role == "conv1":
+        c0 = state.pending_conv0
+        if c0 is None or c0.attrs["block"] != n.attrs["block"]:
+            raise _node_err(n, "conv1 without its conv0 (pairing check)")
+        if n.skip_in is None or "add_fold" not in n.fused:
+            raise _node_err(n, "residual add not folded into conv1 "
+                               "(add_fold did not run)")
+        if n.skip_in not in c0.outputs[1:]:
+            raise _node_err(
+                n, f"skip input {n.skip_in!r} is not conv0's forwarded "
+                   f"stream {c0.outputs[1:]}")
+        state.blocks.append(BlockTask(
+            index=n.attrs["block"], conv0=c0.name, conv1=n.name,
+            stride=c0.attrs["stride"],
+            has_ds=any(f.startswith("downsample:") for f in c0.fused),
+            och=n.attrs["och"]))
+        state.pending_conv0 = None
+    elif role == "ds":
+        raise _node_err(n, "standalone downsample conv survived — "
+                           "loop_merge did not run")
+    else:
+        raise _node_err(n, "conv without a role attr")
+
+
+@register_task("pool")
+def _lower_pool(n: G.Node, state: _WalkState) -> None:
+    state.head_pool = n.attrs.get("kind", "avg")
+
+
+@register_task("linear")
+def _lower_linear(n: G.Node, state: _WalkState) -> None:
+    state.head_fc = n.attrs.get("dout")
+
+
+# ---------------------------------------------------------------------------
+# Graph builders and the plan entry point
+# ---------------------------------------------------------------------------
+
+
+def model_graph(cfg) -> G.Graph:
+    """The (unoptimized) IR for a ResNet config — what the paper parses from
+    the QONNX export."""
+    return G.build_resnet_graph(cfg.blocks_per_stage, cfg.base_width,
+                                cfg.img, cfg.num_classes)
+
+
+def optimized_graph(cfg) -> G.Graph:
+    return G.optimize(model_graph(cfg))
+
+
+def _check_optimized(g: G.Graph) -> None:
+    for n in g.nodes:
+        if n.op in ("bn", "relu", "add"):
+            raise _node_err(
+                n, f"graph still contains a {n.op} node — run "
+                   f"core.graph.optimize() (or optimize_lm) before lowering")
+
+
+def plan_model(g: G.Graph,
+               params: Optional[QResNetParams] = None) -> LoweringPlan:
+    """Walk an optimized conv graph into the ordered task list.
+
+    When ``params`` is given, the plan is cross-checked against the parameter
+    containers (block count, downsample presence), so a graph/params
+    mismatch fails at compile time, not with silently wrong logits."""
+    _check_optimized(g)
+    state = _walk(g)
+
+    if state.stem is None or state.head_pool is None or state.head_fc is None:
+        raise LoweringError(
+            "graph is missing stem / pool / classifier nodes "
+            "(not a lowered conv graph?)")
+    if state.pending_conv0 is not None:
+        raise _node_err(state.pending_conv0, "unpaired conv0 at end of walk")
+
+    plan = LoweringPlan(stem=state.stem, blocks=state.blocks,
+                        head=HeadTask(pool=state.head_pool,
+                                      num_classes=state.head_fc))
+
+    if params is not None:
+        if len(params.blocks) != len(plan.blocks):
+            raise LoweringError(
+                f"graph has {len(plan.blocks)} residual blocks but params "
+                f"carry {len(params.blocks)}")
+        for t in plan.blocks:
+            if params.blocks[t.index].has_ds != t.has_ds:
+                raise LoweringError(
+                    f"block {t.index} (node {t.conv0!r}): graph "
+                    f"downsample={t.has_ds} but params "
+                    f"downsample={params.blocks[t.index].has_ds}")
+    return plan

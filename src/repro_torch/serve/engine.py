@@ -1,0 +1,110 @@
+"""Image-classification serving over the integer ResNet pipeline.
+
+``ResNetEngine`` serves the paper's workload — integer ResNet8/20 image
+classification — through :class:`repro_torch.compile.CompiledModel`: the
+optimized graph is lowered once, weights live on the engine's device, and a
+tick only selects a bucket, zero-pads and runs.  The default backend is
+``cuda``, the hand-written kernel pipeline.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ImageRequest:
+    rid: int
+    image: np.ndarray                     # (H, W, 3) float image
+    logits: Optional[np.ndarray] = None   # (num_classes,) once served
+    label: Optional[int] = None
+    done: bool = False
+
+
+def _input_contract(cfg):
+    """Per-request payload (shape, numpy dtype) of one config: the model's
+    input batch minus the batch dim."""
+    return (cfg.img, cfg.img, 3), np.float32
+
+
+def _validate_image(cfg, req: ImageRequest) -> None:
+    """Every bucket has a fixed shape, so a mismatched payload can never be
+    batched; rejecting at submit keeps the tick loop total."""
+    expect, _ = _input_contract(cfg)
+    shape = tuple(np.shape(req.image))
+    if shape != expect:
+        raise ValueError(
+            f"request {req.rid}: payload shape {shape} does not match the "
+            f"compiled input shape {expect} for {cfg.name}")
+
+
+class ResNetEngine:
+    """Image-classification engine serving through ``CompiledModel``.
+
+    Backends come from the ``repro_torch.compile`` registry: ``cuda``
+    (default; the fused kernel pipeline) and ``torch-int`` (the reference
+    integer graph, bit-identical u8 maps).  ``device=None``
+    means ``cuda`` and raises without a GPU; pass ``device="cpu"`` to run
+    the kernels' plain versions.
+
+    ``ab_backends`` compiles shadow models on further backends; every tick
+    replays the primary batch through each shadow and records the max
+    absolute logit deviation in ``ab_stats`` — a live parity probe for a
+    new backend against the serving one."""
+
+    def __init__(self, cfg, qparams, batch: int = 8, backend: str = "cuda",
+                 batch_sizes=None, ab_backends=(), device=None):
+        from repro_torch.compile import compile_model
+
+        self.cfg, self.batch = cfg, batch
+        self.backend = backend
+        if batch_sizes is None:
+            batch_sizes = (batch,)
+        if batch not in batch_sizes:
+            raise ValueError(
+                f"max batch {batch} must be one of batch_sizes {batch_sizes}")
+        self.model = compile_model(cfg, qparams, backend=backend,
+                                   batch_sizes=batch_sizes, device=device)
+        self.device = self.model.device
+        self.shadows = {name: compile_model(cfg, qparams, backend=name,
+                                            batch_sizes=batch_sizes,
+                                            device=self.device)
+                        for name in ab_backends}
+        self.ab_stats = {name: [] for name in self.shadows}
+        self.queue: List[ImageRequest] = []
+        self.served = 0
+
+    def submit(self, req: ImageRequest):
+        """Enqueue one request (shape-validated at admission)."""
+        _validate_image(self.cfg, req)
+        self.queue.append(req)
+
+    def tick(self) -> bool:
+        """Serve one batch; returns False when the queue is empty."""
+        if not self.queue:
+            return False
+        reqs = self.queue[:self.batch]
+        del self.queue[:len(reqs)]
+        dtype = _input_contract(self.cfg)[1]
+        imgs = np.stack([np.asarray(r.image, dtype) for r in reqs])
+        out = self.model(imgs)
+        for name, shadow in self.shadows.items():
+            self.ab_stats[name].append(
+                float((shadow(imgs) - out).abs().max()))
+        logits = out.cpu().numpy()
+        for i, r in enumerate(reqs):
+            r.logits = logits[i]
+            r.label = int(np.argmax(logits[i]))
+            r.done = True
+        self.served += len(reqs)
+        return True
+
+    def run(self, max_ticks: int = 10_000) -> int:
+        ticks = 0
+        while self.queue and ticks < max_ticks:
+            self.tick()
+            ticks += 1
+        return ticks
+

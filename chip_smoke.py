@@ -7,11 +7,17 @@ Phases, one JSON line each:
 
   1. device   — requires a CUDA GPU (exits 2 without one); prints the card's
                 name and power limit as nvidia-smi reports them.
-  2. build    — compiles the kernels from ``src/repro_torch/kernels/csrc``.
+  2. build    — compiles the three kernels (conv_stem, resblock_fused,
+                block_chain) from ``src/repro_torch/kernels/csrc``.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, bitwise (``torch.equal``): conv_stem at N=256 and
                 N=32 for shifts > 0, = 0, < 0; resblock_fused at every
-                ResNet20 block shape for skip shifts > 0, = 0, < 0; in
+                ResNet20 block shape for skip shifts > 0, = 0, < 0;
+                block_chain on the whole ResNet20 chain with the stem fused
+                (N=32 and N=256, batch_tile 1 and 2), the whole ResNet8
+                chain, and the four narrow chains of tests/test_kernels.py
+                at batch_tile 1 and 2, skip shifts > 0, = 0, < 0, with the
+                kernel's shared memory equal to the planner's formula.  In
                 every case at least a fifth of the outputs lie strictly
                 inside (0, 255).  Device time (``ms``, CUDA-graph replay),
                 eager call time with host launch overhead (``call_ms``), the
@@ -19,18 +25,19 @@ Phases, one JSON line each:
                 main path's shapes (batch 32).
   4. serve    — full-width ResNet20 and ResNet8 from the port's own
                 ``init_params(seed) -> fold_params -> quantize_params``,
-                requests served through ``ResNetEngine(backend="cuda")``
-                with buckets (1, 8, 32); the u8 maps of the served model's
+                requests served through ``ResNetEngine`` with buckets
+                (1, 8, 32) on the ``cuda`` backend and then on the
+                ``cuda-stream`` backend; the u8 maps of the served model's
                 padded bucket batches bitwise equal to the ``torch-int``
-                backend's, logits within 1e-5; launch counters show the
-                kernels ran; images per second at bucket 32, eager and
-                as a CUDA-graph replay (the device time alone).
-  5. the ``{"kernels": [...], "serve": {...}}`` line, then
+                backend's, logits within 1e-5; launch counters match the
+                backend's launch plan; images per second at bucket 32,
+                eager and as a CUDA-graph replay (the device time alone).
+  5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 forwards of
+                each backend.
+  6. the ``{"kernels": [...], "serve": {...}}`` line, then
      ``{"ok": true, "device": ...}``.
 
-A ``torch.profiler`` breakdown of five ResNet20 bucket-32 forwards closes
-phase 4.  Any failure raises, and the script exits non-zero without the
-last line.
+Any failure raises, and the script exits non-zero without the last line.
 """
 import argparse
 import json
@@ -45,15 +52,24 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.compile import lower_forward  # noqa: E402
+from repro_torch.compile import get_backend, lower_forward  # noqa: E402
+from repro_torch.compile import lowering  # noqa: E402
+from repro_torch.core import dataflow as df  # noqa: E402
+from repro_torch.core.quant import shift_align  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import conv_stem_op  # noqa: E402
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
+from repro_torch.kernels.megakernel import ops as chain_ops  # noqa: E402
+from repro_torch.kernels.megakernel.ops import (  # noqa: E402
+    ChainBlockSpec, block_chain_op)
+from repro_torch.kernels.megakernel.ref import block_chain_ref  # noqa: E402
 from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
     resblock_fused_op, smem_bytes)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.serve import ImageRequest, ResNetEngine  # noqa: E402
+from repro_torch.tune.config import KernelConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +84,12 @@ REPS = 50         # timed calls per measurement
 RESNET20_BLOCKS = [((32, 16, 16, 1), 3), ((32, 16, 32, 2), 1),
                    ((16, 32, 32, 1), 2), ((16, 32, 64, 2), 1),
                    ((8, 64, 64, 1), 2)]
+# the narrow chains of tests/test_kernels.py: links of (cin, cout, stride)
+# on a 16x16 input
+NARROW_CHAINS = [[(8, 8, 1)], [(8, 8, 1), (8, 8, 1)],
+                 [(8, 8, 1), (8, 16, 2), (16, 16, 1)],
+                 [(4, 8, 2), (8, 16, 2)]]
+SKIP_CYCLES = [(3, 0, -2), (0, -2, 3), (-2, 3, 0)]
 
 
 def emit(phase, **kw):
@@ -278,6 +300,127 @@ def kernels_phase(rng, dev):
     return stem, block
 
 
+def fit_shift(acc):
+    """The requant shift that puts the 90th percentile of the positive
+    accumulators near 192, so that most outputs lie inside (0, 255)."""
+    pos = acc[acc > 0].double()
+    q = float(torch.quantile(pos[:1 << 24], 0.9)) if pos.numel() else 1.0
+    return int(math.ceil(math.log2(max(q, 1.0) / 192)))
+
+
+def live_chain(rng, dev, shapes, n, stem_och=0, skips=(3, 0, -2)):
+    """Random operands for a chain of ``df.BlockShape`` links and a random
+    input (the RGB image when ``stem_och``), every requant shift chosen
+    link by link from the plain arithmetic so that the maps stay alive
+    through the whole chain; skip shifts cycle through ``skips``.  Returns
+    ``(x, blocks, specs, stem, stem_shift)``."""
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape,
+                                             np.int8)).to(dev)
+
+    def i32(c):
+        return torch.from_numpy(
+            rng.integers(-500, 500, c).astype(np.int32)).to(dev)
+
+    first = shapes[0]
+    x = torch.from_numpy(rng.integers(
+        0, 256, (n, first.h, first.w, 3 if stem_och else first.ich),
+        np.uint8)).to(dev)
+    h, stem, stem_shift = x, None, None
+    if stem_och:
+        stem = (i8(3, 3, 3, stem_och), i32(stem_och))
+        acc = conv_i32(x, stem[0]) + stem[1]
+        stem_shift = fit_shift(acc)
+        h = requant_u8(acc, stem_shift)
+    blocks, specs = [], []
+    for i, b in enumerate(shapes):
+        ws = (i8(3, 3, b.ich, b.och), i32(b.och), i8(3, 3, b.och, b.och),
+              i32(b.och))
+        if b.downsample:
+            ws += (i8(1, 1, b.ich, b.och), i32(b.och))
+        acc0 = conv_i32(h, ws[0], b.stride) + ws[1]
+        shift0 = fit_shift(acc0)
+        skip_shift = skips[i % len(skips)]
+        skip = shift_align(conv_i32(h, ws[4], b.stride) + ws[5]
+                           if b.downsample else h, skip_shift)
+        acc1 = conv_i32(requant_u8(acc0, shift0), ws[2]) + ws[3] + skip
+        shift1 = fit_shift(acc1)
+        h = requant_u8(acc1, shift1)
+        blocks.append(ws)
+        specs.append(ChainBlockSpec(stride=b.stride, has_ds=b.downsample,
+                                    shift0=shift0, shift1=shift1,
+                                    skip_shift=skip_shift))
+    return x, tuple(blocks), tuple(specs), stem, stem_shift
+
+
+def check_chain(what, case, shapes, stem_och, bt):
+    """block_chain against its plain version, bitwise, at one batch tile;
+    the kernel's shared memory against the planner's formula."""
+    x, blocks, specs, stem, stem_shift = case
+    got = block_chain_op(x, blocks, specs=specs, stem=stem,
+                         stem_shift=stem_shift,
+                         config=KernelConfig(batch_tile=bt))
+    torch.cuda.synchronize()
+    ref = block_chain_ref(x, blocks, specs=specs, stem=stem,
+                          stem_shift=stem_shift)
+    check(torch.equal(got, ref),
+          f"block_chain {what} batch_tile={bt} differs from plain")
+    check_unsaturated(got, f"block_chain {what} batch_tile={bt}")
+    smem = chain_ops.smem_bytes(shapes, bt, stem_och)
+    check(smem == df.chain_task_smem_bytes(shapes, bt, stem_och),
+          f"block_chain {what} batch_tile={bt}: kernel smem {smem} != "
+          f"chain_task_smem_bytes")
+    return max_abs_err(got, ref), smem
+
+
+def chain_phase(rng, dev):
+    """block_chain against its plain version on every tested chain and
+    tile, then its timings on ResNet20's chain at batch 32; returns the
+    kernel record with its largest deviation."""
+    err = 0
+    r20, r8 = df.resnet_block_shapes(3), df.resnet_block_shapes(1)
+    cases = [("resnet20", r20, n, 16, bts)
+             for n, bts in ((BUCKET, (1, 2)), (256, (1,)))]
+    cases.append(("resnet8", r8, BUCKET, 16, (1, 2)))
+    for links in NARROW_CHAINS:
+        h, shapes = 16, []
+        for cin, cout, stride in links:
+            shapes.append(df.BlockShape(h, h, cin, cout,
+                                        stride != 1 or cin != cout, stride))
+            h //= stride
+        cases.append((f"{len(links)}-link narrow", shapes, 4, 0, (1, 2)))
+    for name, shapes, n, stem_och, bts in cases:
+        for skips in SKIP_CYCLES[:1] if len(shapes) >= 3 else SKIP_CYCLES:
+            case = live_chain(rng, dev, shapes, n, stem_och, skips)
+            for bt in bts:
+                e, smem = check_chain(f"{name} N={n} skips={skips}", case,
+                                      shapes, stem_och, bt)
+                err = max(err, e)
+                emit("kernel_check", name="block_chain", chain=name, n=n,
+                     batch_tile=bt, skips=list(skips), bitwise=True,
+                     smem_bytes=smem)
+
+    x, blocks, specs, stem, stem_shift = live_chain(rng, dev, r20, BUCKET, 16)
+    kw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
+    out = block_chain_op(x, blocks, **kw)
+    t = dict(ms=device_ms(lambda: block_chain_op(x, blocks, **kw), REPS),
+             call_ms=call_ms(lambda: block_chain_op(x, blocks, **kw), REPS),
+             plain_ms=device_ms(lambda: block_chain_ref(x, blocks, **kw),
+                                REPS))
+    bt2 = KernelConfig(batch_tile=2)
+    t["ms_batch_tile_2"] = device_ms(
+        lambda: block_chain_op(x, blocks, config=bt2, **kw), REPS)
+    operands = [x, *stem, *(w for ws in blocks for w in ws), out]
+    ops = 2 * BUCKET * macs_per_image(R.RESNET20)
+    t["bound_ms"], t["bound_by"] = bound(nbytes(*operands), ops)
+    t["bound_bytes_ms"] = nbytes(*operands) / HBM_BYTES_PER_S * 1e3
+    t["bound_ops_ms"] = ops / INT8_OPS_PER_S * 1e3
+    smem = chain_ops.smem_bytes(r20, 1, 16)
+    emit("kernel", name="block_chain", n=BUCKET, chain="ResNet20 stem+b0..b8",
+         smem_bytes=smem, bitwise=True, **t)
+    return dict(t, smem_bytes=smem, max_abs_err=err)
+
+
 def macs_per_image(cfg):
     res, ich = cfg.img, cfg.base_width
     macs = res * res * 27 * ich
@@ -290,35 +433,52 @@ def macs_per_image(cfg):
     return macs
 
 
-def serve_phase(cfg, seed, dev):
-    """Serve ``REQUESTS`` images through the engine; returns the engine and
-    the launch counts of that run."""
+def launch_plan(cfg, backend):
+    """Launches of each kernel per bucket run on ``backend``, and its chain
+    plan (``cuda`` is the plan with every block a singleton chain)."""
+    b = get_backend(backend)
+    chains = lowering.plan_chains(
+        lowering.plan_model(lowering.optimized_graph(cfg)), cfg,
+        cuts=b.cuts, fuse_stem=b.fuse_stem, smem_budget=b.smem_budget)
+    singles = sum(len(c.blocks) == 1 and c.stem is None for c in chains)
+    return dict(conv_stem=int(chains[0].stem is None),
+                resblock_fused=singles,
+                block_chain=len(chains) - singles), \
+        [c.describe() for c in chains]
+
+
+def serve_phase(cfg, seed, dev, backend):
+    """Serve ``REQUESTS`` images through the engine on ``backend``; returns
+    the engine and the launch counts of that run."""
     qp = R.quantize_params(R.fold_params(R.init_params(
         cfg, torch.Generator().manual_seed(seed))), cfg)
     rng = np.random.default_rng(seed)
     imgs = rng.uniform(0.0, 0.999, (REQUESTS, 32, 32, 3)).astype(
         np.float32)
-    eng = ResNetEngine(cfg, qp, batch=BUCKET, backend="cuda",
+    eng = ResNetEngine(cfg, qp, batch=BUCKET, backend=backend,
                        batch_sizes=(1, 8, BUCKET), ab_backends=("torch-int",))
     reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
     for r in reqs:
         eng.submit(r)
 
     conv_stem_op.launches = resblock_fused_op.launches = 0
+    block_chain_op.launches = 0
     t0 = time.perf_counter()
     ticks = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(conv_stem=conv_stem_op.launches,
-                    resblock_fused=resblock_fused_op.launches)
+                    resblock_fused=resblock_fused_op.launches,
+                    block_chain=block_chain_op.launches)
 
     runs = sum(eng.model.run_counts.values())
-    n_blocks = len(R.block_strides(cfg))
+    per_run, chains = launch_plan(cfg, backend)
     check(eng.served == REQUESTS and all(r.done for r in reqs),
           "engine left requests unserved")
     check(runs == math.ceil(REQUESTS / BUCKET), f"{runs} bucket runs")
-    check(launches == dict(conv_stem=runs, resblock_fused=runs * n_blocks),
-          f"launch counts {launches} for {runs} bucket runs")
+    check(launches == {k: runs * v for k, v in per_run.items()},
+          f"{backend}: launch counts {launches} for {runs} bucket runs of "
+          f"{per_run} each")
 
     # the served model's u8 maps on the padded batches of its own bucket
     # runs (32, then 5 padded to 8), bitwise against the torch-int shadow's
@@ -354,8 +514,9 @@ def serve_phase(cfg, seed, dev):
                    device_idle_share=1.0 - graphed / eager,
                    images_per_s_bucket32=BUCKET / (eager * 1e-3),
                    images_per_s_bucket32_graphed=BUCKET / (graphed * 1e-3))
-    emit("serve", model=cfg.name, requests=REQUESTS, ticks=ticks,
-         bucket_runs=bucket_runs, launches=launches,
+    emit("serve", model=cfg.name, backend=backend, chains=chains,
+         requests=REQUESTS, ticks=ticks, bucket_runs=bucket_runs,
+         launches=launches,
          serve_wall_s=wall, u8_bitwise=True, max_abs_logit_dev=dev_max,
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          feature_nonzero_share=float((feats > 0).float().mean()),
@@ -363,7 +524,7 @@ def serve_phase(cfg, seed, dev):
     return eng, launches, summary
 
 
-def profile_phase(eng, dev):
+def profile_phase(eng, dev, backend):
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.zeros((BUCKET, 32, 32, 3), device=dev)
@@ -378,7 +539,7 @@ def profile_phase(eng, dev):
         return getattr(e, "self_device_time_total", 0)
 
     rows = sorted(prof.key_averages(), key=lambda e: -device_us(e))
-    emit("profile", model=eng.cfg.name, forwards=5,
+    emit("profile", model=eng.cfg.name, backend=backend, forwards=5,
          top=[dict(name=e.key[:60], count=e.count, device_us=device_us(e))
               for e in rows[:12]])
 
@@ -393,11 +554,19 @@ def main(argv=None):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     build_phase()
-    stem, block = kernels_phase(np.random.default_rng(args.seed), dev)
-    eng20, launches, serve20 = serve_phase(R.RESNET20, args.seed, dev)
-    serve8 = serve_phase(R.RESNET8, args.seed, dev)[2]
-    profile_phase(eng20, dev)
+    rng = np.random.default_rng(args.seed)
+    stem, block = kernels_phase(rng, dev)
+    chain = chain_phase(rng, dev)
+    eng20, launches, serve20 = serve_phase(R.RESNET20, args.seed, dev,
+                                           "cuda")
+    serve8 = serve_phase(R.RESNET8, args.seed, dev, "cuda")[2]
+    eng20s, launches_s, serve20s = serve_phase(R.RESNET20, args.seed, dev,
+                                               "cuda-stream")
+    serve8s = serve_phase(R.RESNET8, args.seed, dev, "cuda-stream")[2]
+    profile_phase(eng20, dev, "cuda")
+    profile_phase(eng20s, dev, "cuda-stream")
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
@@ -413,11 +582,19 @@ def main(argv=None):
              library_ms=None,
              per="the 9 launches of one ResNet20 forward at batch 32",
              **block),
+        dict(name="block_chain", route="cuda", source=src + "block_chain.cu",
+             replaces="src/repro/kernels/megakernel/megakernel.py:203",
+             launches=launches_s["block_chain"], bitwise=True,
+             library_ms=None,
+             per="the one launch of a cuda-stream ResNet20 forward at "
+                 "batch 32", **chain),
     ]
     # the serve summary rides on the kernels line so that it survives in
     # any tail of the output that keeps the last lines
     print(json.dumps({"kernels": rows, "serve": {
-        "resnet20": serve20, "resnet8": serve8}}), flush=True)
+        "resnet20": serve20, "resnet8": serve8,
+        "resnet20_stream": serve20s, "resnet8_stream": serve8s},
+        "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

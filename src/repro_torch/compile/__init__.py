@@ -9,8 +9,8 @@ from repro_torch.compile.params import (                 # noqa: F401
     QConvParams, QLinearParams, QBlockParams, QResNetParams,
     activation_out_specs, ensure_typed, params_from_numpy)
 from repro_torch.compile.lowering import (               # noqa: F401
-    LoweringError, LoweringPlan, StemTask, BlockTask, HeadTask, model_graph,
-    optimized_graph, plan_model, register_task)
+    ChainTask, LoweringError, LoweringPlan, StemTask, BlockTask, HeadTask,
+    model_graph, optimized_graph, plan_chains, plan_model, register_task)
 from repro_torch.compile.backends import (               # noqa: F401
     Backend, register_backend, get_backend, list_backends)
 from repro_torch.compile.compiler import (               # noqa: F401

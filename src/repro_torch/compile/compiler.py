@@ -4,6 +4,10 @@
     cm = compile_model(cfg, qp, backend="cuda", batch_sizes=(1, 8, 32))
     out = cm(images)          # bucket select + zero-pad + run + slice
 
+``backend`` is a registered name (``cuda``, ``cuda-stream``, ``torch-int``)
+or an instance, e.g. ``CudaStreamBackend(cuts=[[0, 1, 2], [3, 4, 5, 6, 7,
+8]])`` for an explicit chain partition.
+
 The graph is lowered once through the backend with the weights placed on
 the model's device; serving then only selects the smallest bucket that
 holds a batch, zero-pads up to it, chunks batches beyond the largest

@@ -7,14 +7,16 @@ streams wired) and raises :class:`LoweringError` naming the offending node,
 its kind and the failed check, so a backend never compiles the unoptimized
 dataflow.
 
-Entry point: :func:`plan_model` (conv graphs -> ``LoweringPlan``).  The
-``config`` field of the tasks is the slot for a tuned kernel configuration
-and is always ``None`` here.
+Entry points: :func:`plan_model` (conv graphs -> ``LoweringPlan``) and
+:func:`plan_chains` (a plan's blocks -> streaming ``ChainTask`` runs, the
+front half of the ``cuda-stream`` backend).  The ``config`` field of the
+tasks is the slot for a tuned kernel configuration and is always ``None``
+here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.core import graph as G
 from repro_torch.compile.params import QResNetParams
@@ -56,6 +58,27 @@ class BlockTask:
 class HeadTask:
     pool: str                 # pool kind ("avg")
     num_classes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTask:
+    """A run of consecutive residual blocks fused into ONE ``block_chain``
+    launch, optionally with the stem conv at its head.  The chain's config
+    is its first member's (the chain kernel's only knob is
+    ``batch_tile``)."""
+    blocks: tuple             # Tuple[BlockTask, ...], consecutive indices
+    stem: Optional[StemTask] = None
+
+    @property
+    def config(self) -> Optional[object]:
+        if self.stem is not None and self.stem.config is not None:
+            return self.stem.config
+        return self.blocks[0].config if self.blocks else None
+
+    def describe(self) -> str:
+        parts = (["stem"] if self.stem is not None else []) + \
+            [f"b{t.index}" for t in self.blocks]
+        return "+".join(parts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,3 +244,58 @@ def plan_model(g: G.Graph,
                     f"downsample={t.has_ds} but params "
                     f"downsample={params.blocks[t.index].has_ds}")
     return plan
+
+
+def plan_chains(plan: LoweringPlan, cfg,
+                cuts: Optional[Sequence[Sequence[int]]] = None,
+                fuse_stem: bool = True,
+                smem_budget: Optional[int] = None) -> List[ChainTask]:
+    """Partition the plan's block sequence into streaming chains — the front
+    half of the ``cuda-stream`` backend.
+
+    ``cuts`` (optional) is an explicit partition as lists of block indices;
+    it must be consecutive runs covering every block exactly once (any such
+    partition is arithmetically legal — the chain-cut property — so an
+    explicit cut is only shape-checked, not budget-checked).  Without it
+    the greedy planner (``tune.space.chain_cut_points``) picks the longest
+    runs whose ``block_chain`` thread block fits ``smem_budget`` (default
+    ``tune.space.SMEM_BUDGET``).  ``fuse_stem`` pulls the stem conv into
+    the first chain when that chain stays legal with it; otherwise the stem
+    runs as its own ``conv_stem`` kernel."""
+    from repro_torch.core import dataflow
+    from repro_torch.tune import space as tspace
+
+    budget = tspace.SMEM_BUDGET if smem_budget is None else smem_budget
+    shapes = dataflow.resnet_block_shapes(cfg.blocks_per_stage,
+                                          cfg.base_width, cfg.img)
+    if len(shapes) != len(plan.blocks):
+        raise LoweringError(
+            f"config yields {len(shapes)} block shapes but the plan has "
+            f"{len(plan.blocks)} blocks")
+
+    stem_och = cfg.base_width if fuse_stem else 0
+    if cuts is None:
+        # legality at batch_tile=1 is the binding constraint (any batch
+        # bucket admits bt=1), so the partition is bucket-independent
+        cuts = tspace.chain_cut_points(shapes, batch=1, stem_och=stem_och,
+                                       smem_budget=budget)
+    else:
+        seen = [i for run in cuts for i in run]
+        if seen != list(range(len(plan.blocks))):
+            raise LoweringError(
+                f"chain cuts {cuts} are not a partition of blocks "
+                f"0..{len(plan.blocks) - 1} into consecutive runs")
+
+    chains = []
+    for run in cuts:
+        stem = None
+        if fuse_stem and run and run[0] == 0:
+            # the stem joins the first chain only if the joined chain still
+            # has a legal tiling; otherwise it stays a separate kernel
+            if tspace.chain_space([shapes[i] for i in run], batch=1,
+                                  stem_och=cfg.base_width,
+                                  smem_budget=budget):
+                stem = plan.stem
+        chains.append(ChainTask(
+            blocks=tuple(plan.blocks[i] for i in run), stem=stem))
+    return chains

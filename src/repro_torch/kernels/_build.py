@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>-<digest>.so``
 with a plain C interface (pointers and the stream as ``void*``), loaded
-with ``ctypes``.  The digest covers the source, the shared header and the
-flags, so an edited kernel never loads a stale library.  Libraries go to
+with ``ctypes``.  The digest covers the source, every shared header of
+``csrc/`` and the flags, so an edited kernel never loads a stale library.  Libraries go to
 ``build/repro_torch/`` at the root of the checkout (git-ignored).
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("conv_stem", "resblock_fused")
+KERNELS = ("conv_stem", "resblock_fused", "block_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +50,7 @@ def nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]

@@ -23,6 +23,21 @@ def check_shift(name: str, shift) -> int:
     return shift
 
 
+def check_weight(name: str, t: torch.Tensor, shape) -> None:
+    """A filter operand: int8 of exactly ``shape``."""
+    if t.dtype != torch.int8 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)} int8, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def check_bias(name: str, t: torch.Tensor, cout: int) -> None:
+    """A bias operand: ``(cout,)`` int16 or int32 (widened by the
+    wrappers to the int32 accumulator)."""
+    if t.dtype not in (torch.int16, torch.int32) or tuple(t.shape) != (cout,):
+        raise ValueError(f"{name} must be ({cout},) int16/int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
 def requant_u8(acc: torch.Tensor, shift: int):
     """int32 product-domain accumulator -> u8 activation domain: ReLU, then
     a pow2 shift (positive = rounding right shift ``(acc + half) >> s``,

@@ -29,16 +29,21 @@
 //   Phase A: conv0 (strided) -> requant_u8 -> y0 in shared memory.
 //   Phase B: skip (identity, or the fused 1x1 downsample) + b1 + conv1 over
 //            y0 -> requant_u8 -> device memory.
-// Each work item is one output pixel times four consecutive output
-// channels.  At ResNet20's shapes the block needs 41.6-87.3 KB of shared
-// memory, above the 48 KB default, so the launch raises the limit first.
-// Tensor cores (mma.sync m16n8k32 takes .u8.s8), several blocks per image
-// and cp.async/TMA staging are later work.
-#include "common.cuh"
+// The two phases are the shared block body of block_body.cuh; each work
+// item is one output pixel times four consecutive output channels.  At
+// ResNet20's shapes the block needs 41.6-87.3 KB of shared memory, above
+// the 48 KB default, so the launch raises the limit first.  Tensor cores
+// (mma.sync m16n8k32 takes .u8.s8), several blocks per image and
+// cp.async/TMA staging are later work.
+#include "block_body.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// One thread block per image: at the serving buckets (up to 32 images) no
+// SM holds more than one block, so the bound lets ptxas spend registers
+// freely (about 100; at its default target of 64 the block body spills).
+constexpr int kMinBlocks = 1;
 
 struct Layout {
   int pad_lo, hp, wp, oh, ow, bytes;
@@ -64,56 +69,17 @@ __host__ __device__ inline Layout layout(int h, int w, int cin, int cout,
   return l;
 }
 
-// HWIO (taps, cin, cout) s8 in device memory -> [tap][cout][cin] in shared
-// memory, one 32-bit word of four input channels at a time.
-__device__ void stage_transposed(const int8_t* __restrict__ src, int8_t* dst,
-                                 int taps, int cin, int cout) {
-  const int cin4 = cin / 4;
-  for (int row = threadIdx.x; row < taps * cout; row += blockDim.x) {
-    const int tap = row / cout;
-    const int co = row - tap * cout;
-    const int8_t* s = src + tap * cin * cout + co;
-    unsigned* d = reinterpret_cast<unsigned*>(dst + row * cin);
-    for (int c4 = 0; c4 < cin4; ++c4) {
-      const int8_t* q = s + 4 * c4 * cout;
-      d[c4] = static_cast<uint8_t>(q[0]) |
-              static_cast<unsigned>(static_cast<uint8_t>(q[cout])) << 8 |
-              static_cast<unsigned>(static_cast<uint8_t>(q[2 * cout])) << 16 |
-              static_cast<unsigned>(static_cast<uint8_t>(q[3 * cout])) << 24;
-    }
-  }
-}
-
-// acc[j] += sum over the words of act (n4 words) times the weight row of
-// output channel co + j (rows of n4 words, consecutive).
-__device__ __forceinline__ void dot4(const unsigned* __restrict__ act,
-                                     const int* __restrict__ wrow, int n4,
-                                     int acc[4]) {
-  for (int c4 = 0; c4 < n4; ++c4) {
-    const unsigned v = act[c4];
-    acc[0] = repro::dp4a_us(v, wrow[c4], acc[0]);
-    acc[1] = repro::dp4a_us(v, wrow[n4 + c4], acc[1]);
-    acc[2] = repro::dp4a_us(v, wrow[2 * n4 + c4], acc[2]);
-    acc[3] = repro::dp4a_us(v, wrow[3 * n4 + c4], acc[3]);
-  }
-}
-
-__device__ __forceinline__ unsigned pack_u8(const int acc[4], int shift) {
-  return repro::requant_u8(acc[0], shift) | repro::requant_u8(acc[1], shift) << 8 |
-         repro::requant_u8(acc[2], shift) << 16 | repro::requant_u8(acc[3], shift) << 24;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 resblock_fused_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w0,
                       const int32_t* __restrict__ b0, const int8_t* __restrict__ w1,
                       const int32_t* __restrict__ b1, const int8_t* __restrict__ wd,
                       const int32_t* __restrict__ bd, uint8_t* __restrict__ out,
                       int h, int w, int cin, int cout, int stride, int shift0,
                       int shift1, int skip_shift) {
+  using repro::Map;
   const bool has_ds = wd != nullptr;
   const Layout l = layout(h, w, cin, cout, stride, has_ds);
-  const int cin4 = cin / 4, cout4 = cout / 4;
-  const int ohp = l.oh + 2, owp = l.ow + 2;
+  const int cin4 = cin / 4;
 
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* sb0 = reinterpret_cast<int32_t*>(smem);
@@ -126,14 +92,12 @@ resblock_fused_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ 
   uint8_t* ys = smem + l.y_off;
 
   // ---- stage biases, weights and the zero-haloed input tile ----
-  for (int i = threadIdx.x; i < cout; i += blockDim.x) {
-    sb0[i] = b0[i];
-    sb1[i] = b1[i];
-    sbd[i] = has_ds ? bd[i] : 0;
-  }
-  stage_transposed(w0, w0t, 9, cin, cout);
-  stage_transposed(w1, w1t, 9, cout, cout);
-  if (has_ds) stage_transposed(wd, wdt, 1, cin, cout);
+  repro::stage_bias(b0, sb0, cout);
+  repro::stage_bias(b1, sb1, cout);
+  repro::stage_bias(bd, sbd, cout);
+  repro::stage_transposed(w0, w0t, 9, cin, cout);
+  repro::stage_transposed(w1, w1t, 9, cout, cout);
+  if (has_ds) repro::stage_transposed(wd, wdt, 1, cin, cout);
   const uint8_t* xn = x + static_cast<size_t>(blockIdx.x) * h * w * cin;
   for (int i = threadIdx.x; i < l.hp * l.wp * cin4; i += blockDim.x) {
     const int pos = i / cin4;
@@ -145,59 +109,24 @@ resblock_fused_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ 
       v = *reinterpret_cast<const unsigned*>(xn + (static_cast<size_t>(iy) * w + ix) * cin + 4 * c4);
     reinterpret_cast<unsigned*>(xs)[i] = v;
   }
-  for (int i = threadIdx.x; i < ohp * owp * cout4; i += blockDim.x) {
-    const int pos = i / cout4;
-    const int py = pos / owp, px = pos - (pos / owp) * owp;
-    if (py == 0 || py == ohp - 1 || px == 0 || px == owp - 1)
-      reinterpret_cast<unsigned*>(ys)[i] = 0;  // y0's zero halo for conv1
-  }
+  repro::zero_ring(ys, l.oh, l.ow, cout);  // y0's zero halo for conv1
   __syncthreads();
 
-  const int items = l.oh * l.ow * cout4;
+  // the x tile holds the padded input as stored (off 0); y0 is stored with
+  // a one-pixel ring: written at off 1, read by conv1 as its padded input
+  const Map xm{xs, l.wp, 0, cin};
+  const int owp = l.ow + 2;
 
   // ---- phase A: conv0 (strided) -> requant_u8 -> y0 stays on chip ----
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int pix = it / cout4;
-    const int co = 4 * (it - pix * cout4);
-    const int oy = pix / l.ow, ox = pix - (pix / l.ow) * l.ow;
-    int acc[4] = {sb0[co], sb0[co + 1], sb0[co + 2], sb0[co + 3]};
-    for (int kh = 0; kh < 3; ++kh)
-      for (int kw = 0; kw < 3; ++kw)
-        dot4(reinterpret_cast<const unsigned*>(
-                 xs + ((oy * stride + kh) * l.wp + ox * stride + kw) * cin),
-             reinterpret_cast<const int*>(w0t + ((kh * 3 + kw) * cout + co) * cin),
-             cin4, acc);
-    *reinterpret_cast<unsigned*>(ys + ((oy + 1) * owp + ox + 1) * cout + co) =
-        pack_u8(acc, shift0);
-  }
+  repro::conv3x3_requant(xm, w0t, sb0, stride, l.oh, l.ow, cout, shift0,
+                         Map{ys, owp, 1, cout});
   __syncthreads();
 
   // ---- phase B: skip + b1 initialize conv1's accumulator (add-fold) ----
   uint8_t* on = out + static_cast<size_t>(blockIdx.x) * l.oh * l.ow * cout;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int pix = it / cout4;
-    const int co = 4 * (it - pix * cout4);
-    const int oy = pix / l.ow, ox = pix - (pix / l.ow) * l.ow;
-    // the skip reads x at (pad_lo + o * stride): SAME padding of a 1x1 conv
-    // (or of the identity) is zero
-    const uint8_t* xc = xs + ((l.pad_lo + oy * stride) * l.wp + l.pad_lo + ox * stride) * cin;
-    int acc[4];
-    if (has_ds) {
-      int accd[4] = {sbd[co], sbd[co + 1], sbd[co + 2], sbd[co + 3]};
-      dot4(reinterpret_cast<const unsigned*>(xc),
-           reinterpret_cast<const int*>(wdt + co * cin), cin4, accd);
-      for (int j = 0; j < 4; ++j) acc[j] = repro::shift_align(accd[j], skip_shift);
-    } else {
-      for (int j = 0; j < 4; ++j) acc[j] = repro::shift_align(xc[co + j], skip_shift);
-    }
-    for (int j = 0; j < 4; ++j) acc[j] += sb1[co + j];
-    for (int kh = 0; kh < 3; ++kh)
-      for (int kw = 0; kw < 3; ++kw)
-        dot4(reinterpret_cast<const unsigned*>(ys + ((oy + kh) * owp + ox + kw) * cout),
-             reinterpret_cast<const int*>(w1t + ((kh * 3 + kw) * cout + co) * cout),
-             cout4, acc);
-    *reinterpret_cast<unsigned*>(on + pix * cout + co) = pack_u8(acc, shift1);
-  }
+  repro::residual_requant(xm, l.pad_lo, stride, wdt, sbd, has_ds, skip_shift,
+                          Map{ys, owp, 0, cout}, w1t, sb1, l.oh, l.ow, cout,
+                          shift1, Map{on, l.ow, 0, cout});
 }
 
 }  // namespace

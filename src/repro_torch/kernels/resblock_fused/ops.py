@@ -14,7 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_shift
+from repro_torch.kernels.common import check_bias, check_shift, check_weight
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -36,18 +36,6 @@ def smem_bytes(h, w, cin, cout, stride, has_ds) -> int:
                                             int(has_ds))
 
 
-def _check_w(name, t, shape):
-    if t.dtype != torch.int8 or tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be {shape} int8, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-
-
-def _check_b(name, t, cout):
-    if t.dtype not in (torch.int16, torch.int32) or tuple(t.shape) != (cout,):
-        raise ValueError(f"{name} must be ({cout},) int16/int32, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-
-
 def resblock_fused_op(x, w0, b0, w1, b1, wd=None, bd=None, *, stride=1,
                       shift0, shift1, skip_shift=0):
     """x: (N,H,W,Cin) uint8 (unpadded; SAME padding is the kernel's: (1,1)
@@ -63,17 +51,17 @@ def resblock_fused_op(x, w0, b0, w1, b1, wd=None, bd=None, *, stride=1,
         raise ValueError(f"w0 must be (3,3,{Cin},Cout), got "
                          f"{tuple(w0.shape)}")
     Cout = w0.shape[3]
-    _check_w("w0", w0, (3, 3, Cin, Cout))
-    _check_w("w1", w1, (3, 3, Cout, Cout))
-    _check_b("b0", b0, Cout)
-    _check_b("b1", b1, Cout)
+    check_weight("w0", w0, (3, 3, Cin, Cout))
+    check_weight("w1", w1, (3, 3, Cout, Cout))
+    check_bias("b0", b0, Cout)
+    check_bias("b1", b1, Cout)
     if (wd is None) != (bd is None):
         raise ValueError("pass wd and bd together (fused downsample) or "
                          "neither (identity skip)")
     has_ds = wd is not None
     if has_ds:
-        _check_w("wd", wd, (1, 1, Cin, Cout))
-        _check_b("bd", bd, Cout)
+        check_weight("wd", wd, (1, 1, Cin, Cout))
+        check_bias("bd", bd, Cout)
     elif stride != 1 or Cin != Cout:
         raise ValueError(f"identity skip needs stride 1 and Cin == Cout, "
                          f"got stride {stride}, {Cin} -> {Cout}")

@@ -4,7 +4,8 @@
 classification — through :class:`repro_torch.compile.CompiledModel`: the
 optimized graph is lowered once, weights live on the engine's device, and a
 tick only selects a bucket, zero-pads and runs.  The default backend is
-``cuda``, the hand-written kernel pipeline.
+``cuda``, the hand-written per-block kernel pipeline; ``cuda-stream`` runs
+each ResNet forward as one streamed ``block_chain`` launch.
 """
 from __future__ import annotations
 
@@ -44,15 +45,19 @@ class ResNetEngine:
     """Image-classification engine serving through ``CompiledModel``.
 
     Backends come from the ``repro_torch.compile`` registry: ``cuda``
-    (default; the fused kernel pipeline) and ``torch-int`` (the reference
-    integer graph, bit-identical u8 maps).  ``device=None``
-    means ``cuda`` and raises without a GPU; pass ``device="cpu"`` to run
-    the kernels' plain versions.
+    (default; ``conv_stem`` + one ``resblock_fused`` launch per block),
+    ``cuda-stream`` (the blocks as chains, one ``block_chain`` launch each,
+    the stem fused) and ``torch-int`` (the reference integer graph); all
+    three give bit-identical u8 maps.  ``device=None`` means ``cuda`` and
+    raises without a GPU; pass ``device="cpu"`` to run the kernels' plain
+    versions.
 
     ``ab_backends`` compiles shadow models on further backends; every tick
     replays the primary batch through each shadow and records the max
     absolute logit deviation in ``ab_stats`` — a live parity probe for a
-    new backend against the serving one."""
+    new backend against the serving one, e.g.
+    ``ResNetEngine(cfg, qp, backend="cuda-stream",
+    ab_backends=("torch-int",))``."""
 
     def __init__(self, cfg, qparams, batch: int = 8, backend: str = "cuda",
                  batch_sizes=None, ab_backends=(), device=None):

@@ -4,16 +4,26 @@ that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.compile import lower_features
+from repro_torch.core import dataflow as df
+from repro_torch.core.quant import shift_align
+from repro_torch.kernels.common import conv_i32, requant_u8
 from repro_torch.kernels.conv_stem.ops import conv_stem_op
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref
+from repro_torch.kernels.megakernel import ops as chain_ops
+from repro_torch.kernels.megakernel.ops import ChainBlockSpec, block_chain_op
+from repro_torch.kernels.megakernel.ref import block_chain_ref
 from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
 from repro_torch.models import resnet as R
+from repro_torch.tune.config import KernelConfig
+from repro_torch.tune.space import SMEM_BUDGET
 
 pytestmark = pytest.mark.cuda
 
@@ -81,5 +91,121 @@ def test_cuda_backend_matches_torch_int_on_gpu(dev):
         cfg, torch.Generator().manual_seed(1))), cfg)
     imgs = np.random.default_rng(1).uniform(0.0, 0.999, (5, 32, 32, 3))
     got = lower_features(cfg, qp, "cuda", device=dev)(imgs)
+    ref = lower_features(cfg, qp, "torch-int", device=dev)(imgs)
+    assert got.is_cuda and torch.equal(got, ref) and bool(got.any())
+
+
+def _fit_shift(acc):
+    """The requant shift that puts the 90th percentile of the positive
+    accumulators near 192: most outputs then lie strictly inside (0, 255)."""
+    pos = acc[acc > 0].double()
+    q = float(torch.quantile(pos[:1 << 24], 0.9)) if pos.numel() else 1.0
+    return int(math.ceil(math.log2(max(q, 1.0) / 192)))
+
+
+def live_chain(rng, dev, shapes, n, stem_och=0, skips=(3, 0, -2)):
+    """Random operands for a chain of ``df.BlockShape`` links and a random
+    input (the RGB image when ``stem_och``), with every requant shift
+    chosen link by link from the plain arithmetic so that the chain's maps
+    stay alive; skip shifts cycle through ``skips``.  Returns
+    ``(x, blocks, specs, stem, stem_shift)``."""
+    def i8(*shape):
+        return _t(rng, dev, -128, 128, shape, np.int8)
+
+    def i32(c):
+        return _t(rng, dev, -500, 500, (c,), np.int32)
+
+    first = shapes[0]
+    x = _t(rng, dev, 0, 256,
+           (n, first.h, first.w, 3 if stem_och else first.ich), np.uint8)
+    h, stem, stem_shift = x, None, None
+    if stem_och:
+        stem = (i8(3, 3, 3, stem_och), i32(stem_och))
+        acc = conv_i32(x, stem[0]) + stem[1]
+        stem_shift = _fit_shift(acc)
+        h = requant_u8(acc, stem_shift)
+    blocks, specs = [], []
+    for i, b in enumerate(shapes):
+        ws = (i8(3, 3, b.ich, b.och), i32(b.och), i8(3, 3, b.och, b.och),
+              i32(b.och))
+        if b.downsample:
+            ws += (i8(1, 1, b.ich, b.och), i32(b.och))
+        acc0 = conv_i32(h, ws[0], b.stride) + ws[1]
+        shift0 = _fit_shift(acc0)
+        skip_shift = skips[i % len(skips)]
+        skip = shift_align(conv_i32(h, ws[4], b.stride) + ws[5]
+                           if b.downsample else h, skip_shift)
+        acc1 = conv_i32(requant_u8(acc0, shift0), ws[2]) + ws[3] + skip
+        shift1 = _fit_shift(acc1)
+        h = requant_u8(acc1, shift1)
+        blocks.append(ws)
+        specs.append(ChainBlockSpec(stride=b.stride, has_ds=b.downsample,
+                                    shift0=shift0, shift1=shift1,
+                                    skip_shift=skip_shift))
+    return x, tuple(blocks), tuple(specs), stem, stem_shift
+
+
+def _unsaturated(out):
+    return float(((out > 0) & (out < 255)).float().mean())
+
+
+def test_block_chain_matches_plain_version(dev):
+    """The ResNet20 chain with the stem fused, at batch 32, and a narrow
+    chain with a stride-2 head at batch_tile 1 and 2: bitwise equal to the
+    plain version, one counted launch each, and the kernel's shared memory
+    equal to the planner's formula."""
+    rng = np.random.default_rng(3)
+    shapes = df.resnet_block_shapes(3)
+    x, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes, 32, 16)
+    before = block_chain_op.launches
+    got = block_chain_op(x, blocks, specs=specs, stem=stem,
+                         stem_shift=stem_shift)
+    torch.cuda.synchronize()
+    ref = block_chain_ref(x, blocks, specs=specs, stem=stem,
+                          stem_shift=stem_shift)
+    assert got.shape == (32, 8, 8, 64) and torch.equal(got, ref)
+    assert _unsaturated(got) >= 0.2
+    assert block_chain_op.launches == before + 1
+    assert chain_ops.smem_bytes(shapes, 1, 16) == \
+        df.chain_task_smem_bytes(shapes, 1, stem_och=16)
+
+    narrow = [df.BlockShape(16, 16, 4, 8, True, 2),
+              df.BlockShape(8, 8, 8, 16, True, 2),
+              df.BlockShape(4, 4, 16, 16, False, 1)]
+    x, blocks, specs, _, _ = live_chain(rng, dev, narrow, 4)
+    ref = block_chain_ref(x, blocks, specs=specs)
+    assert _unsaturated(ref) >= 0.2
+    for bt in (1, 2):
+        got = block_chain_op(x, blocks, specs=specs,
+                             config=KernelConfig(batch_tile=bt))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), bt
+        assert chain_ops.smem_bytes(narrow, bt) == \
+            df.chain_task_smem_bytes(narrow, bt)
+
+
+def test_block_chain_over_budget_is_refused(dev):
+    """A chain whose thread block needs more shared memory than the H100
+    gives one is refused at launch, never run."""
+    shapes = [df.BlockShape(32, 32, 64, 64)] * 2
+    assert df.chain_task_smem_bytes(shapes, 1) > SMEM_BUDGET
+    x, blocks, specs, _, _ = live_chain(np.random.default_rng(4), dev,
+                                        shapes, 2)
+    before = block_chain_op.launches
+    with pytest.raises((RuntimeError, ValueError)):
+        block_chain_op(x, blocks, specs=specs)
+    assert block_chain_op.launches == before
+
+
+def test_cuda_stream_backend_matches_torch_int_on_gpu(dev):
+    """ResNet20 at full width through one block_chain launch: the u8 map
+    equals the torch-int backend's bitwise."""
+    cfg = R.RESNET20
+    qp = R.quantize_params(R.fold_params(R.init_params(
+        cfg, torch.Generator().manual_seed(2))), cfg)
+    imgs = np.random.default_rng(2).uniform(0.0, 0.999, (5, 32, 32, 3))
+    before = block_chain_op.launches
+    got = lower_features(cfg, qp, "cuda-stream", device=dev)(imgs)
+    assert block_chain_op.launches == before + 1
     ref = lower_features(cfg, qp, "torch-int", device=dev)(imgs)
     assert got.is_cuda and torch.equal(got, ref) and bool(got.any())

@@ -7,9 +7,11 @@ Phases, one JSON line each:
 
   1. device   — requires a CUDA GPU (exits 2 without one); prints the card's
                 name and power limit as nvidia-smi reports them.
-  2. build    — compiles the three kernels (conv_stem, resblock_fused,
-                block_chain) from ``src/repro_torch/kernels/csrc``.
-  3. kernels  — each CUDA kernel against its plain PyTorch version on the
+  2. build    — compiles the six kernels (conv_stem, resblock_fused,
+                block_chain, matmul_int8, flash_attention, selective_scan)
+                from ``src/repro_torch/kernels/csrc``, one nvcc each, all
+                started together; prints ptxas registers and spills.
+  3. kernels  — each conv kernel against its plain PyTorch version on the
                 card, bitwise (``torch.equal``): conv_stem at N=256 and
                 N=32 for shifts > 0, = 0, < 0; resblock_fused at every
                 ResNet20 block shape for skip shifts > 0, = 0, < 0;
@@ -34,7 +36,30 @@ Phases, one JSON line each:
                 eager and as a CUDA-graph replay (the device time alone).
   5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 forwards of
                 each backend.
-  6. the ``{"kernels": [...], "serve": {...}}`` line, then
+  6. LM kernels — matmul_int8 bitwise against its plain version at every
+                projection shape of gemma-2b and falcon-mamba-7b at M =
+                2048 (bucket 4, S = 512) and 512, with and without
+                acc_init, and on ragged shapes (N = 16, K = 30, M not a
+                tile multiple); flash_attention at gemma-2b's shape within
+                2e-5 (causal, non-causal, Sq = 128 < Sk, and bf16 within
+                2e-2); selective_scan at falcon-mamba-7b's shape from a
+                nonzero state within 1e-5.  Times as in phase 3, plus the
+                one PyTorch call computing the same function
+                (``library_ms``: ``torch._int_mm`` + init, SDPA).
+  7. LM serve — gemma-2b (18 layers) and falcon-mamba-7b (64 layers) at
+                published width, weights from ``init_lm_params(seed)`` on
+                the card: 6 token requests through ``ResNetEngine`` on
+                ``cuda`` with buckets (1, 4) and a ``torch-int`` shadow;
+                launches against the plan; every task replayed on
+                ``cuda`` and ``torch-int`` on the same inputs (matmul
+                accumulators and outputs bitwise, attention and scan within
+                their tolerances and one int8 step); logits within the
+                bound carried from the final hidden states
+                (``lm_params.logit_tolerance``); the share of hidden int8
+                values that differ, argmax agreement, and how far one int8
+                step travels (``one_step_flip_*``); tokens/s and forward ms,
+                eager and device, idle share; a profiler pass each.
+  8. the ``{"kernels": [...], "serve": {...}}`` line, then
      ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -49,17 +74,33 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.compile import get_backend, lower_forward  # noqa: E402
+from repro_torch.compile import backends as BK  # noqa: E402
+from repro_torch.compile import (get_backend, get_task_impl,  # noqa: E402
+                                 hidden_out_spec, init_lm_params, lm_config,
+                                 lower_forward, plan_lm)
 from repro_torch.compile import lowering  # noqa: E402
+from repro_torch.compile.backends import softplus  # noqa: E402
+from repro_torch.compile.lm_params import logit_tolerance  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dataflow as df  # noqa: E402
-from repro_torch.core.quant import shift_align  # noqa: E402
+from repro_torch.core.quant import (dequantize,  # noqa: E402
+                                   requantize_shift, shift_align)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import conv_stem_op  # noqa: E402
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    attn_tiles, flash_attention_op)
+from repro_torch.kernels.flash_attention.ops import \
+    smem_bytes as flash_smem_bytes  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_plain  # noqa: E402
+from repro_torch.kernels.matmul_int8.ops import matmul_int8_op  # noqa: E402
+from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref  # noqa: E402
 from repro_torch.kernels.megakernel import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.megakernel.ops import (  # noqa: E402
     ChainBlockSpec, block_chain_op)
@@ -67,6 +108,10 @@ from repro_torch.kernels.megakernel.ref import block_chain_ref  # noqa: E402
 from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
     resblock_fused_op, smem_bytes)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
+from repro_torch.kernels.selective_scan.ops import \
+    selective_scan_op  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import \
+    selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.serve import ImageRequest, ResNetEngine  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
@@ -148,11 +193,12 @@ def device_ms(fn, reps):
     return float(np.median(times))
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak=INT8_OPS_PER_S):
     """Least time in ms the card could take: bytes over HBM bandwidth vs
-    int8 operations over the tensor-core peak, the larger of the two."""
+    operations over their peak (default: int8 on the tensor cores), the
+    larger of the two."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -544,6 +590,471 @@ def profile_phase(eng, dev, backend):
               for e in rows[:12]])
 
 
+# ---------------------------------------------------------------------------
+# The LM path: matmul_int8, flash_attention, selective_scan
+# ---------------------------------------------------------------------------
+
+LM_MODELS = ("gemma-2b", "falcon-mamba-7b")
+LM_SEQ = 512
+LM_BUCKET = 4
+LM_REQUESTS = 6   # one full bucket of 4, then 2 padded up to 4
+LM_REPS = 10      # timed calls per LM kernel measurement
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet, dense,
+# at 700 W), the roofline of the two float kernels
+F32_FLOPS_PER_S = 67e12
+FLASH_TOL = 2e-5  # tests/test_kernels.py's flash tolerance (abs and rel)
+SCAN_TOL = 1e-5   # tests/test_kernels.py's scan tolerance (abs and rel)
+BF16_TOL = 2e-2   # tests/test_kernels.py's bf16 flash tolerance
+ACC_INIT_RANGE = 1 << 20   # bias plus a skip shifted left by 10
+
+
+def lm_cfg(name):
+    return lm_config(get_config(name), seq_len=LM_SEQ)
+
+
+def lm_matmul_shapes(cfg):
+    """(roles, K, N, launches per layer) of every projection of ``cfg``."""
+    d = cfg.d_model
+    if cfg.family == "dense":
+        qkv, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        return [("wq", d, qkv, 1), ("wk/wv", d, kv, 2), ("wo", qkv, d, 1),
+                ("up", d, cfg.d_ff, 1), ("down", cfg.d_ff, d, 1)]
+    return [("wu/wz/wdt", d, cfg.d_inner, 3), ("wb/wc", d, cfg.ssm_state, 2),
+            ("wo", cfg.d_inner, d, 1)]
+
+
+def close_err(got, ref, tol):
+    """Largest excess of ``|got - ref|`` over ``tol * (1 + |ref|)`` (the
+    assert_allclose criterion with rtol = atol = tol; <= 0 passes) and the
+    largest absolute deviation."""
+    got, ref = got.double(), ref.double()
+    diff = (got - ref).abs()
+    return float((diff - tol * (1 + ref.abs())).max()), float(diff.max())
+
+
+def library_ms(fn, reps):
+    """Device time of one PyTorch library call computing the kernel's
+    function (the yardstick, used nowhere in the port), or None with the
+    reason printed when this PyTorch refuses the call."""
+    try:
+        return device_ms(fn, reps)
+    except RuntimeError as e:
+        emit("library_call_refused", error=str(e)[:300])
+        return None
+
+
+def s8_unsaturated(acc):
+    """Share of the int8 outputs strictly inside (-128, 127) when ``acc``
+    is requantized by the shift that puts its 90th percentile of |acc| near
+    100, as an LM grid would."""
+    a = acc.abs().flatten()[:1 << 24].double()
+    q = float(torch.quantile(a, 0.9)) if a.numel() else 1.0
+    shift = max(int(math.ceil(math.log2(max(q, 1.0) / 100))), 0)
+    y = shift_align(acc, -shift) if shift else acc
+    return float(((y > -128) & (y < 127)).float().mean())
+
+
+def lm_matmul_phase(rng, dev):
+    """matmul_int8 bitwise against its plain version at every projection
+    shape of both LMs at M = 2048 (bucket 4) and 512 (bucket 1), with and
+    without acc_init, and on ragged shapes; timings at bucket 4.  Returns
+    the kernel record summed over one bucket-4 forward of each LM."""
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape,
+                                             dtype=np.int8)).to(dev)
+
+    def i32(*shape):
+        return torch.from_numpy(rng.integers(
+            -ACC_INIT_RANGE, ACC_INIT_RANGE, shape).astype(np.int32)).to(dev)
+
+    err, per_model, cases = 0, {}, 0
+    for name in LM_MODELS:
+        cfg = lm_cfg(name)
+        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bytes=0, ops=0, launches=0)
+        for roles, K, N, count in lm_matmul_shapes(cfg):
+            for M in (LM_BUCKET * LM_SEQ, LM_SEQ):
+                a, b, init = i8(M, K), i8(K, N), i32(M, N)
+                for acc in (init, None):
+                    got = matmul_int8_op(a, b, acc)
+                    torch.cuda.synchronize()
+                    ref = matmul_int8_ref(a, b, acc)
+                    err = max(err, max_abs_err(got, ref))
+                    check(torch.equal(got, ref),
+                          f"matmul_int8 {name} {roles} M={M} K={K} N={N} "
+                          f"init={acc is not None} differs from plain")
+                    share = s8_unsaturated(ref)
+                    check(share >= MIN_UNSATURATED,
+                          f"matmul_int8 {name} {roles} M={M}: only {share:.3f}"
+                          f" of int8 outputs inside (-128, 127)")
+                    cases += 1
+                if M != LM_BUCKET * LM_SEQ:
+                    continue
+                out = matmul_int8_op(a, b, init)
+                t = dict(
+                    ms=device_ms(lambda: matmul_int8_op(a, b, init), LM_REPS),
+                    call_ms=call_ms(lambda: matmul_int8_op(a, b, init),
+                                    LM_REPS),
+                    plain_ms=device_ms(lambda: matmul_int8_ref(a, b, init),
+                                       LM_REPS),
+                    library_ms=library_ms(lambda: torch._int_mm(a, b) + init,
+                                          LM_REPS))
+                moved, ops = nbytes(a, b, init, out), 2 * M * K * N
+                t["bound_ms"], t["bound_by"] = bound(moved, ops)
+                emit("kernel", name="matmul_int8", model=name, roles=roles,
+                     M=M, K=K, N=N, launches_per_layer=count, bitwise=True,
+                     int8_unsaturated_share=share, **t)
+                n = count * cfg.num_layers
+                for k in ("ms", "call_ms", "plain_ms", "library_ms"):
+                    tot[k] = None if tot[k] is None or t[k] is None \
+                        else tot[k] + n * t[k]
+                tot["bytes"] += n * moved
+                tot["ops"] += n * ops
+                tot["launches"] += n
+        tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"])
+        per_model[name] = tot
+    for M, K, N in ((1000, 2048, 200), (77, 30, 18), (129, 4096, 16)):
+        a, b, init = i8(M, K), i8(K, N), i32(M, N)
+        for acc in (init, None):
+            got = matmul_int8_op(a, b, acc)
+            torch.cuda.synchronize()
+            check(torch.equal(got, matmul_int8_ref(a, b, acc)),
+                  f"matmul_int8 ragged M={M} K={K} N={N} differs from plain")
+            cases += 1
+    emit("kernel_check", name="matmul_int8", cases=cases, bitwise=True)
+    both = {k: None if any(per_model[m][k] is None for m in LM_MODELS)
+            else sum(per_model[m][k] for m in LM_MODELS)
+            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bytes",
+                      "ops")}
+    b_ms, b_by = bound(both.pop("bytes"), both.pop("ops"))
+    rec = dict(both, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               per_model={m: {k: v for k, v in t.items()
+                              if k not in ("bytes", "ops")}
+                          for m, t in per_model.items()})
+    emit("kernel", name="matmul_int8",
+         per="one bucket-4 forward of each LM", **rec)
+    return rec
+
+
+def flash_case(rng, dev, Sq, Sk, dtype=torch.float32):
+    cfg = lm_cfg("gemma-2b")
+    B, H, KV, hd = LM_BUCKET, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    return normal(B, Sq, H, hd), normal(B, Sk, KV, hd), normal(B, Sk, KV, hd)
+
+
+def flash_bytes_ops(q, k, causal):
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    off = Sk - Sq
+    keys = sum(min(off + r + 1, Sk) for r in range(Sq)) if causal \
+        else Sq * Sk
+    return nbytes(q, k, k, q), 4 * B * H * hd * keys
+
+
+def lm_flash_phase(rng, dev):
+    """flash_attention against its plain version at gemma-2b's bucket-4
+    shape: causal, non-causal, decode (Sq = 128 < Sk = 512) and bf16;
+    timings on the causal float32 case."""
+    err = 0.0
+    for what, Sq, causal, dtype in (("causal", LM_SEQ, True, torch.float32),
+                                    ("non-causal", LM_SEQ, False,
+                                     torch.float32),
+                                    ("decode", LM_SEQ // 4, True,
+                                     torch.float32),
+                                    ("bf16", LM_SEQ, True, torch.bfloat16)):
+        q, k, v = flash_case(rng, dev, Sq, LM_SEQ, dtype)
+        got = flash_attention_op(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        bq, bk = attn_tiles(Sq, LM_SEQ)
+        ref = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
+        excess, dev_max = close_err(got, ref, tol)
+        check(got.dtype == dtype and excess <= 0,
+              f"flash_attention {what}: deviates {dev_max} from plain "
+              f"(tolerance {tol} abs and rel)")
+        if dtype == torch.float32:
+            err = max(err, dev_max)
+        emit("kernel_check", name="flash_attention", case=what, Sq=Sq,
+             Sk=LM_SEQ, dtype=str(dtype), max_abs_err=dev_max, tolerance=tol)
+    q, k, v = flash_case(rng, dev, LM_SEQ, LM_SEQ)
+    qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+    t = dict(ms=device_ms(lambda: flash_attention_op(q, k, v), LM_REPS),
+             call_ms=call_ms(lambda: flash_attention_op(q, k, v), LM_REPS),
+             plain_ms=device_ms(lambda: flash_attention_plain(q, k, v),
+                                LM_REPS),
+             library_ms=library_ms(lambda: F.scaled_dot_product_attention(
+                 qs, ks, vs, is_causal=True, enable_gqa=True), LM_REPS))
+    moved, ops = flash_bytes_ops(q, k, True)
+    t["bound_ms"], t["bound_by"] = bound(moved, ops, F32_FLOPS_PER_S)
+    t["max_abs_err"] = err
+    t["smem_bytes"] = flash_smem_bytes(q.shape[3])
+    emit("kernel", name="flash_attention", shape=list(q.shape), causal=True,
+         **t)
+    return t
+
+
+def scan_case(rng, dev, B, S, di, N):
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    u, dt = normal(B, S, di), softplus(normal(B, S, di))
+    A = -(0.5 + torch.from_numpy(rng.random((di, N)).astype(
+        np.float32)).to(dev))
+    return u, dt, A, normal(B, S, N), normal(B, S, N), normal(B, di, N)
+
+
+def lm_scan_phase(rng, dev):
+    """selective_scan against its plain version at falcon-mamba-7b's
+    bucket-4 shape from a nonzero state, and on a ragged one; timings."""
+    cfg = lm_cfg("falcon-mamba-7b")
+    err = 0.0
+    for shape in ((LM_BUCKET, LM_SEQ, cfg.d_inner, cfg.ssm_state),
+                  (3, 100, 1000, 7)):
+        ops = scan_case(rng, dev, *shape)
+        y, h = selective_scan_op(*ops)
+        torch.cuda.synchronize()
+        y_ref, h_ref = selective_scan_ref(*ops)
+        for what, got, ref in (("y", y, y_ref), ("h_last", h, h_ref)):
+            excess, dev_max = close_err(got, ref, SCAN_TOL)
+            check(excess <= 0, f"selective_scan {shape} {what}: deviates "
+                               f"{dev_max} from plain")
+            err = max(err, dev_max)
+        emit("kernel_check", name="selective_scan", shape=list(shape),
+             max_abs_err=err, bitwise=bool(torch.equal(y, y_ref) and
+                                           torch.equal(h, h_ref)),
+             tolerance=SCAN_TOL)
+    ops = scan_case(rng, dev, LM_BUCKET, LM_SEQ, cfg.d_inner, cfg.ssm_state)
+    y, h = selective_scan_op(*ops)
+    B, S, di = ops[0].shape
+    N = ops[2].shape[1]
+    t = dict(ms=device_ms(lambda: selective_scan_op(*ops), LM_REPS),
+             call_ms=call_ms(lambda: selective_scan_op(*ops), LM_REPS),
+             plain_ms=device_ms(lambda: selective_scan_ref(*ops), 2),
+             library_ms=None)
+    t["bound_ms"], t["bound_by"] = bound(nbytes(*ops, y, h),
+                                         B * S * di * (1 + 7 * N),
+                                         F32_FLOPS_PER_S)
+    t["max_abs_err"] = err
+    emit("kernel", name="selective_scan", shape=[B, S, di, N], **t)
+    return t
+
+
+LM_KERNEL_OPS = dict(matmul_int8=matmul_int8_op,
+                     flash_attention=flash_attention_op,
+                     selective_scan=selective_scan_op)
+
+
+def lm_launch_plan(cfg):
+    """Launches of each LM kernel per bucket run of ``cfg`` on ``cuda``."""
+    plan = plan_lm(lowering.optimized_graph(cfg))
+    kinds = [t.kind for t in plan.tasks]
+    return dict(matmul_int8=kinds.count("matmul"),
+                flash_attention=kinds.count("attention"),
+                selective_scan=kinds.count("scan"))
+
+
+def lm_task_check(cfg, params, tokens):
+    """One _LMContext driven by the torch-int impls; every task replayed
+    through the cuda impl on the same environment.  matmul: int32
+    accumulator and int8 output bitwise; attention and scan: the float
+    output within the kernel's tolerance of the plain version's, the int8
+    output within one grid step.  Returns per-kind summaries."""
+    plan = plan_lm(lowering.optimized_graph(cfg), params)
+    ctx = BK.lm_context(plan, params, cfg)
+    BK.embed_tokens(ctx, plan, tokens)
+    summary = {}
+    for t in plan.tasks:
+        shadow = BK.lm_context(plan, params, cfg)
+        shadow.env, shadow.specs = dict(ctx.env), dict(ctx.specs)
+        s = summary.setdefault(t.kind, dict(tasks=0, max_abs_err=0.0,
+                                            int8_max_step=0,
+                                            int8_differ_share=0.0))
+        if t.kind == "matmul":
+            mp, x2d, acc0, _ = BK._lm_matmul_prologue(t, ctx)
+            got = matmul_int8_op(x2d, mp.wq, acc0)
+            ref = matmul_int8_ref(x2d, mp.wq, acc0)
+            check(torch.equal(got, ref),
+                  f"{cfg.name} {t.node}: int32 accumulator differs")
+            un = requantize_shift(ref, mp.product_exp, mp.y_spec)
+            share = float(((un > -128) & (un < 127)).float().mean())
+            s.setdefault("unsaturated_share", {})[t.role] = min(
+                share, s.get("unsaturated_share", {}).get(t.role, 1.0))
+        elif t.kind == "attention":
+            q, k, v = BK._lm_attn_qkv(t, ctx)
+            bq, bk = attn_tiles(q.shape[1], k.shape[1])
+            excess, dmax = close_err(
+                flash_attention_op(q, k, v, causal=t.causal),
+                flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
+                                      bk=bk), FLASH_TOL)
+            check(excess <= 0, f"{cfg.name} {t.node}: attention deviates "
+                               f"{dmax} from plain")
+            s["max_abs_err"] = max(s["max_abs_err"], dmax)
+        else:
+            ops = BK._lm_scan_operands(t, ctx)
+            excess, dmax = close_err(selective_scan_op(*ops)[0],
+                                     selective_scan_ref(*ops)[0], SCAN_TOL)
+            check(excess <= 0, f"{cfg.name} {t.node}: scan deviates {dmax} "
+                               f"from plain")
+            s["max_abs_err"] = max(s["max_abs_err"], dmax)
+        get_task_impl("torch-int", t.kind)(t, ctx)
+        get_task_impl("cuda", t.kind)(t, shadow)
+        got, ref = shadow.env[t.output], ctx.env[t.output]
+        step = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        if t.kind == "matmul":
+            check(torch.equal(got, ref), f"{cfg.name} {t.node}: int8 output "
+                                         f"differs from torch-int")
+        check(int(step.max()) <= 1, f"{cfg.name} {t.node}: int8 output "
+                                    f"{int(step.max())} steps off torch-int")
+        s["tasks"] += 1
+        s["int8_max_step"] = max(s["int8_max_step"], int(step.max()))
+        s["int8_differ_share"] = max(s["int8_differ_share"],
+                                     float((step > 0).float().mean()))
+    return summary
+
+
+def flip_propagation(cfg, params, tokens):
+    """How far one int8 step travels: the cuda program run twice on the
+    same tokens, the second time with one element of the first float
+    interlude's int8 output (layer 0's attention or scan) moved by one
+    grid step.  Returns the share of the final hidden state's int8 values
+    that then differ, and the largest difference in steps."""
+    plan = plan_lm(lowering.optimized_graph(cfg), params)
+    impls = {t.node: get_task_impl("cuda", t.kind) for t in plan.tasks}
+    first = next(t for t in plan.tasks if t.kind in ("attention", "scan"))
+    hidden = []
+    for flip in (False, True):
+        ctx = BK.lm_context(plan, params, cfg)
+        BK.embed_tokens(ctx, plan, tokens)
+        for t in plan.tasks:
+            impls[t.node](t, ctx)
+            if flip and t is first:
+                out = ctx.env[t.output]
+                flat = out.view(-1)
+                i = int(torch.nonzero((flat > -128) & (flat < 127))[0])
+                flat[i] += 1
+        hidden.append(ctx.env[plan.logits_in].to(torch.int32))
+    step = (hidden[0] - hidden[1]).abs()
+    return float((step > 0).float().mean()), int(step.max())
+
+
+def lm_serve_phase(name, seed, dev):
+    """Serve ``LM_REQUESTS`` token requests of ``name`` at full width
+    through ResNetEngine on ``cuda`` with a torch-int shadow; check the
+    launches against the plan, every task against torch-int on the same
+    inputs, and the logits against torch-int within the tolerance carried
+    from the final hidden states (``lm_params.logit_tolerance``)."""
+    cfg = lm_cfg(name)
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_SEQ)).astype(
+        np.int32)
+    eng = ResNetEngine(cfg, params, batch=LM_BUCKET, backend="cuda",
+                       batch_sizes=(1, LM_BUCKET), ab_backends=("torch-int",))
+    reqs = [ImageRequest(rid=i, image=t) for i, t in enumerate(toks)]
+    for r in reqs:
+        eng.submit(r)
+    for op in LM_KERNEL_OPS.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    ticks = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: op.launches for k, op in LM_KERNEL_OPS.items()}
+    bucket_runs = dict(eng.model.run_counts)
+
+    runs = sum(bucket_runs.values())
+    per_run = lm_launch_plan(cfg)
+    check(eng.served == LM_REQUESTS and all(r.done for r in reqs),
+          "engine left requests unserved")
+    check(runs == math.ceil(LM_REQUESTS / LM_BUCKET), f"{runs} bucket runs")
+    check(launches == {k: runs * v for k, v in per_run.items()},
+          f"{name}: launch counts {launches} for {runs} bucket runs of "
+          f"{per_run} each")
+
+    x = torch.as_tensor(toks, device=dev)
+    tasks = lm_task_check(cfg, eng.model.params, x[:LM_BUCKET])
+    flip_share, flip_step = flip_propagation(cfg, eng.model.params,
+                                             x[:LM_BUCKET])
+
+    m, shadow = eng.model, eng.shadows["torch-int"]
+    feats_fn = m.backend.features(m.graph, cfg, m.params)
+    ref_fn = shadow.backend.features(shadow.graph, cfg, shadow.params)
+    spec = hidden_out_spec(m.params)
+    logits = torch.from_numpy(np.stack([r.logits for r in reqs]))
+    ref_logits = []
+    differ, max_step, n_el, excess = 0, 0, 0, -math.inf
+    for i in range(0, LM_REQUESTS, LM_BUCKET):
+        batch = m.pad(x[i:i + LM_BUCKET])
+        n = min(LM_BUCKET, LM_REQUESTS - i)
+        h, h_ref = feats_fn(batch)[:n], ref_fn(batch)[:n]
+        step = (h.to(torch.int32) - h_ref.to(torch.int32)).abs()
+        differ += int((step > 0).sum())
+        max_step = max(max_step, int(step.max()))
+        n_el += step.numel()
+        tol = logit_tolerance(h, h_ref, spec, m.params.unembed).cpu()
+        got = logits[i:i + n].double()
+        # the shadow's unembed of its own hidden state, as lower_lm does
+        ref = (dequantize(h_ref, spec)[:, -1, :] @ m.params.unembed).cpu()
+        ref_logits.append(ref)
+        excess = max(excess, float(((got - ref.double()).abs() - tol).max()))
+    ref_logits = torch.cat(ref_logits)
+    check(bool(torch.isfinite(logits).all()), "logits not finite")
+    check(excess <= 0, f"{name}: logits exceed the tolerance carried from "
+                       f"the hidden states by {excess}")
+    argmax_equal = int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())
+
+    xb = x[:LM_BUCKET]
+    eager = call_ms(lambda: eng.model(xb), 3)
+    fwd = eng.model._forward
+    graphed = device_ms(lambda: fwd(xb), 2)
+    summary = dict(
+        bucket4_forward_ms=eager, bucket4_forward_device_ms=graphed,
+        device_idle_share=1.0 - graphed / eager,
+        tokens_per_s_bucket4=LM_BUCKET * LM_SEQ / (eager * 1e-3),
+        tokens_per_s_bucket4_graphed=LM_BUCKET * LM_SEQ / (graphed * 1e-3))
+    emit("lm_serve", model=name, layers=cfg.num_layers, seq_len=LM_SEQ,
+         d_model=cfg.d_model, requests=LM_REQUESTS, ticks=ticks,
+         bucket_runs=bucket_runs, launches=launches,
+         launches_per_run=per_run, init_s=init_s, serve_wall_s=wall,
+         tasks=tasks, hidden_differ_share=differ / n_el,
+         hidden_max_step=max_step, one_step_flip_differ_share=flip_share,
+         one_step_flip_max_step=flip_step,
+         logit_excess_over_tolerance=excess,
+         max_abs_logit_dev=float((logits - ref_logits).abs().max()),
+         ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
+         argmax_equal=f"{argmax_equal}/{LM_REQUESTS}", **summary)
+    return eng, launches, summary
+
+
+def lm_profile_phase(eng, dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros((LM_BUCKET, LM_SEQ), dtype=torch.int32, device=dev)
+    eng.model(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.model(x)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0)
+
+    rows = sorted(prof.key_averages(), key=lambda e: -device_us(e))
+    emit("profile", model=eng.cfg.name, backend="cuda", forwards=1,
+         top=[dict(name=e.key[:60], count=e.count, device_us=device_us(e))
+              for e in rows[:12]])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -552,8 +1063,12 @@ def main(argv=None):
 
     device_phase()
     dev = torch.device("cuda")
+    # full float32 in every reference product (the unembed, the float
+    # plain versions); cuDNN's TF32 default would round the conv references
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    emit("numerics", cuda_matmul_allow_tf32=torch.backends.cuda.matmul
+         .allow_tf32, cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
     build_phase()
     rng = np.random.default_rng(args.seed)
@@ -567,6 +1082,18 @@ def main(argv=None):
     serve8s = serve_phase(R.RESNET8, args.seed, dev, "cuda-stream")[2]
     profile_phase(eng20, dev, "cuda")
     profile_phase(eng20s, dev, "cuda-stream")
+    del eng20, eng20s
+
+    mm = lm_matmul_phase(rng, dev)
+    flash = lm_flash_phase(rng, dev)
+    scan = lm_scan_phase(rng, dev)
+    lm_serve, lm_launches = {}, {}
+    for name in LM_MODELS:
+        eng, lm_launches[name], lm_serve[name] = lm_serve_phase(
+            name, args.seed, dev)
+        lm_profile_phase(eng, dev)
+        del eng
+        torch.cuda.empty_cache()
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
@@ -588,12 +1115,37 @@ def main(argv=None):
              library_ms=None,
              per="the one launch of a cuda-stream ResNet20 forward at "
                  "batch 32", **chain),
+        dict(name="matmul_int8", route="cuda", source=src + "matmul_int8.cu",
+             replaces="src/repro/kernels/matmul_int8/matmul_int8.py:43",
+             launches=sum(v["matmul_int8"] for v in lm_launches.values()),
+             launches_by_model={k: v["matmul_int8"]
+                                for k, v in lm_launches.items()},
+             bitwise=True,
+             per="the 108 launches of one gemma-2b and the 384 of one "
+                 "falcon-mamba-7b forward at bucket 4 (S = 512)", **mm),
+        dict(name="flash_attention", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:62",
+             launches=lm_launches["gemma-2b"]["flash_attention"],
+             bitwise=False, tolerance=FLASH_TOL,
+             per="one launch at gemma-2b's bucket-4 shape, causal", **flash),
+        dict(name="selective_scan", route="cuda",
+             source=src + "selective_scan.cu",
+             replaces="src/repro/kernels/selective_scan/"
+                      "selective_scan.py:47",
+             launches=lm_launches["falcon-mamba-7b"]["selective_scan"],
+             bitwise=False, tolerance=SCAN_TOL,
+             per="one launch at falcon-mamba-7b's bucket-4 shape",
+             library_reason="no PyTorch call computes the selective scan",
+             **scan),
     ]
     # the serve summary rides on the kernels line so that it survives in
     # any tail of the output that keeps the last lines
     print(json.dumps({"kernels": rows, "serve": {
         "resnet20": serve20, "resnet8": serve8,
-        "resnet20_stream": serve20s, "resnet8_stream": serve8s},
+        "resnet20_stream": serve20s, "resnet8_stream": serve8s,
+        **lm_serve},
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,17 @@ Built-in backends, all lowering the SAME plan (``lowering.plan_model``):
                       arithmetic, unfused dataflow (the counterpart of
                       ``lax-int``).  Bit-exact with both kernel backends by
                       construction.
+
+LM configs (``compile.lm_params.QLMConfig``) lower through the same three
+backends: :func:`lower_lm` walks ``lowering.plan_lm``'s task program and
+binds each task kind to the backend's registered impl
+(:func:`register_task_impl`).  ``torch-int`` runs the kernels' plain
+versions; ``cuda`` runs ``matmul_int8`` on every projection,
+``flash_attention`` on the transformer's attention and ``selective_scan``
+on the Mamba scan; ``cuda-stream`` has no LM chain kernel and runs the
+``cuda`` impls (as ``pallas-stream`` runs the ``pallas`` ones).  For an LM,
+``features`` returns the int8 hidden state entering the unembed and
+``lower`` adds the float last-position unembed.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ from typing import Callable, Dict, Protocol, runtime_checkable
 import torch
 
 from repro_torch.core import quant as Q
+from repro_torch.compile import lm_params as LP
 from repro_torch.compile import lowering
 from repro_torch.compile.params import (
     QConvParams, QResNetParams, activation_out_specs)
@@ -114,14 +126,254 @@ def _float_head(h_u8, fc, in_spec=A_SPEC):
     return (pooled[:, :, None] * w[None, :, :]).sum(dim=1) + fc.b
 
 
-class _ConvBackend:
-    """``lower`` = the backend's ``features`` followed by the float head."""
+# ---------------------------------------------------------------------------
+# LM task lowering: per-(backend, kind) implementation registry
+# ---------------------------------------------------------------------------
+#
+# lowering.plan_lm produces an ordered task program; HOW each task kind
+# executes is a per-backend choice registered here.  The int8 matmul
+# arithmetic is shared (prologue / epilogue), so the kernel and the plain
+# backend differ only in the int32 product, which is exact in both.
 
-    def features(self, g, cfg, params) -> Callable:
+_TASK_IMPLS: Dict[tuple, Callable] = {}
+
+
+def register_task_impl(backend_name: str, kind: str):
+    """Register ``impl(task, ctx)`` as how ``backend_name`` executes tasks
+    of ``kind``.  ``ctx`` is the :class:`_LMContext` of the running forward;
+    the impl reads ``ctx.env[task.inputs[i]]`` and writes
+    ``ctx.env[task.output]`` (plus its quant spec into ``ctx.specs``)."""
+    def deco(fn):
+        _TASK_IMPLS[(backend_name, kind)] = fn
+        return fn
+    return deco
+
+
+def get_task_impl(backend_name: str, kind: str) -> Callable:
+    impl = _TASK_IMPLS.get((backend_name, kind))
+    if impl is None:
+        have = sorted(k for b, k in _TASK_IMPLS if b == backend_name)
+        raise lowering.LoweringError(
+            f"backend {backend_name!r} has no impl for task kind {kind!r} "
+            f"(has: {have})")
+    return impl
+
+
+class _LMContext:
+    """Mutable state one LM forward pass threads through the task impls."""
+
+    def __init__(self, params, cfg, consumer_xspec):
+        self.params = params
+        self.cfg = cfg
+        self.consumer_xspec = consumer_xspec   # tensor -> consuming x_spec
+        self.env: Dict[str, torch.Tensor] = {}  # tensor name -> value
+        self.specs: Dict[str, Q.QSpec] = {}     # tensor name -> int8 grid
+
+    def put(self, name, value, spec=None):
+        self.env[name] = value
+        if spec is not None:
+            self.specs[name] = spec
+
+    def out_spec(self, tensor: str) -> Q.QSpec:
+        """Grid a float task output quantizes onto: its consumer's input
+        grid (every float interlude hands an int8 stream to a matmul)."""
+        try:
+            return self.consumer_xspec[tensor]
+        except KeyError:
+            raise lowering.LoweringError(
+                f"tensor {tensor!r} has no consuming matmul to define its "
+                f"quantization grid") from None
+
+
+def _lm_matmul_prologue(t, ctx):
+    """Shared int32 accumulator init: the bias at the product domain
+    broadcast over the rows (a stride-0 ``expand``; the kernel wrapper
+    makes it contiguous), plus the folded residual stream shift-aligned
+    into it (a pure left shift on pow2 grids, so the fold is exact)."""
+    mp = ctx.params.matmul(t.layer, t.role)
+    x = ctx.env[t.inputs[0]]
+    B, S, _ = x.shape
+    acc0 = mp.bq[None, :].to(torch.int32).expand(B * S, t.dout)
+    if t.skip is not None:
+        skip = ctx.env[t.skip].to(torch.int32).reshape(B * S, t.dout)
+        acc0 = acc0 + Q.shift_align(
+            skip, ctx.params.skip_exp(t.layer, t.role) - mp.product_exp)
+    return mp, x.reshape(B * S, t.din), acc0, (B, S)
+
+
+def _lm_matmul_epilogue(acc, t, mp, shape, ctx):
+    if t.fused_relu:
+        acc = torch.clamp_min(acc, 0)
+    yq = Q.requantize_shift(acc, mp.product_exp, mp.y_spec)
+    ctx.put(t.output, yq.reshape(shape + (t.dout,)), mp.y_spec)
+
+
+@register_task_impl("cuda", "matmul")
+def _cuda_matmul(t, ctx):
+    from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
+
+    mp, x2d, acc0, shape = _lm_matmul_prologue(t, ctx)
+    _lm_matmul_epilogue(matmul_int8_op(x2d, mp.wq, acc0), t, mp, shape, ctx)
+
+
+@register_task_impl("torch-int", "matmul")
+def _torch_matmul(t, ctx):
+    from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
+
+    mp, x2d, acc0, shape = _lm_matmul_prologue(t, ctx)
+    _lm_matmul_epilogue(matmul_int8_ref(x2d, mp.wq, acc0), t, mp, shape, ctx)
+
+
+def _lm_attn_qkv(t, ctx):
+    """Dequantize the q/k/v streams off their producing matmuls' grids into
+    the (B, S, heads, hd) layout both attention cores consume."""
+    B, S, _ = ctx.env[t.inputs[0]].shape
+    q, k, v = (Q.dequantize(ctx.env[name], ctx.specs[name])
+               for name in t.inputs)
+    return (q.reshape(B, S, t.heads, t.head_dim),
+            k.reshape(B, S, t.kv_heads, t.head_dim),
+            v.reshape(B, S, t.kv_heads, t.head_dim))
+
+
+def _lm_attn_finish(o, t, ctx):
+    B, S = o.shape[:2]
+    spec = ctx.out_spec(t.output)
+    ctx.put(t.output,
+            Q.quantize(o.reshape(B, S, t.heads * t.head_dim), spec), spec)
+
+
+@register_task_impl("cuda", "attention")
+def _cuda_attention(t, ctx):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+
+    q, k, v = _lm_attn_qkv(t, ctx)
+    _lm_attn_finish(flash_attention_op(q, k, v, causal=t.causal), t, ctx)
+
+
+@register_task_impl("torch-int", "attention")
+def _torch_attention(t, ctx):
+    from repro_torch.kernels.flash_attention.ops import attn_tiles
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _lm_attn_qkv(t, ctx)
+    bq, bk = attn_tiles(q.shape[1], k.shape[1])
+    _lm_attn_finish(flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
+                                          bk=bk), t, ctx)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (torch's
+    ``F.softplus`` returns ``x`` itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * torch.sigmoid(x)
+
+
+def _lm_scan_operands(t, ctx):
+    u, dt, Bc, Cc = (Q.dequantize(ctx.env[name], ctx.specs[name])
+                     for name in t.inputs[:4])
+    A = ctx.params.layers[t.layer].A
+    h0 = torch.zeros((u.shape[0], t.d_inner, t.ssm_state),
+                     dtype=torch.float32, device=u.device)
+    return u, softplus(dt), A, Bc, Cc, h0
+
+
+def _lm_scan_finish(y, t, ctx):
+    if t.gated:
+        y = y * silu(Q.dequantize(ctx.env[t.inputs[4]],
+                                  ctx.specs[t.inputs[4]]))
+    spec = ctx.out_spec(t.output)
+    ctx.put(t.output, Q.quantize(y, spec), spec)
+
+
+@register_task_impl("cuda", "scan")
+def _cuda_scan(t, ctx):
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
+
+    y, _ = selective_scan_op(*_lm_scan_operands(t, ctx))
+    _lm_scan_finish(y, t, ctx)
+
+
+@register_task_impl("torch-int", "scan")
+def _torch_scan(t, ctx):
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    y, _ = selective_scan_ref(*_lm_scan_operands(t, ctx))
+    _lm_scan_finish(y, t, ctx)
+
+
+def lm_context(plan, params, cfg) -> _LMContext:
+    """A fresh forward context of ``plan``: each float task output's grid
+    resolved from its consuming matmul's input grid."""
+    consumer_xspec = {
+        t.inputs[0]: params.matmul(t.layer, t.role).x_spec
+        for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
+    return _LMContext(params, cfg, consumer_xspec)
+
+
+def embed_tokens(ctx, plan, tokens) -> None:
+    """The float embed lookup, quantized onto the embedding grid, as the
+    program's first tensor."""
+    params = ctx.params
+    emb = params.embed[tokens.long()]                     # (B, S, d) float
+    ctx.put(plan.embed, Q.quantize(emb, params.emb_spec), params.emb_spec)
+
+
+def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
+    """Plan the optimized LM graph (``lowering.plan_lm``), bind every task
+    to ``impl_backend``'s registered impl, and close over a ``tokens ->
+    int8 hidden state`` forward: the float embed in, then the task program
+    over a tensor environment.  Impl binding happens HERE, at lower time,
+    so a backend missing a kind fails before anything runs."""
+    plan = lowering.plan_lm(g, params)
+    impls = {t.node: get_task_impl(impl_backend, t.kind) for t in plan.tasks}
+
+    def features(tokens):
+        ctx = lm_context(plan, params, cfg)
+        embed_tokens(ctx, plan, tokens)
+        for t in plan.tasks:
+            impls[t.node](t, ctx)
+        return ctx.env[plan.logits_in]
+
+    return features
+
+
+def lower_lm(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
+    """:func:`lm_features` followed by the float unembed of the last
+    position (a plain float32 product, outside any kernel, as in the JAX
+    package): ``tokens -> (B, vocab)`` logits."""
+    feats = lm_features(impl_backend, g, cfg, params)
+    hidden_spec = LP.hidden_out_spec(params)
+
+    def forward(tokens):
+        h = Q.dequantize(feats(tokens), hidden_spec)
+        return h[:, -1, :] @ params.unembed
+
+    return forward
+
+
+class _BaseBackend:
+    """LM configs go to the task program on the ``lm_impls`` impls; conv
+    configs to the backend's ``conv_features``, and ``lower`` follows those
+    with the float pool + classifier head."""
+
+    lm_impls: str
+
+    def conv_features(self, g, cfg, params) -> Callable:
         raise NotImplementedError
 
+    def features(self, g, cfg, params) -> Callable:
+        if lowering._is_lm_cfg(cfg):
+            return lm_features(self.lm_impls, g, cfg, params)
+        return self.conv_features(g, cfg, params)
+
     def lower(self, g, cfg, params) -> Callable:
-        feats = self.features(g, cfg, params)
+        if lowering._is_lm_cfg(cfg):
+            return lower_lm(self.lm_impls, g, cfg, params)
+        feats = self.conv_features(g, cfg, params)
         stem_out, block_outs = activation_out_specs(params, A_SPEC)
         head_spec = block_outs[-1] if block_outs else stem_out
         fc = params.fc
@@ -138,11 +390,14 @@ class _ConvBackend:
 
 
 @register_backend("torch-int")
-class TorchIntBackend(_ConvBackend):
+class TorchIntBackend(_BaseBackend):
     """Reference integer graph: exact int32 convs, shift requant, residual
-    add folded into conv1's accumulator init."""
+    add folded into conv1's accumulator init; for LMs, the kernels' plain
+    versions."""
 
-    def features(self, g, cfg, params) -> Callable:
+    lm_impls = "torch-int"
+
+    def conv_features(self, g, cfg, params) -> Callable:
         plan = lowering.plan_model(g, params)
         stem_out, block_outs = activation_out_specs(params, A_SPEC)
 
@@ -170,7 +425,7 @@ class TorchIntBackend(_ConvBackend):
 
 
 @register_backend("cuda-stream")
-class CudaStreamBackend(_ConvBackend):
+class CudaStreamBackend(_BaseBackend):
     """Block-chain streaming pipeline: the plan's block sequence is
     partitioned into chains (``lowering.plan_chains``) and each chain runs
     as ONE ``block_chain`` launch — the running activation stays in shared
@@ -194,14 +449,18 @@ class CudaStreamBackend(_ConvBackend):
     ``batch_tile=1`` (``block_chain_op``'s default), one image per thread
     block, unless a chain carries its own ``config``.  The results are
     bitwise the same at every tile.
-    Biases are widened and shifts derived once, here, not per call."""
+    Biases are widened and shifts derived once, here, not per call.
+    An LM config runs the ``cuda`` task impls: there is no LM chain
+    kernel."""
+
+    lm_impls = "cuda"
 
     def __init__(self, cuts=None, fuse_stem: bool = True, smem_budget=None):
         self.cuts = cuts
         self.fuse_stem = fuse_stem
         self.smem_budget = smem_budget
 
-    def features(self, g, cfg, params) -> Callable:
+    def conv_features(self, g, cfg, params) -> Callable:
         from repro_torch.kernels.conv_stem.ops import conv_stem_op
         from repro_torch.kernels.megakernel.ops import (
             ChainBlockSpec, block_chain_op)
@@ -264,7 +523,8 @@ class CudaBackend(CudaStreamBackend):
     the skip kept in shared memory).  It is the streaming pipeline with no
     chain: at a shared-memory budget of 0 bytes the planner makes every
     block a singleton chain, which runs ``resblock_fused``, and the stem
-    stays unfused."""
+    stays unfused.  An LM runs ``matmul_int8`` on every projection,
+    ``flash_attention`` on attention and ``selective_scan`` on the scan."""
 
     def __init__(self):
         super().__init__(fuse_stem=False, smem_budget=0)

@@ -8,6 +8,15 @@
 or an instance, e.g. ``CudaStreamBackend(cuts=[[0, 1, 2], [3, 4, 5, 6, 7,
 8]])`` for an explicit chain partition.
 
+LM configs serve token batches the same way:
+
+    cfg = lm_config(get_config("gemma-2b"), seq_len=512)
+    cm = compile_model(cfg, init_lm_params(cfg, seed=0, device="cuda"),
+                       backend="cuda", batch_sizes=(1, 4))
+    logits = cm(tokens)       # (n, seq_len) int32 -> (n, vocab) float32
+
+A bucket is then ``(batch, seq_len)`` int32 tokens, padded with zero rows.
+
 The graph is lowered once through the backend with the weights placed on
 the model's device; serving then only selects the smallest bucket that
 holds a batch, zero-pads up to it, chunks batches beyond the largest
@@ -26,7 +35,7 @@ import torch
 
 from repro_torch.compile import lowering
 from repro_torch.compile.backends import Backend, get_backend
-from repro_torch.compile.params import QResNetParams, ensure_typed
+from repro_torch.compile.params import ensure_typed
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,15 +49,37 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _as_images(images, device) -> torch.Tensor:
-    return torch.as_tensor(images, dtype=torch.float32, device=device)
+def input_shape(cfg, batch: int):
+    """THE input contract of a bucket: ``(batch, img, img, 3)`` float32
+    images for conv configs, ``(batch, seq_len)`` int32 tokens for LM
+    configs.  Returns ``(shape, dtype)``."""
+    if lowering._is_lm_cfg(cfg):
+        return (batch, cfg.seq_len), torch.int32
+    return (batch, cfg.img, cfg.img, 3), torch.float32
+
+
+def _as_input(cfg, x, device) -> torch.Tensor:
+    """A caller's batch as the model's input tensor on ``device``; token
+    ids are checked against the vocabulary first (an out-of-range id
+    would read past the embedding table)."""
+    dtype = input_shape(cfg, 0)[1]
+    if dtype == torch.float32:
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    t = torch.as_tensor(x)
+    if t.is_floating_point() or t.dtype == torch.bool:
+        raise ValueError(f"token ids must be integers, got {t.dtype}")
+    if t.numel() and (int(t.min()) < 0 or int(t.max()) >= cfg.vocab_size):
+        raise ValueError(f"token ids must lie in [0, {cfg.vocab_size}), got "
+                         f"[{int(t.min())}, {int(t.max())}]")
+    return t.to(device=device, dtype=dtype)
 
 
 class CompiledModel:
     """A quantized network lowered through one backend, served in fixed
-    batch buckets.  Callable: ``logits = cm(images)``."""
+    batch buckets.  Callable: ``logits = cm(images)`` (or ``cm(tokens)``
+    for an LM)."""
 
-    def __init__(self, cfg, params: QResNetParams, backend: Backend,
+    def __init__(self, cfg, params, backend: Backend,
                  batch_sizes: Sequence[int], device: torch.device):
         if not batch_sizes:
             raise ValueError("need at least one batch bucket")
@@ -67,8 +98,8 @@ class CompiledModel:
         """Run every bucket once on zeros (builds the kernels, sizes the
         allocator)."""
         for b in self.batch_sizes:
-            self(torch.zeros((b, self.cfg.img, self.cfg.img, 3),
-                             device=self.device))
+            shape, dtype = input_shape(self.cfg, b)
+            self(torch.zeros(shape, dtype=dtype, device=self.device))
         return self
 
     def bucket_for(self, n: int) -> int:
@@ -80,8 +111,8 @@ class CompiledModel:
         return self.batch_sizes[-1]
 
     def pad(self, images: torch.Tensor) -> torch.Tensor:
-        """Zero-pad a batch of at most the largest bucket up to its bucket:
-        the batch a bucket run computes on."""
+        """Zero-pad a batch (images, or token rows) of at most the largest
+        bucket up to its bucket: the batch a bucket run computes on."""
         n = images.shape[0]
         bucket = self.bucket_for(n)
         if n < bucket:
@@ -102,7 +133,7 @@ class CompiledModel:
         return self._forward(padded)[:n]
 
     def __call__(self, images) -> torch.Tensor:
-        return self._run_batched(_as_images(images, self.device))
+        return self._run_batched(_as_input(self.cfg, images, self.device))
 
     def stats(self) -> dict:
         return dict(backend=self.backend.name, device=str(self.device),
@@ -121,9 +152,9 @@ def compile_model(cfg, qparams, backend: Union[str, Backend] = "cuda",
     :class:`CompiledModel` on ``device`` (default ``cuda``); call
     ``.warmup()`` on it to run every bucket once before serving.
 
-    ``qparams`` may be the ``quantize_params`` dict or a typed
-    :class:`QResNetParams`, on any device; ``backend`` a registered name or
-    an instance.  Kernel tuning is not ported yet: ``tune`` must be None."""
+    ``qparams`` may be the ``quantize_params`` dict, a typed
+    :class:`QResNetParams` or, for an LM config, a :class:`QLMParams`, on
+    any device; ``backend`` a registered name or an instance.  Kernel tuning is not ported yet: ``tune`` must be None."""
     if tune is not None:
         raise ValueError(
             f"tune={tune!r}: kernel tuning is not available in repro_torch "
@@ -134,20 +165,21 @@ def compile_model(cfg, qparams, backend: Union[str, Backend] = "cuda",
 
 def lower_forward(cfg, qparams, backend: Union[str, Backend],
                   device=None) -> Callable:
-    """Un-bucketed lowering: the backend's ``images -> logits`` on
-    ``device`` (default ``cuda``)."""
+    """Un-bucketed lowering: the backend's ``images -> logits`` (or
+    ``tokens -> logits``) on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     params = ensure_typed(qparams).to(dev)
     fwd = _backend(backend).lower(lowering.optimized_graph(cfg), cfg, params)
-    return lambda images: fwd(_as_images(images, dev))
+    return lambda images: fwd(_as_input(cfg, images, dev))
 
 
 def lower_features(cfg, qparams, backend: Union[str, Backend],
                    device=None) -> Callable:
     """Un-bucketed ``images -> u8 feature map`` (the integer datapath up to
-    the classifier head) of ``backend`` on ``device`` (default ``cuda``)."""
+    the classifier head) of ``backend`` on ``device`` (default ``cuda``);
+    for an LM, ``tokens -> int8 hidden state`` entering the unembed."""
     dev = resolve_device(device)
     params = ensure_typed(qparams).to(dev)
     feats = _backend(backend).features(lowering.optimized_graph(cfg), cfg,
                                        params)
-    return lambda images: feats(_as_images(images, dev))
+    return lambda images: feats(_as_input(cfg, images, dev))

@@ -7,16 +7,21 @@ streams wired) and raises :class:`LoweringError` naming the offending node,
 its kind and the failed check, so a backend never compiles the unoptimized
 dataflow.
 
-Entry points: :func:`plan_model` (conv graphs -> ``LoweringPlan``) and
-:func:`plan_chains` (a plan's blocks -> streaming ``ChainTask`` runs, the
-front half of the ``cuda-stream`` backend).  The ``config`` field of the
-tasks is the slot for a tuned kernel configuration and is always ``None``
-here.
+Task kinds: ``StemTask`` / ``BlockTask`` / ``HeadTask`` for the conv
+pipeline; ``MatmulTask`` (one int8 matmul, optionally with fused ReLU and
+the residual add folded into its accumulator init) and ``AttentionTask`` /
+``ScanTask`` (the float interludes of the LM graphs) for the LMs.
+
+Entry points: :func:`plan_model` (conv graphs -> ``LoweringPlan``),
+:func:`plan_lm` (LM graphs -> ``LMPlan``) and :func:`plan_chains` (a
+plan's blocks -> streaming ``ChainTask`` runs, the front half of the
+``cuda-stream`` backend).  The ``config`` field of the tasks is the slot
+for a tuned kernel configuration and is always ``None`` here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import graph as G
 from repro_torch.compile.params import QResNetParams
@@ -61,6 +66,54 @@ class HeadTask:
 
 
 @dataclasses.dataclass(frozen=True)
+class MatmulTask:
+    """One int8 matmul node: inputs[0] @ W(layer, role) in int32, optional
+    fused ReLU, requantized onto the role's output grid.  ``skip`` names the
+    tensor whose int8 stream initializes the accumulator (the add-fold);
+    None means a plain matmul."""
+    kind = "matmul"
+    node: str
+    layer: int
+    role: str
+    din: int
+    dout: int
+    inputs: Tuple[str, ...]
+    output: str
+    skip: Optional[str] = None
+    fused_relu: bool = False
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionTask:
+    """Causal (flash) attention over the layer's q/k/v streams."""
+    kind = "attention"
+    node: str
+    layer: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    causal: bool
+    inputs: Tuple[str, ...]   # (q, k, v) tensor names
+    output: str
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanTask:
+    """Mamba1 selective scan; ``gated`` multiplies by silu(z) (inputs[4])."""
+    kind = "scan"
+    node: str
+    layer: int
+    d_inner: int
+    ssm_state: int
+    gated: bool
+    inputs: Tuple[str, ...]   # (u, dt, B, C[, z]) tensor names
+    output: str
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ChainTask:
     """A run of consecutive residual blocks fused into ONE ``block_chain``
     launch, optionally with the stem conv at its head.  The chain's config
@@ -88,6 +141,18 @@ class LoweringPlan:
     head: HeadTask
 
 
+@dataclasses.dataclass(frozen=True)
+class LMPlan:
+    """An LM graph lowered to an ordered task program: the tasks run in
+    topological order over a tensor-name environment, bracketed by the float
+    embed / unembed head."""
+    tasks: Tuple[object, ...]          # Matmul/Attention/ScanTask, ordered
+    embed: str                         # embed node's output tensor
+    logits_in: str                     # tensor entering the unembed head
+    vocab: int
+    seq_len: int
+
+
 # ---------------------------------------------------------------------------
 # Node-kind -> handler registry
 # ---------------------------------------------------------------------------
@@ -113,6 +178,9 @@ class _WalkState:
     head_pool: Optional[str] = None
     head_fc: Optional[int] = None
     pending_conv0: Optional[G.Node] = None
+    tasks: List[object] = dataclasses.field(default_factory=list)
+    embed: Optional[G.Node] = None
+    unembed: Optional[G.Node] = None
 
 
 def _walk(g: G.Graph) -> _WalkState:
@@ -187,19 +255,78 @@ def _lower_linear(n: G.Node, state: _WalkState) -> None:
     state.head_fc = n.attrs.get("dout")
 
 
+@register_task("matmul")
+def _lower_matmul(n: G.Node, state: _WalkState) -> None:
+    if n.attrs.get("role") is None or n.attrs.get("layer") is None:
+        raise _node_err(n, "matmul without role/layer attrs — cannot bind "
+                           "to a parameter slot")
+    state.tasks.append(MatmulTask(
+        node=n.name, layer=n.attrs["layer"], role=n.attrs["role"],
+        din=n.attrs["din"], dout=n.attrs["dout"],
+        inputs=tuple(n.inputs), output=n.outputs[0],
+        skip=n.skip_in, fused_relu="relu" in n.fused))
+
+
+@register_task("attention")
+def _lower_attention(n: G.Node, state: _WalkState) -> None:
+    if len(n.inputs) != 3:
+        raise _node_err(n, f"attention needs (q, k, v) inputs, got "
+                           f"{len(n.inputs)}")
+    state.tasks.append(AttentionTask(
+        node=n.name, layer=n.attrs["layer"], heads=n.attrs["heads"],
+        kv_heads=n.attrs["kv_heads"], head_dim=n.attrs["head_dim"],
+        causal=n.attrs.get("causal", True),
+        inputs=tuple(n.inputs), output=n.outputs[0]))
+
+
+@register_task("scan")
+def _lower_scan(n: G.Node, state: _WalkState) -> None:
+    gated = n.attrs.get("gated", False)
+    want = 5 if gated else 4
+    if len(n.inputs) != want:
+        raise _node_err(n, f"scan needs (u, dt, B, C{', z' if gated else ''})"
+                           f" inputs, got {len(n.inputs)}")
+    state.tasks.append(ScanTask(
+        node=n.name, layer=n.attrs["layer"], d_inner=n.attrs["d_inner"],
+        ssm_state=n.attrs["ssm_state"], gated=gated,
+        inputs=tuple(n.inputs), output=n.outputs[0]))
+
+
+@register_task("embed")
+def _lower_embed(n: G.Node, state: _WalkState) -> None:
+    state.embed = n
+
+
+@register_task("unembed")
+def _lower_unembed(n: G.Node, state: _WalkState) -> None:
+    state.unembed = n
+
+
 # ---------------------------------------------------------------------------
-# Graph builders and the plan entry point
+# Graph builders (dispatch on config kind) and the plan entry points
 # ---------------------------------------------------------------------------
+
+
+def _is_lm_cfg(cfg) -> bool:
+    return hasattr(cfg, "seq_len") and getattr(cfg, "family", None) in (
+        "dense", "ssm")
 
 
 def model_graph(cfg) -> G.Graph:
-    """The (unoptimized) IR for a ResNet config — what the paper parses from
-    the QONNX export."""
+    """The (unoptimized) IR for a config — what the paper parses from the
+    QONNX export.  ResNet configs build the conv graph; LM configs
+    (``compile.lm_params.QLMConfig``) build the transformer / Mamba stack."""
+    if _is_lm_cfg(cfg):
+        if cfg.family == "dense":
+            return G.build_transformer_graph(cfg, cfg.seq_len)
+        return G.build_ssm_graph(cfg, cfg.seq_len)
     return G.build_resnet_graph(cfg.blocks_per_stage, cfg.base_width,
                                 cfg.img, cfg.num_classes)
 
 
 def optimized_graph(cfg) -> G.Graph:
+    if _is_lm_cfg(cfg):
+        return G.optimize_lm(model_graph(cfg))
     return G.optimize(model_graph(cfg))
 
 
@@ -244,6 +371,47 @@ def plan_model(g: G.Graph,
                     f"downsample={t.has_ds} but params "
                     f"downsample={params.blocks[t.index].has_ds}")
     return plan
+
+
+def plan_lm(g: G.Graph, params=None) -> LMPlan:
+    """Walk an optimized LM graph into the ordered task program.
+
+    Strictness: adds must be folded (``add_fold_matmul``), ReLUs merged,
+    embed/unembed present.  When ``params`` (a
+    :class:`~repro_torch.compile.lm_params.QLMParams`) is given, every
+    matmul task's (layer, role) binding is resolved against it at plan
+    time."""
+    _check_optimized(g)
+    state = _walk(g)
+
+    if state.embed is None or state.unembed is None:
+        raise LoweringError(
+            "graph is missing embed / unembed nodes (not an LM graph?)")
+    if not state.tasks:
+        raise LoweringError("LM graph lowered to zero tasks")
+    if state.stem is not None or state.blocks:
+        raise LoweringError(
+            "graph mixes conv and LM task kinds — no backend lowers both "
+            "in one plan")
+
+    if params is not None:
+        if len({t.layer for t in state.tasks}) != len(params.layers):
+            raise LoweringError(
+                f"graph has {len({t.layer for t in state.tasks})} layers "
+                f"but params carry {len(params.layers)}")
+        for t in state.tasks:
+            if isinstance(t, MatmulTask):
+                mp = params.matmul(t.layer, t.role)   # raises KeyError
+                if tuple(mp.wq.shape) != (t.din, t.dout):
+                    raise LoweringError(
+                        f"node {t.node!r} (kind=matmul): weight shape "
+                        f"{tuple(mp.wq.shape)} != graph ({t.din}, {t.dout})")
+
+    return LMPlan(tasks=tuple(state.tasks),
+                  embed=state.embed.outputs[0],
+                  logits_in=state.unembed.inputs[0],
+                  vocab=state.unembed.attrs["dout"],
+                  seq_len=state.embed.attrs["seq_len"])
 
 
 def plan_chains(plan: LoweringPlan, cfg,

@@ -171,14 +171,16 @@ def activation_out_specs(params: QResNetParams, default: QSpec):
     return params.blocks[0].conv0.x_spec, block_outs
 
 
-def ensure_typed(qparams) -> QResNetParams:
-    """Accept the ``quantize_params`` dict layout or a typed container."""
-    if isinstance(qparams, QResNetParams):
+def ensure_typed(qparams):
+    """Accept the ``quantize_params`` dict layout or a typed container
+    (conv or LM)."""
+    from repro_torch.compile.lm_params import QLMParams
+    if isinstance(qparams, (QResNetParams, QLMParams)):
         return qparams
     if isinstance(qparams, dict):
         return QResNetParams.from_dict(qparams)
     raise TypeError(
-        f"expected QResNetParams or a quantize_params() dict, "
+        f"expected QResNetParams, QLMParams or a quantize_params() dict, "
         f"got {type(qparams).__name__}")
 
 

@@ -15,6 +15,10 @@ port's own copy.
 
 After passes 3-5 every residual block is two fused tasks, which is what the
 ``resblock_fused`` kernel executes in one launch.
+
+LM graphs (``build_transformer_graph``, ``build_ssm_graph``) take
+``optimize_lm`` instead: ReLU merged into its matmul, every residual Add
+folded into a matmul's accumulator (``add_fold_matmul``).
 """
 from __future__ import annotations
 
@@ -313,3 +317,119 @@ def resnet8_graph() -> Graph:
 
 def resnet20_graph() -> Graph:
     return build_resnet_graph(3)
+
+
+# ---------------------------------------------------------------------------
+# LM graph builders (decoder-only transformer / Mamba) + the generic add-fold
+# ---------------------------------------------------------------------------
+
+
+def _matmul(name, tin, tout, din, dout, role, layer):
+    """``role``/``layer`` bind a matmul node to its parameter slot, the same
+    handle convention the conv builder uses (role | block)."""
+    return Node(name, "matmul", [tin], [tout],
+                dict(din=din, dout=dout, role=role, layer=layer))
+
+
+def build_transformer_graph(cfg, seq_len: int) -> Graph:
+    """Decoder-only transformer block stack as the IR the generic compiler
+    lowers: per layer q/k/v projections -> causal attention -> output
+    projection + residual add -> ReLU MLP (up, relu, down) + residual add.
+    Matches the int8 arithmetic of ``compile.lm_params`` (pre-norm dropped:
+    the int8 stack keeps the residual stream on one pow2 grid; see
+    docs/compiler.md)."""
+    d, L = cfg.d_model, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads or cfg.num_heads, cfg.head_dim
+    nodes = [Node("input", "input", ["%in"], ["tok"]),
+             Node("embed", "embed", ["tok"], ["h0"],
+                  dict(vocab=cfg.vocab_size, dout=d, seq_len=seq_len))]
+    h = "h0"
+    for i in range(L):
+        p = f"l{i}"
+        nodes.append(_matmul(f"{p}.wq", h, f"{p}.q", d, H * hd, "wq", i))
+        nodes.append(_matmul(f"{p}.wk", h, f"{p}.k", d, KV * hd, "wk", i))
+        nodes.append(_matmul(f"{p}.wv", h, f"{p}.v", d, KV * hd, "wv", i))
+        nodes.append(Node(f"{p}.attn", "attention",
+                          [f"{p}.q", f"{p}.k", f"{p}.v"], [f"{p}.a"],
+                          dict(heads=H, kv_heads=KV, head_dim=hd,
+                               causal=True, layer=i, role="attn",
+                               seq_len=seq_len)))
+        nodes.append(_matmul(f"{p}.wo", f"{p}.a", f"{p}.o", H * hd, d,
+                             "wo", i))
+        nodes.append(Node(f"{p}.add0", "add", [f"{p}.o", h], [f"{p}.r"]))
+        nodes.append(_matmul(f"{p}.up", f"{p}.r", f"{p}.u", d, cfg.d_ff,
+                             "up", i))
+        nodes.append(Node(f"{p}.relu", "relu", [f"{p}.u"], [f"{p}.ur"]))
+        nodes.append(_matmul(f"{p}.down", f"{p}.ur", f"{p}.d", cfg.d_ff, d,
+                             "down", i))
+        nodes.append(Node(f"{p}.add1", "add", [f"{p}.d", f"{p}.r"],
+                          [f"h{i + 1}"]))
+        h = f"h{i + 1}"
+    nodes.append(Node("unembed", "unembed", [h], ["logits"],
+                      dict(din=d, dout=cfg.vocab_size)))
+    nodes.append(Node("output", "output", ["logits"], []))
+    return Graph(nodes)
+
+
+def build_ssm_graph(cfg, seq_len: int) -> Graph:
+    """Mamba1 block stack: per layer the five input projections (u/z/dt/B/C),
+    the selective scan (SiLU-gated by z inside the scan task), and the
+    output projection + residual add."""
+    d, L = cfg.d_model, cfg.num_layers
+    di, N = cfg.d_inner, cfg.ssm_state
+    nodes = [Node("input", "input", ["%in"], ["tok"]),
+             Node("embed", "embed", ["tok"], ["h0"],
+                  dict(vocab=cfg.vocab_size, dout=d, seq_len=seq_len))]
+    h = "h0"
+    for i in range(L):
+        p = f"l{i}"
+        nodes.append(_matmul(f"{p}.wu", h, f"{p}.u", d, di, "wu", i))
+        nodes.append(_matmul(f"{p}.wz", h, f"{p}.z", d, di, "wz", i))
+        nodes.append(_matmul(f"{p}.wdt", h, f"{p}.dt", d, di, "wdt", i))
+        nodes.append(_matmul(f"{p}.wb", h, f"{p}.b", d, N, "wb", i))
+        nodes.append(_matmul(f"{p}.wc", h, f"{p}.c", d, N, "wc", i))
+        nodes.append(Node(f"{p}.scan", "scan",
+                          [f"{p}.u", f"{p}.dt", f"{p}.b", f"{p}.c",
+                           f"{p}.z"], [f"{p}.y"],
+                          dict(d_inner=di, ssm_state=N, gated=True, layer=i,
+                               role="scan", seq_len=seq_len)))
+        nodes.append(_matmul(f"{p}.wo", f"{p}.y", f"{p}.o", di, d, "wo", i))
+        nodes.append(Node(f"{p}.add", "add", [f"{p}.o", h], [f"h{i + 1}"]))
+        h = f"h{i + 1}"
+    nodes.append(Node("unembed", "unembed", [h], ["logits"],
+                      dict(din=d, dout=cfg.vocab_size)))
+    nodes.append(Node("output", "output", ["logits"], []))
+    return Graph(nodes)
+
+
+def add_fold_matmul(g: Graph) -> Graph:
+    """The paper's add-fold (Fig. 13) generalized off the conv pipeline: an
+    Add whose one input is produced by a matmul is deleted — the OTHER input
+    (the skip stream) initializes that matmul's accumulator instead
+    (``skip_in``): the ``acc_init`` operand of ``matmul_int8``."""
+    prod = g.producers()
+    for n in list(g.nodes):
+        if n.op != "add":
+            continue
+        a, b = n.inputs[:2]
+        pa, pb = prod.get(a), prod.get(b)
+        for mm, skip in ((pa, b), (pb, a)):
+            if mm is not None and mm.op == "matmul" and mm.skip_in is None:
+                mm.skip_in = skip
+                mm.fused.append("add_fold")
+                mm.fused.extend(n.fused)
+                mm.outputs = list(n.outputs)
+                g.remove([n.name])
+                break
+    return g
+
+
+def optimize_lm(g: Graph) -> Graph:
+    """The LM counterpart of :func:`optimize`: ReLU merged into its
+    producing matmul, every residual Add folded into a matmul accumulator.
+    No bn/loop_merge/temporal_reuse — LM graphs have no convs or window
+    buffers."""
+    g = merge_relu(g)
+    g = add_fold_matmul(g)
+    g.validate()
+    return g

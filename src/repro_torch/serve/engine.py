@@ -5,7 +5,10 @@ classification — through :class:`repro_torch.compile.CompiledModel`: the
 optimized graph is lowered once, weights live on the engine's device, and a
 tick only selects a bucket, zero-pads and runs.  The default backend is
 ``cuda``, the hand-written per-block kernel pipeline; ``cuda-stream`` runs
-each ResNet forward as one streamed ``block_chain`` launch.
+each ResNet forward as one streamed ``block_chain`` launch.  The same
+engine serves the int8 LMs (``compile.lm_params.lm_config``): a request
+then carries a ``(seq_len,)`` token vector and gets back the ``(vocab,)``
+logits of its last position.
 """
 from __future__ import annotations
 
@@ -18,15 +21,19 @@ import numpy as np
 @dataclasses.dataclass
 class ImageRequest:
     rid: int
-    image: np.ndarray                     # (H, W, 3) float image
-    logits: Optional[np.ndarray] = None   # (num_classes,) once served
+    image: np.ndarray                     # (H, W, 3) float image, or an LM
+                                          # (seq_len,) int token vector
+    logits: Optional[np.ndarray] = None   # (num_classes | vocab,) once served
     label: Optional[int] = None
     done: bool = False
 
 
 def _input_contract(cfg):
     """Per-request payload (shape, numpy dtype) of one config: the model's
-    input batch minus the batch dim."""
+    input batch minus the batch dim — float images for conv configs, int32
+    token vectors for LM configs."""
+    if hasattr(cfg, "seq_len"):
+        return (cfg.seq_len,), np.int32
     return (cfg.img, cfg.img, 3), np.float32
 
 

@@ -10,17 +10,26 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.compile import lower_features
+from repro_torch.compile import (get_task_impl, init_lm_params, lm_config,
+                                 lower_features, lowering, plan_lm)
+from repro_torch.compile import backends as BK
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import dataflow as df
 from repro_torch.core.quant import shift_align
 from repro_torch.kernels.common import conv_i32, requant_u8
 from repro_torch.kernels.conv_stem.ops import conv_stem_op
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
+from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
 from repro_torch.kernels.megakernel import ops as chain_ops
 from repro_torch.kernels.megakernel.ops import ChainBlockSpec, block_chain_op
 from repro_torch.kernels.megakernel.ref import block_chain_ref
 from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
+from repro_torch.kernels.selective_scan.ops import selective_scan_op
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import resnet as R
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.space import SMEM_BUDGET
@@ -209,3 +218,116 @@ def test_cuda_stream_backend_matches_torch_int_on_gpu(dev):
     assert block_chain_op.launches == before + 1
     ref = lower_features(cfg, qp, "torch-int", device=dev)(imgs)
     assert got.is_cuda and torch.equal(got, ref) and bool(got.any())
+
+
+# -- the LM kernels ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (512, 256, 16),      # the thin B/C projections' N, a full row tile
+    (130, 96, 200),      # ragged M and N
+    (64, 30, 12),        # K not a multiple of 4: byte-wise staging
+    (33, 64, 18),        # N not a multiple of 4
+])
+def test_matmul_int8_matches_plain_version(dev, M, K, N):
+    """Bitwise with the float64 plain version, with and without an
+    accumulator init, also when the init is a stride-0 broadcast."""
+    rng = np.random.default_rng(M + K + N)
+    a = _t(rng, dev, -128, 128, (M, K), np.int8)
+    b = _t(rng, dev, -128, 128, (K, N), np.int8)
+    init = _t(rng, dev, -2 ** 20, 2 ** 20, (M, N), np.int32)
+    bias = _t(rng, dev, -2 ** 20, 2 ** 20, (1, N), np.int32).expand(M, N)
+    before = matmul_int8_op.launches
+    for acc in (None, init, bias):
+        got = matmul_int8_op(a, b, acc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, matmul_int8_ref(a, b, acc))
+    assert matmul_int8_op.launches == before + 3
+
+
+def _normal(rng, dev, shape, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)
+
+
+def _attention_ref(q, k, v, causal):
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+
+    def flat(t, s):
+        return t.repeat_interleave(H // t.shape[2], dim=2).permute(
+            0, 2, 1, 3).reshape(B * H, s, hd)
+
+    o = attention_ref(flat(q, Sq), flat(k, Sk), flat(v, Sk), causal=causal)
+    return o.reshape(B, H, Sq, hd).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,dtype", [
+    (1, 64, 64, 2, 2, 16, True, torch.float32),
+    (2, 128, 128, 4, 2, 32, True, torch.float32),
+    (1, 64, 64, 2, 1, 16, False, torch.float32),
+    (1, 32, 128, 4, 1, 64, True, torch.float32),     # decode: Sq < Sk
+    (2, 100, 100, 2, 1, 256, True, torch.float32),   # ragged tiles, hd 256
+    (1, 64, 64, 2, 2, 16, True, torch.bfloat16),
+])
+def test_flash_attention_matches_reference(dev, B, Sq, Sk, H, KV, hd, causal,
+                                           dtype):
+    """Within the JAX tests' tolerance of the naive softmax (2e-5; 2e-2 in
+    bf16), output in the input's type, one counted launch."""
+    rng = np.random.default_rng(Sq + H)
+    q = _normal(rng, dev, (B, Sq, H, hd), dtype)
+    k = _normal(rng, dev, (B, Sk, KV, hd), dtype)
+    v = _normal(rng, dev, (B, Sk, KV, hd), dtype)
+    before = flash_attention_op.launches
+    out = flash_attention_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and flash_attention_op.launches == before + 1
+    ref = _attention_ref(q, k, v, causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,di,N", [(1, 16, 8, 4), (2, 32, 16, 8),
+                                      (2, 64, 32, 16), (2, 100, 200, 16)])
+def test_selective_scan_matches_plain_version(dev, B, S, di, N):
+    """Within the JAX tests' tolerance (1e-5) of the sequential plain
+    version, from a nonzero initial state."""
+    rng = np.random.default_rng(S + di)
+    u = _normal(rng, dev, (B, S, di))
+    dt = BK.softplus(_normal(rng, dev, (B, S, di)))
+    A = -torch.exp(_normal(rng, dev, (di, N)) * 0.5)
+    Bc, Cc = _normal(rng, dev, (B, S, N)), _normal(rng, dev, (B, S, N))
+    h0 = _normal(rng, dev, (B, di, N))
+    before = selective_scan_op.launches
+    y, h = selective_scan_op(u, dt, A, Bc, Cc, h0)
+    torch.cuda.synchronize()
+    assert selective_scan_op.launches == before + 1
+    y_ref, h_ref = selective_scan_ref(u, dt, A, Bc, Cc, h0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "falcon-mamba-7b"])
+def test_lm_tasks_on_cuda_match_torch_int(dev, name):
+    """One LM forward of each family at smoke width on the card: the
+    torch-int program runs, and every task is replayed through the cuda
+    impl on the same inputs.  Every matmul output is bitwise equal; the
+    float interludes' int8 outputs differ by at most one grid step."""
+    cfg = lm_config(get_smoke_config(name), seq_len=64)
+    params = init_lm_params(cfg, seed=5, device=dev)
+    plan = plan_lm(lowering.optimized_graph(cfg), params)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(dev)
+    ctx = BK.lm_context(plan, params, cfg)
+    BK.embed_tokens(ctx, plan, tokens)
+    for t in plan.tasks:
+        get_task_impl("torch-int", t.kind)(t, ctx)
+        shadow = BK.lm_context(plan, params, cfg)
+        shadow.env, shadow.specs = dict(ctx.env), dict(ctx.specs)
+        get_task_impl("cuda", t.kind)(t, shadow)
+        got, ref = shadow.env[t.output], ctx.env[t.output]
+        if t.kind == "matmul":
+            assert torch.equal(got, ref), t.node
+        else:
+            step = (got.to(torch.int32) - ref.to(torch.int32)).abs().max()
+            assert int(step) <= 1, t.node

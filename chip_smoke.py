@@ -7,10 +7,11 @@ Phases, one JSON line each:
 
   1. device   — requires a CUDA GPU (exits 2 without one); prints the card's
                 name and power limit as nvidia-smi reports them.
-  2. build    — compiles the six kernels (conv_stem, resblock_fused,
-                block_chain, matmul_int8, flash_attention, selective_scan)
-                from ``src/repro_torch/kernels/csrc``, one nvcc each, all
-                started together; prints ptxas registers and spills.
+  2. build    — compiles the seven kernels (conv_stem, resblock_fused,
+                block_chain, matmul_int8, flash_attention, selective_scan,
+                conv2d_int8) from ``src/repro_torch/kernels/csrc``, one
+                nvcc each, all started together; prints ptxas registers
+                and spills.
   3. kernels  — each conv kernel against its plain PyTorch version on the
                 card, bitwise (``torch.equal``): conv_stem at N=256 and
                 N=32 for shifts > 0, = 0, < 0; resblock_fused at every
@@ -36,13 +37,23 @@ Phases, one JSON line each:
                 eager and as a CUDA-graph replay (the device time alone).
   5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 forwards of
                 each backend.
+  5b. conv2d — conv2d_int8, the general int8 conv (off the serving path:
+                its launches there are counted and are 0), bitwise against
+                its plain version on the sweep of tests/test_kernels.py,
+                the skip init, out_shift > 0, = 0 and < 0, ReLU on and off,
+                int32 output and uint8 input, then on ResNet20's 20 conv
+                layers at batch 32 with s8 input (a fifth of the
+                requantized outputs strictly inside their clip range);
+                times there and at the kernels_micro shape.
   6. LM kernels — matmul_int8 bitwise against its plain version at every
                 projection shape of gemma-2b and falcon-mamba-7b at M =
                 2048 (bucket 4, S = 512) and 512, with and without
                 acc_init, and on ragged shapes (N = 16, K = 30, M not a
                 tile multiple); flash_attention at gemma-2b's shape within
-                2e-5 (causal, non-causal, Sq = 128 < Sk, and bf16 within
-                2e-2); selective_scan at falcon-mamba-7b's shape from a
+                2e-5 (causal, non-causal, Sq = 128 < Sk, KV = H, KV = 2,
+                head dims 64 and 128, Sq and Sk not tile multiples, and
+                bf16 within 2e-2), with its occupancy, ptxas report and
+                achieved TFLOP/s; selective_scan at falcon-mamba-7b's shape from a
                 nonzero state within 1e-5.  Times as in phase 3, plus the
                 one PyTorch call computing the same function
                 (``library_ms``: ``torch._int_mm`` + init, SDPA).
@@ -93,8 +104,14 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import conv_stem_op  # noqa: E402
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
+from repro_torch.kernels.conv2d_int8.ops import (  # noqa: E402
+    conv2d_int8_op, out_hw)
+from repro_torch.kernels.conv2d_int8.ref import \
+    conv2d_int8_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     attn_tiles, flash_attention_op)
+from repro_torch.kernels.flash_attention.ops import \
+    blocks_per_sm as flash_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
     smem_bytes as flash_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
@@ -467,6 +484,152 @@ def chain_phase(rng, dev):
     return dict(t, smem_bytes=smem, max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# conv2d_int8: the general int8 conv, off the serving path
+# ---------------------------------------------------------------------------
+
+# the sweep of tests/test_kernels.py and its skip case, then the traps of
+# the JAX wrapper: (N, H, C, O, fh, stride, relu, out_shift, x dtype, skip)
+CONV_SWEEP = [(2, 8, 4, 8, 3, 1, False, None, torch.int8, False),
+              (2, 8, 4, 8, 3, 2, False, None, torch.int8, False),
+              (1, 16, 8, 16, 3, 1, True, 7, torch.int8, False),
+              (2, 8, 3, 16, 3, 2, True, 6, torch.int8, False),
+              (2, 8, 4, 4, 3, 1, False, None, torch.int8, True),
+              (2, 8, 4, 8, 3, 1, False, -2, torch.int8, True),
+              (2, 8, 4, 8, 3, 1, True, -2, torch.int8, False),
+              (2, 8, 4, 8, 3, 2, True, 0, torch.int8, True),
+              (2, 8, 4, 8, 3, 1, True, 9, torch.uint8, False),
+              (2, 9, 3, 5, 3, 2, False, 4, torch.uint8, True),
+              (1, 10, 4, 8, 5, 1, True, 10, torch.int8, False),
+              (2, 8, 8, 8, 1, 2, False, None, torch.int8, False)]
+# ResNet20's conv layers at batch 32 with s8 input, the paper's convolution
+# task: (H, Cin, Cout, fh, stride, layers of one forward)
+RESNET20_CONVS = [(32, 16, 16, 3, 1, 6), (32, 16, 32, 3, 2, 1),
+                  (16, 32, 32, 3, 1, 5), (16, 32, 64, 3, 2, 1),
+                  (8, 64, 64, 3, 1, 5), (32, 16, 32, 1, 2, 1),
+                  (16, 32, 64, 1, 2, 1)]
+
+
+def conv_operands(rng, dev, n, h, cin, cout, fh, stride, xdtype=torch.int8,
+                  skip=False):
+    lo, hi = (0, 256) if xdtype == torch.uint8 else (-128, 128)
+    npt = np.uint8 if xdtype == torch.uint8 else np.int8
+    x = torch.from_numpy(rng.integers(lo, hi, (n, h, h, cin)).astype(npt))
+    w = rng.integers(-128, 128, (fh, fh, cin, cout)).astype(np.int8)
+    b = rng.integers(-2000, 2000, cout).astype(np.int32)
+    s = rng.integers(-2 ** 16, 2 ** 16, (n, *out_hw(h, h, stride), cout)
+                     ).astype(np.int32) if skip else None
+    return (x.to(dev), torch.from_numpy(w).to(dev),
+            torch.from_numpy(b).to(dev),
+            None if s is None else torch.from_numpy(s).to(dev))
+
+
+def conv_shift(acc, relu):
+    """The requant shift that puts the 90th percentile of the accumulators
+    (the positive ones under ReLU, |acc| otherwise) near the middle of the
+    clip range's upper half."""
+    a = (acc[acc > 0] if relu else acc.abs().flatten()).double()[:1 << 24]
+    q = float(torch.quantile(a, 0.9)) if a.numel() else 1.0
+    return max(int(math.ceil(math.log2(max(q, 1.0) /
+                                       (192 if relu else 100)))), 1)
+
+
+def conv_inside(out, relu):
+    """Share of requantized outputs strictly inside their clip range."""
+    o = out.to(torch.int32)
+    lo, hi = (0, 255) if relu else (-128, 127)
+    return float(((o > lo) & (o < hi)).float().mean())
+
+
+def check_conv(what, ops, **kw):
+    got = conv2d_int8_op(*ops, **kw)
+    torch.cuda.synchronize()
+    ref = conv2d_int8_plain(*ops, **kw)
+    check(got.dtype == ref.dtype and torch.equal(got, ref),
+          f"conv2d_int8 {what} {kw} differs from plain")
+    return got, max_abs_err(got, ref)
+
+
+def conv2d_phase(rng, dev):
+    """conv2d_int8 bitwise against its plain version on the JAX sweep, the
+    skip init, out_shift > 0, = 0 and < 0, ReLU on and off, int32 output
+    and uint8 input; then on ResNet20's conv layers at batch 32 (s8 input)
+    with requant shifts that keep at least a fifth of the outputs strictly
+    inside their clip range; timings there and at the kernels_micro shape.
+    Returns the kernel record summed over ResNet20's 20 conv layers."""
+    err, cases = 0, 0
+    for n, h, c, o, fh, stride, relu, shift, xdt, skip in CONV_SWEEP:
+        ops = conv_operands(rng, dev, n, h, c, o, fh, stride, xdt, skip)
+        err = max(err, check_conv(f"sweep N={n} {h}x{h}x{c}->{o} f{fh} "
+                                  f"s{stride} {xdt}", ops, stride=stride,
+                                  relu=relu, out_shift=shift)[1])
+        cases += 1
+    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    for h, cin, cout, fh, stride, count in RESNET20_CONVS:
+        what = f"{h}x{h}x{cin}->{cout} f{fh} s{stride}"
+        ops = conv_operands(rng, dev, BUCKET, h, cin, cout, fh, stride,
+                            skip=True)
+        acc = conv2d_int8_plain(*ops, stride=stride)
+        kws = [dict(stride=stride), dict(stride=stride, relu=True)]
+        for relu in (True, False):
+            shift = conv_shift(torch.clamp_min(acc, 0) if relu else acc,
+                               relu)
+            kws += [dict(stride=stride, relu=relu, out_shift=shift),
+                    dict(stride=stride, relu=relu, out_shift=-shift),
+                    dict(stride=stride, relu=relu, out_shift=0)]
+        for kw in kws:
+            for with_skip in (True, False):
+                case = ops if with_skip else ops[:3]
+                got, e = check_conv(what, case, **kw)
+                err = max(err, e)
+                cases += 1
+                if (kw.get("out_shift") or 0) > 0:
+                    share = conv_inside(got, kw.get("relu", False))
+                    check(share >= MIN_UNSATURATED,
+                          f"conv2d_int8 {what} {kw}: only {share:.3f} of "
+                          f"outputs inside the clip range")
+        relu_shift = conv_shift(torch.clamp_min(acc, 0), True)
+        kw = dict(stride=stride, relu=True, out_shift=relu_shift)
+        out = conv2d_int8_op(*ops[:3], **kw)
+        t = dict(ms=device_ms(lambda: conv2d_int8_op(*ops[:3], **kw), REPS),
+                 call_ms=call_ms(lambda: conv2d_int8_op(*ops[:3], **kw),
+                                 REPS),
+                 plain_ms=device_ms(lambda: conv2d_int8_plain(*ops[:3], **kw),
+                                    REPS))
+        oh = out_hw(h, h, stride)[0]
+        macs = BUCKET * oh * oh * cout * fh * fh * cin
+        t["bound_ms"], t["bound_by"] = bound(nbytes(*ops[:3], out), 2 * macs)
+        emit("kernel", name="conv2d_int8", n=BUCKET, h=h, cin=cin, cout=cout,
+             fh=fh, stride=stride, relu=True, out_shift=relu_shift,
+             layers_per_forward=count, bitwise=True,
+             inside_clip_share=conv_inside(out, True), **t)
+        for k in ("ms", "call_ms", "plain_ms"):
+            tot[k] += count * t[k]
+        tot["bytes"] += count * nbytes(*ops[:3], out)
+        tot["ops"] += count * 2 * macs
+    # benchmarks/run.py's kernels_micro shape: int32 output, zero bias
+    x, w, _, _ = conv_operands(rng, dev, 2, 16, 16, 16, 3, 1)
+    b = torch.zeros(16, dtype=torch.int32, device=dev)
+    err = max(err, check_conv("kernels_micro", (x, w, b))[1])
+    cases += 1
+    out = conv2d_int8_op(x, w, b)
+    t = dict(ms=device_ms(lambda: conv2d_int8_op(x, w, b), REPS),
+             call_ms=call_ms(lambda: conv2d_int8_op(x, w, b), REPS),
+             plain_ms=device_ms(lambda: conv2d_int8_plain(x, w, b), REPS))
+    t["bound_ms"], t["bound_by"] = bound(nbytes(x, w, b, out),
+                                         2 * out.numel() * 9 * 16)
+    emit("kernel", name="conv2d_int8", n=2, h=16, cin=16, cout=16, fh=3,
+         stride=1, shape="kernels_micro", bitwise=True, **t)
+    emit("kernel_check", name="conv2d_int8", cases=cases, bitwise=True)
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    rec = dict(ms=tot["ms"], call_ms=tot["call_ms"],
+               plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err, kernels_micro_ms=t["ms"])
+    emit("kernel", name="conv2d_int8", n=BUCKET,
+         per="ResNet20's 20 conv layers, one launch each", **rec)
+    return rec
+
+
 def macs_per_image(cfg):
     res, ich = cfg.img, cfg.base_width
     macs = res * res * 27 * ich
@@ -489,7 +652,7 @@ def launch_plan(cfg, backend):
     singles = sum(len(c.blocks) == 1 and c.stem is None for c in chains)
     return dict(conv_stem=int(chains[0].stem is None),
                 resblock_fused=singles,
-                block_chain=len(chains) - singles), \
+                block_chain=len(chains) - singles, conv2d_int8=0), \
         [c.describe() for c in chains]
 
 
@@ -508,14 +671,15 @@ def serve_phase(cfg, seed, dev, backend):
         eng.submit(r)
 
     conv_stem_op.launches = resblock_fused_op.launches = 0
-    block_chain_op.launches = 0
+    block_chain_op.launches = conv2d_int8_op.launches = 0
     t0 = time.perf_counter()
     ticks = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(conv_stem=conv_stem_op.launches,
                     resblock_fused=resblock_fused_op.launches,
-                    block_chain=block_chain_op.launches)
+                    block_chain=block_chain_op.launches,
+                    conv2d_int8=conv2d_int8_op.launches)
 
     runs = sum(eng.model.run_counts.values())
     per_run, chains = launch_plan(cfg, backend)
@@ -736,9 +900,15 @@ def lm_matmul_phase(rng, dev):
     return rec
 
 
-def flash_case(rng, dev, Sq, Sk, dtype=torch.float32):
+def flash_case(rng, dev, Sq, Sk, dtype=torch.float32, heads=None,
+               kv_heads=None, head_dim=None):
+    """q, k, v at gemma-2b's bucket-4 shape, or with its heads, kv heads or
+    head dim replaced."""
     cfg = lm_cfg("gemma-2b")
-    B, H, KV, hd = LM_BUCKET, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = LM_BUCKET
+    H = heads or cfg.num_heads
+    KV = kv_heads or cfg.num_kv_heads
+    hd = head_dim or cfg.head_dim
 
     def normal(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -756,21 +926,48 @@ def flash_bytes_ops(q, k, causal):
     return nbytes(q, k, k, q), 4 * B * H * hd * keys
 
 
+def ptxas_by_entry(name):
+    """``{entry function: [ptxas lines]}`` from the last build log of
+    kernel ``name`` (registers, shared memory, spills per instantiation)."""
+    out, entry = {}, None
+    for ln in _build.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            out[entry] = []
+        elif entry and ("registers" in ln or "spill" in ln or
+                        "smem" in ln):
+            out[entry].append(ln.strip())
+    return out
+
+
+# flash_attention cases: (what, Sq, Sk, causal, dtype, H, KV, hd); None
+# keeps gemma-2b's value (H 8, KV 1, hd 256)
+FLASH_CASES = [
+    ("causal", LM_SEQ, LM_SEQ, True, torch.float32, None, None, None),
+    ("non-causal", LM_SEQ, LM_SEQ, False, torch.float32, None, None, None),
+    ("decode", LM_SEQ // 4, LM_SEQ, True, torch.float32, None, None, None),
+    ("bf16", LM_SEQ, LM_SEQ, True, torch.bfloat16, None, None, None),
+    ("KV = H", LM_SEQ, LM_SEQ, True, torch.float32, None, 8, None),
+    ("KV = 2", LM_SEQ, LM_SEQ, True, torch.float32, None, 2, None),
+    ("hd 64", LM_SEQ, LM_SEQ, True, torch.float32, None, None, 64),
+    ("hd 128", LM_SEQ, LM_SEQ, True, torch.float32, None, None, 128),
+    ("ragged Sk", 300, 500, True, torch.float32, None, None, None),
+    ("ragged non-causal", 300, 500, False, torch.float32, None, 2, 128),
+]
+
+
 def lm_flash_phase(rng, dev):
     """flash_attention against its plain version at gemma-2b's bucket-4
-    shape: causal, non-causal, decode (Sq = 128 < Sk = 512) and bf16;
-    timings on the causal float32 case."""
+    shape: causal, non-causal, decode (Sq = 128 < Sk = 512), bf16, no head
+    grouping (KV = H), KV = 2, head dims 64 and 128, and Sq, Sk that are
+    not tile multiples; timings, occupancy and achieved rate on the causal
+    float32 case."""
     err = 0.0
-    for what, Sq, causal, dtype in (("causal", LM_SEQ, True, torch.float32),
-                                    ("non-causal", LM_SEQ, False,
-                                     torch.float32),
-                                    ("decode", LM_SEQ // 4, True,
-                                     torch.float32),
-                                    ("bf16", LM_SEQ, True, torch.bfloat16)):
-        q, k, v = flash_case(rng, dev, Sq, LM_SEQ, dtype)
+    for what, Sq, Sk, causal, dtype, H, KV, hd in FLASH_CASES:
+        q, k, v = flash_case(rng, dev, Sq, Sk, dtype, H, KV, hd)
         got = flash_attention_op(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        bq, bk = attn_tiles(Sq, LM_SEQ)
+        bq, bk = attn_tiles(Sq, Sk, q.shape[2] // k.shape[2])
         ref = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
         tol = BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
         excess, dev_max = close_err(got, ref, tol)
@@ -780,7 +977,8 @@ def lm_flash_phase(rng, dev):
         if dtype == torch.float32:
             err = max(err, dev_max)
         emit("kernel_check", name="flash_attention", case=what, Sq=Sq,
-             Sk=LM_SEQ, dtype=str(dtype), max_abs_err=dev_max, tolerance=tol)
+             Sk=Sk, shape=list(q.shape), kv_heads=k.shape[2],
+             dtype=str(dtype), max_abs_err=dev_max, tolerance=tol)
     q, k, v = flash_case(rng, dev, LM_SEQ, LM_SEQ)
     qs, ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
     t = dict(ms=device_ms(lambda: flash_attention_op(q, k, v), LM_REPS),
@@ -793,6 +991,9 @@ def lm_flash_phase(rng, dev):
     t["bound_ms"], t["bound_by"] = bound(moved, ops, F32_FLOPS_PER_S)
     t["max_abs_err"] = err
     t["smem_bytes"] = flash_smem_bytes(q.shape[3])
+    t["blocks_per_sm"] = flash_blocks_per_sm(q.shape[3])
+    t["achieved_tflops"] = ops / (t["ms"] * 1e-3) / 1e12
+    t["ptxas"] = ptxas_by_entry("flash_attention")
     emit("kernel", name="flash_attention", shape=list(q.shape), causal=True,
          **t)
     return t
@@ -847,7 +1048,8 @@ def lm_scan_phase(rng, dev):
 
 LM_KERNEL_OPS = dict(matmul_int8=matmul_int8_op,
                      flash_attention=flash_attention_op,
-                     selective_scan=selective_scan_op)
+                     selective_scan=selective_scan_op,
+                     conv2d_int8=conv2d_int8_op)
 
 
 def lm_launch_plan(cfg):
@@ -856,7 +1058,7 @@ def lm_launch_plan(cfg):
     kinds = [t.kind for t in plan.tasks]
     return dict(matmul_int8=kinds.count("matmul"),
                 flash_attention=kinds.count("attention"),
-                selective_scan=kinds.count("scan"))
+                selective_scan=kinds.count("scan"), conv2d_int8=0)
 
 
 def lm_task_check(cfg, params, tokens):
@@ -1076,14 +1278,16 @@ def main(argv=None):
     chain = chain_phase(rng, dev)
     eng20, launches, serve20 = serve_phase(R.RESNET20, args.seed, dev,
                                            "cuda")
-    serve8 = serve_phase(R.RESNET8, args.seed, dev, "cuda")[2]
+    _, launches8, serve8 = serve_phase(R.RESNET8, args.seed, dev, "cuda")
     eng20s, launches_s, serve20s = serve_phase(R.RESNET20, args.seed, dev,
                                                "cuda-stream")
-    serve8s = serve_phase(R.RESNET8, args.seed, dev, "cuda-stream")[2]
+    _, launches8s, serve8s = serve_phase(R.RESNET8, args.seed, dev,
+                                         "cuda-stream")
     profile_phase(eng20, dev, "cuda")
     profile_phase(eng20s, dev, "cuda-stream")
     del eng20, eng20s
 
+    conv = conv2d_phase(rng, dev)
     mm = lm_matmul_phase(rng, dev)
     flash = lm_flash_phase(rng, dev)
     scan = lm_scan_phase(rng, dev)
@@ -1095,6 +1299,8 @@ def main(argv=None):
         del eng
         torch.cuda.empty_cache()
 
+    conv_launches = sum(d["conv2d_int8"] for d in (
+        launches, launches_s, launches8, launches8s, *lm_launches.values()))
     src = "src/repro_torch/kernels/csrc/"
     rows = [
         dict(name="conv_stem", route="cuda", source=src + "conv_stem.cu",
@@ -1139,6 +1345,14 @@ def main(argv=None):
              per="one launch at falcon-mamba-7b's bucket-4 shape",
              library_reason="no PyTorch call computes the selective scan",
              **scan),
+        dict(name="conv2d_int8", route="cuda", source=src + "conv2d_int8.cu",
+             replaces="src/repro/kernels/conv2d_int8/conv2d_int8.py:57",
+             launches=conv_launches, bitwise=True, library_ms=None,
+             library_reason="none: F.conv2d refuses int8 on CUDA, and a "
+                            "float conv has no integer epilogue",
+             per="off the serving path (0 launches on it); timed on "
+                 "ResNet20's 20 conv layers at batch 32, s8 input, one "
+                 "launch each", **conv),
     ]
     # the serve summary rides on the kernels line so that it survives in
     # any tail of the output that keeps the last lines

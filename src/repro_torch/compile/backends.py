@@ -256,7 +256,7 @@ def _torch_attention(t, ctx):
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     q, k, v = _lm_attn_qkv(t, ctx)
-    bq, bk = attn_tiles(q.shape[1], k.shape[1])
+    bq, bk = attn_tiles(q.shape[1], k.shape[1], q.shape[2] // k.shape[2])
     _lm_attn_finish(flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
                                           bk=bk), t, ctx)
 

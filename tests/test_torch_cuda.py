@@ -19,8 +19,12 @@ from repro_torch.core.quant import shift_align
 from repro_torch.kernels.common import conv_i32, requant_u8
 from repro_torch.kernels.conv_stem.ops import conv_stem_op
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref
-from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.conv2d_int8.ops import conv2d_int8_op, out_hw
+from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_plain
+from repro_torch.kernels.flash_attention.ops import (attn_tiles,
+                                                     flash_attention_op)
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_attention_plain)
 from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
 from repro_torch.kernels.megakernel import ops as chain_ops
@@ -285,6 +289,110 @@ def test_flash_attention_matches_reference(dev, B, Sq, Sk, H, KV, hd, causal,
     ref = _attention_ref(q, k, v, causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,dtype", [
+    (2, 128, 128, 4, 4, 64, True, torch.float32),    # no grouping
+    (1, 128, 128, 8, 2, 64, True, torch.float32),    # 4 heads a kv head
+    (2, 96, 96, 8, 1, 128, True, torch.float32),     # MQA, hd 128
+    (1, 64, 200, 8, 1, 256, True, torch.float32),    # decode, ragged Sk
+    (1, 100, 130, 4, 2, 128, False, torch.float32),  # ragged Sq and Sk
+    (2, 64, 64, 3, 1, 48, True, torch.float32),      # a group of 3
+    (1, 80, 80, 8, 1, 256, True, torch.bfloat16),
+])
+def test_flash_attention_matches_plain_version(dev, B, Sq, Sk, H, KV, hd,
+                                               causal, dtype):
+    """Within the JAX tests' tolerance (2e-5; 2e-2 in bf16) of the plain
+    version on the kernel's own tiles, for every head grouping the thread
+    block packs, head dims 48 to 256 and ragged lengths."""
+    rng = np.random.default_rng(Sq + Sk + H)
+    q = _normal(rng, dev, (B, Sq, H, hd), dtype)
+    k = _normal(rng, dev, (B, Sk, KV, hd), dtype)
+    v = _normal(rng, dev, (B, Sk, KV, hd), dtype)
+    before = flash_attention_op.launches
+    out = flash_attention_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and flash_attention_op.launches == before + 1
+    bq, bk = attn_tiles(Sq, Sk, H // KV)
+    ref = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_an_unaligned_view(dev):
+    """An operand that starts off a 16-byte boundary is copied, not
+    refused."""
+    rng = np.random.default_rng(9)
+    q = _normal(rng, dev, (1 * 64 * 2 * 16 + 1,))[1:].view(1, 64, 2, 16)
+    k = _normal(rng, dev, (1, 64, 1, 16))
+    v = _normal(rng, dev, (1, 64, 1, 16))
+    out = flash_attention_op(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, bq=32, bk=64)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+# the sweep of tests/test_kernels.py, the skip case, and the JAX wrapper's
+# traps: (N, H, W, C, O, fh, fw, stride, relu, out_shift, x dtype, skip)
+CONV_CASES = [
+    (2, 8, 8, 4, 8, 3, 3, 1, False, None, torch.int8, False),
+    (2, 8, 8, 4, 8, 3, 3, 2, False, None, torch.int8, False),
+    (1, 16, 16, 8, 16, 3, 3, 1, True, 7, torch.int8, False),
+    (2, 8, 8, 3, 16, 3, 3, 2, True, 6, torch.int8, False),
+    (2, 8, 8, 4, 4, 3, 3, 1, False, None, torch.int8, True),
+    (2, 8, 8, 4, 8, 3, 3, 1, False, -2, torch.int8, False),
+    (2, 8, 8, 4, 8, 3, 3, 1, True, 0, torch.int8, True),
+    (2, 8, 8, 4, 8, 3, 3, 1, True, 9, torch.uint8, False),
+    (1, 9, 7, 3, 5, 3, 3, 2, False, None, torch.uint8, True),
+    (1, 10, 10, 4, 8, 5, 5, 1, True, 10, torch.int8, False),
+    (1, 9, 8, 4, 6, 2, 4, 2, False, 3, torch.int8, False),
+    (2, 7, 5, 5, 7, 3, 3, 3, False, 5, torch.int8, False),
+    # ResNet20's shapes at batch 32, s8 input, and the 1x1 downsamples
+    (32, 32, 32, 16, 16, 3, 3, 1, True, 10, torch.int8, False),
+    (32, 32, 32, 16, 32, 3, 3, 2, False, 10, torch.int8, True),
+    (32, 16, 16, 32, 32, 3, 3, 1, True, 11, torch.int8, True),
+    (32, 16, 16, 32, 64, 3, 3, 2, False, None, torch.int8, False),
+    (32, 8, 8, 64, 64, 3, 3, 1, True, 12, torch.uint8, False),
+    (32, 32, 32, 16, 32, 1, 1, 2, False, 8, torch.int8, False),
+    (32, 16, 16, 32, 64, 1, 1, 2, True, 8, torch.int8, False),
+]
+
+
+@pytest.mark.parametrize("N,H,W,C,O,fh,fw,stride,relu,shift,xdt,skip",
+                         CONV_CASES)
+def test_conv2d_int8_matches_plain_version(dev, N, H, W, C, O, fh, fw,
+                                           stride, relu, shift, xdt, skip):
+    """Bitwise with the float64 plain version, one counted launch."""
+    rng = np.random.default_rng(N + H + C + O + fh + stride)
+    lo, hi = (0, 256) if xdt == torch.uint8 else (-128, 128)
+    x = _t(rng, dev, lo, hi, (N, H, W, C),
+           np.uint8 if xdt == torch.uint8 else np.int8)
+    w = _t(rng, dev, -128, 128, (fh, fw, C, O), np.int8)
+    b = _t(rng, dev, -2 ** 12, 2 ** 12, (O,), np.int32)
+    s = _t(rng, dev, -2 ** 16, 2 ** 16, (N, *out_hw(H, W, stride), O),
+           np.int32) if skip else None
+    kw = dict(stride=stride, relu=relu, out_shift=shift)
+    before = conv2d_int8_op.launches
+    got = conv2d_int8_op(x, w, b, s, **kw)
+    torch.cuda.synchronize()
+    assert conv2d_int8_op.launches == before + 1
+    assert torch.equal(got, conv2d_int8_plain(x, w, b, s, **kw))
+
+
+def test_conv2d_int8_wraps_as_int32(dev):
+    """bias + skip near the int32 rails wraps as the reference's adds do."""
+    rng = np.random.default_rng(10)
+    x = _t(rng, dev, -128, 128, (2, 8, 8, 4), np.int8)
+    w = _t(rng, dev, -128, 128, (3, 3, 4, 8), np.int8)
+    b = torch.full((8,), 2 ** 20, dtype=torch.int32, device=dev)
+    s = torch.full((2, 8, 8, 8), 2 ** 31 - 2 ** 16, dtype=torch.int32,
+                   device=dev)
+    for shift in (None, 3):
+        got = conv2d_int8_op(x, w, b, s, out_shift=shift)
+        torch.cuda.synchronize()
+        ref = conv2d_int8_plain(x, w, b, s, out_shift=shift)
+        assert torch.equal(got, ref)
+    assert bool((conv2d_int8_op(x, w, b, s) < 0).any())
 
 
 @pytest.mark.parametrize("B,S,di,N", [(1, 16, 8, 4), (2, 32, 16, 8),

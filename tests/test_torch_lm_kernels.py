@@ -18,6 +18,7 @@ from repro.kernels.matmul_int8.ref import matmul_int8_ref as j_matmul_ref
 from repro.kernels.selective_scan.ref import selective_scan_ref as j_scan_ref
 from repro_torch.compile import backends as BK
 from repro_torch.kernels.flash_attention.ops import (attn_tiles,
+                                                     block_rows,
                                                      flash_attention_op)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_mirror)
@@ -116,6 +117,15 @@ FLASH_CASES = [
     (1, 64, 64, 2, 1, 16, False),
     (1, 32, 128, 4, 1, 16, True),     # decode convention: Sq < Sk
     (2, 96, 96, 4, 1, 16, True),      # MQA, a ragged last tile of 32
+    # the thread block packs the query heads of a kv group: no grouping,
+    # 4 heads a group, gemma-2b's 8 heads on one kv head, wider heads and
+    # an Sk that is not a tile multiple
+    (1, 64, 64, 4, 4, 16, True),
+    (1, 64, 64, 8, 2, 16, True),
+    (2, 64, 64, 8, 1, 32, True),
+    (1, 64, 64, 2, 1, 64, True),
+    (1, 64, 128, 2, 2, 128, False),
+    (1, 40, 100, 8, 1, 32, True),
 ]
 
 
@@ -131,20 +141,37 @@ def test_flash_attention_plain_matches_jax(B, Sq, Sk, H, KV, hd, causal):
     ref = np.asarray(j_attention_ref(qf, kf, vf, causal=causal))
     ref = ref.reshape(B, H, Sq, hd).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
-    # the tiled walk against the JAX mirror on the same tiles, where the
-    # JAX mirror can take them (tiles dividing the lengths)
-    bq, bk = attn_tiles(Sq, Sk)
-    if Sq % bq == 0 and Sk % bk == 0:
+    # the tiled walk on the kernel's tiles (a thread block's positions for
+    # this head grouping, and one head's positions without grouping)
+    # against the naive oracle, and against the JAX mirror on the same
+    # tiles where the JAX mirror can take them (tiles dividing the lengths)
+    for bq, bk in {attn_tiles(Sq, Sk, H // KV), attn_tiles(Sq, Sk)}:
         mine = flash_attention_mirror(_t(qf), _t(kf), _t(vf), causal=causal,
                                       bq=bq, bk=bk).numpy()
-        theirs = np.asarray(j_mirror(jnp.asarray(qf), jnp.asarray(kf),
-                                     jnp.asarray(vf), causal=causal, bq=bq,
-                                     bk=bk))
-        np.testing.assert_allclose(mine, theirs, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(
+            mine.reshape(B, H, Sq, hd).transpose(0, 2, 1, 3), ref,
+            rtol=2e-5, atol=2e-5)
+        if Sq % bq == 0 and Sk % bk == 0:
+            theirs = np.asarray(j_mirror(jnp.asarray(qf), jnp.asarray(kf),
+                                         jnp.asarray(vf), causal=causal,
+                                         bq=bq, bk=bk))
+            np.testing.assert_allclose(mine, theirs, rtol=2e-5, atol=2e-5)
     # the port's own naive oracle
     mine = attention_ref(_t(qf), _t(kf), _t(vf), causal=causal).numpy()
     np.testing.assert_allclose(mine, np.asarray(ref).transpose(
         0, 2, 1, 3).reshape(B * H, Sq, hd), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("group,rows", [(1, (1, 64)), (2, (2, 32)),
+                                        (8, (8, 8)), (3, (3, 21)),
+                                        (100, (64, 1))])
+def test_a_thread_block_packs_the_heads_of_a_kv_group(group, rows):
+    """``block_rows``: the heads of one kv group times positions, at most
+    the kernel's 64 q rows; ``attn_tiles`` walks one head's share."""
+    assert block_rows(group) == rows
+    assert rows[0] * rows[1] <= 64
+    assert attn_tiles(512, 512, group) == (rows[1], 64)
+    assert attn_tiles(4, 40, group) == (min(rows[1], 4), 40)
 
 
 def test_flash_attention_bf16_keeps_the_dtype():

@@ -47,21 +47,29 @@ Phases, one JSON line each:
                 times there and at the kernels_micro shape.
   6. LM kernels — matmul_int8 bitwise against its plain version at every
                 projection shape of gemma-2b and falcon-mamba-7b at M =
-                2048 (bucket 4, S = 512) and 512, with and without
-                acc_init, and on ragged shapes (N = 16, K = 30, M not a
-                tile multiple); flash_attention at gemma-2b's shape within
+                2048 (bucket 4, S = 512) and 512, B as (K, N) and packed
+                (N, K), acc_init full, broadcast (row stride 0) and none,
+                every launch on the wgmma path; a wrap case (acc_init near
+                +-2^31); ragged shapes (N = 200, K = 30, M = 129) on the
+                path their shape picks; per shape the generic time (full
+                init) and the main path's call form (packed B, broadcast
+                bias) with their bounds, TOP/s, tiles, split-K, shared
+                memory and ptxas registers; flash_attention at gemma-2b's shape within
                 2e-5 (causal, non-causal, Sq = 128 < Sk, KV = H, KV = 2,
                 head dims 64 and 128, Sq and Sk not tile multiples, and
                 bf16 within 2e-2), with its occupancy, ptxas report and
                 achieved TFLOP/s; selective_scan at falcon-mamba-7b's shape from a
-                nonzero state within 1e-5.  Times as in phase 3, plus the
-                one PyTorch call computing the same function
-                (``library_ms``: ``torch._int_mm`` + init, SDPA).
+                nonzero state within 1e-5, with its threads, warps an SM
+                and registers.  Times as in phase 3, plus the one PyTorch
+                call computing the same function (``library_ms``:
+                ``torch._int_mm`` + init with B row- and column-major, the
+                faster of the two; SDPA).
   7. LM serve — gemma-2b (18 layers) and falcon-mamba-7b (64 layers) at
                 published width, weights from ``init_lm_params(seed)`` on
                 the card: 6 token requests through ``ResNetEngine`` on
                 ``cuda`` with buckets (1, 4) and a ``torch-int`` shadow;
-                launches against the plan; every task replayed on
+                launches against the plan, every matmul on the wgmma path;
+                every task replayed on
                 ``cuda`` and ``torch-int`` on the same inputs (matmul
                 accumulators and outputs bitwise, attention and scan within
                 their tolerances and one int8 step); logits within the
@@ -116,7 +124,10 @@ from repro_torch.kernels.flash_attention.ops import \
     smem_bytes as flash_smem_bytes  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_plain  # noqa: E402
-from repro_torch.kernels.matmul_int8.ops import matmul_int8_op  # noqa: E402
+from repro_torch.kernels.matmul_int8.ops import (  # noqa: E402
+    matmul_int8_op, matmul_path, matmul_tiles, pack_weight)
+from repro_torch.kernels.matmul_int8.ops import \
+    smem_bytes as mm_smem_bytes  # noqa: E402
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref  # noqa: E402
 from repro_torch.kernels.megakernel import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.megakernel.ops import (  # noqa: E402
@@ -125,8 +136,8 @@ from repro_torch.kernels.megakernel.ref import block_chain_ref  # noqa: E402
 from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
     resblock_fused_op, smem_bytes)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
-from repro_torch.kernels.selective_scan.ops import \
-    selective_scan_op  # noqa: E402
+from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
+    scan_threads, selective_scan_op)
 from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
@@ -818,83 +829,175 @@ def s8_unsaturated(acc):
     return float(((y > -128) & (y < 127)).float().mean())
 
 
+def matmul_ptxas():
+    """``{path: [ptxas lines]}`` of the matmul_int8 library: ``wgmma/<bn>``
+    per instantiated tile width, and ``mma_sync``."""
+    out = {}
+    for entry, lines in ptxas_by_entry("matmul_int8").items():
+        if "matmul_int8_wgmmaILi" in entry:
+            bn = entry.split("matmul_int8_wgmmaILi")[1].split("E")[0]
+            out[f"wgmma/{bn}"] = lines
+        elif "mma_sync" in entry:
+            out["mma_sync"] = lines
+    return out
+
+
+def path_taken(before):
+    """The one matmul_int8 path whose launch count rose since ``before``."""
+    now = matmul_int8_op.launches_by_path
+    rose = [p for p in now if now[p] != before[p]]
+    check(len(rose) == 1 and now[rose[0]] == before[rose[0]] + 1,
+          f"one matmul_int8 launch expected, paths {before} -> {now}")
+    return rose[0]
+
+
+def matmul_cases(what, a, b, inits, want_path):
+    """matmul_int8 on ``b`` as (K, N) and packed, with each acc_init of
+    ``inits``, bitwise against the plain version; every launch on
+    ``want_path``.  Returns (cases, largest |error|)."""
+    w = pack_weight(b)
+    cases, err = 0, 0
+    for init_name, acc in inits.items():
+        ref = matmul_int8_ref(a, b, acc)
+        for form, bb in (("(K,N)", b), ("packed", w)):
+            before = dict(matmul_int8_op.launches_by_path)
+            got = matmul_int8_op(a, bb, acc)
+            torch.cuda.synchronize()
+            path = path_taken(before)
+            check(path == want_path, f"matmul_int8 {what} {form}: path {path}"
+                                     f", expected {want_path}")
+            err = max(err, max_abs_err(got, ref))
+            check(torch.equal(got, ref),
+                  f"matmul_int8 {what} {form} init={init_name} differs from "
+                  f"plain")
+            cases += 1
+    return cases, err
+
+
 def lm_matmul_phase(rng, dev):
     """matmul_int8 bitwise against its plain version at every projection
-    shape of both LMs at M = 2048 (bucket 4) and 512 (bucket 1), with and
-    without acc_init, and on ragged shapes; timings at bucket 4.  Returns
-    the kernel record summed over one bucket-4 forward of each LM."""
+    shape of gemma-2b and falcon-mamba-7b at M = 2048 (bucket 4) and 512
+    (bucket 1): B as (K, N) and packed, acc_init full, broadcast (the
+    main path's bias, row stride 0) and none, every launch on the wgmma
+    path; a wrap case (acc_init near +-2^31); the ragged shapes on the
+    path their shape picks.  Timings at bucket 4: ``ms`` with packed B and
+    a full M x N init (the generic form, bound counting that init), and
+    ``main_ms`` in the main path's call form (packed B, broadcast bias,
+    bound counting N x 4 bias bytes).  Returns the kernel record summed
+    over one bucket-4 forward of each LM."""
     def i8(*shape):
         return torch.from_numpy(rng.integers(-128, 128, shape,
                                              dtype=np.int8)).to(dev)
 
-    def i32(*shape):
-        return torch.from_numpy(rng.integers(
-            -ACC_INIT_RANGE, ACC_INIT_RANGE, shape).astype(np.int32)).to(dev)
+    def i32(*shape, lo=-ACC_INIT_RANGE, hi=ACC_INIT_RANGE):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+            np.int32)).to(dev)
 
-    err, per_model, cases = 0, {}, 0
+    ptx = matmul_ptxas()
+    err, per_model, cases, shapes = 0, {}, 0, []
+    sums = ("ms", "main_ms", "call_ms", "plain_ms", "library_ms")
     for name in LM_MODELS:
         cfg = lm_cfg(name)
-        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bytes=0, ops=0, launches=0)
+        tot = dict({k: 0.0 for k in sums}, bytes=0, main_bytes=0, ops=0,
+                   launches=0)
         for roles, K, N, count in lm_matmul_shapes(cfg):
             for M in (LM_BUCKET * LM_SEQ, LM_SEQ):
                 a, b, init = i8(M, K), i8(K, N), i32(M, N)
-                for acc in (init, None):
-                    got = matmul_int8_op(a, b, acc)
-                    torch.cuda.synchronize()
-                    ref = matmul_int8_ref(a, b, acc)
-                    err = max(err, max_abs_err(got, ref))
-                    check(torch.equal(got, ref),
-                          f"matmul_int8 {name} {roles} M={M} K={K} N={N} "
-                          f"init={acc is not None} differs from plain")
-                    share = s8_unsaturated(ref)
-                    check(share >= MIN_UNSATURATED,
-                          f"matmul_int8 {name} {roles} M={M}: only {share:.3f}"
-                          f" of int8 outputs inside (-128, 127)")
-                    cases += 1
+                bias = i32(1, N).expand(M, N)
+                what = f"{name} {roles} M={M} K={K} N={N}"
+                c, e = matmul_cases(what, a, b, dict(
+                    full=init, bias=bias, none=None), "wgmma")
+                cases, err = cases + c, max(err, e)
+                share = s8_unsaturated(matmul_int8_ref(a, b, init))
+                check(share >= MIN_UNSATURATED,
+                      f"matmul_int8 {what}: only {share:.3f} of int8 outputs "
+                      f"inside (-128, 127)")
                 if M != LM_BUCKET * LM_SEQ:
                     continue
-                out = matmul_int8_op(a, b, init)
+                w = pack_weight(b)
+                out = matmul_int8_op(a, w, init)
+                bt = w.t
                 t = dict(
-                    ms=device_ms(lambda: matmul_int8_op(a, b, init), LM_REPS),
-                    call_ms=call_ms(lambda: matmul_int8_op(a, b, init),
+                    ms=device_ms(lambda: matmul_int8_op(a, w, init), LM_REPS),
+                    main_ms=device_ms(lambda: matmul_int8_op(a, w, bias),
+                                      LM_REPS),
+                    call_ms=call_ms(lambda: matmul_int8_op(a, w, bias),
                                     LM_REPS),
                     plain_ms=device_ms(lambda: matmul_int8_ref(a, b, init),
                                        LM_REPS),
-                    library_ms=library_ms(lambda: torch._int_mm(a, b) + init,
-                                          LM_REPS))
-                moved, ops = nbytes(a, b, init, out), 2 * M * K * N
+                    library_rowmajor_ms=library_ms(
+                        lambda: torch._int_mm(a, b) + init, LM_REPS),
+                    library_colmajor_ms=library_ms(
+                        lambda: torch._int_mm(a, bt.t()) + init, LM_REPS))
+                libs = [v for v in (t["library_rowmajor_ms"],
+                                    t["library_colmajor_ms"]) if v is not None]
+                t["library_ms"] = min(libs) if libs else None
+                ops = 2 * M * K * N
+                moved = nbytes(a, b, init, out)
+                main_moved = nbytes(a, b, out) + 4 * N
                 t["bound_ms"], t["bound_by"] = bound(moved, ops)
-                emit("kernel", name="matmul_int8", model=name, roles=roles,
-                     M=M, K=K, N=N, launches_per_layer=count, bitwise=True,
-                     int8_unsaturated_share=share, **t)
+                t["main_bound_ms"], t["main_bound_by"] = bound(main_moved, ops)
+                t["tops"] = ops / (t["ms"] * 1e-3) / 1e12
+                t["main_tops"] = ops / (t["main_ms"] * 1e-3) / 1e12
+                t["main_peak_share"] = t["main_tops"] * 1e12 / INT8_OPS_PER_S
+                bm, bn, bk, split = matmul_tiles(M, N, K)
+                rec = dict(model=name, roles=roles, M=M, K=K, N=N,
+                           launches_per_layer=count, path="wgmma",
+                           tiles=[bm, bn, bk], split_k=split,
+                           smem_bytes=mm_smem_bytes(bn),
+                           ptxas=ptx.get(f"wgmma/{bn}"), bitwise=True,
+                           int8_unsaturated_share=share, **t)
+                shapes.append(rec)
+                emit("kernel", name="matmul_int8", **rec)
                 n = count * cfg.num_layers
-                for k in ("ms", "call_ms", "plain_ms", "library_ms"):
+                for k in sums:
                     tot[k] = None if tot[k] is None or t[k] is None \
                         else tot[k] + n * t[k]
                 tot["bytes"] += n * moved
+                tot["main_bytes"] += n * main_moved
                 tot["ops"] += n * ops
                 tot["launches"] += n
         tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"])
+        tot["main_bound_ms"], _ = bound(tot.pop("main_bytes"), tot["ops"])
         per_model[name] = tot
+    # the wrap case: acc_init within 2^16 of +-2^31 wraps on the add
+    M, K, N = LM_SEQ, 2048, 2048
+    a, b = i8(M, K), i8(K, N)
+    near = i32(M, N, lo=0, hi=1 << 16)
+    wrap = torch.where(near % 2 == 0, (2 ** 31 - 1) - near, -2 ** 31 + near)
+    c, e = matmul_cases(f"wrap M={M} K={K} N={N}", a, b, dict(
+        full=wrap, bias=wrap[:1].expand(M, N)), "wgmma")
+    wrapped = int(((matmul_int8_ref(a, b).to(torch.int64) +
+                    wrap.to(torch.int64)) !=
+                   matmul_int8_ref(a, b, wrap).to(torch.int64)).sum())
+    check(wrapped > 0, "the wrap case did not wrap")
+    cases, err = cases + c, max(err, e)
+    ragged = []
     for M, K, N in ((1000, 2048, 200), (77, 30, 18), (129, 4096, 16)):
-        a, b, init = i8(M, K), i8(K, N), i32(M, N)
-        for acc in (init, None):
-            got = matmul_int8_op(a, b, acc)
-            torch.cuda.synchronize()
-            check(torch.equal(got, matmul_int8_ref(a, b, acc)),
-                  f"matmul_int8 ragged M={M} K={K} N={N} differs from plain")
-            cases += 1
-    emit("kernel_check", name="matmul_int8", cases=cases, bitwise=True)
+        a, b = i8(M, K), i8(K, N)
+        path = matmul_path(M, N, K)
+        c, e = matmul_cases(f"ragged M={M} K={K} N={N}", a, b, dict(
+            full=i32(M, N), bias=i32(1, N).expand(M, N), none=None), path)
+        cases, err = cases + c, max(err, e)
+        ragged.append(dict(M=M, K=K, N=N, path=path,
+                           tiles=list(matmul_tiles(M, N, K))))
+    emit("kernel_check", name="matmul_int8", cases=cases, bitwise=True,
+         wrapped_elements=wrapped, ragged=ragged,
+         launches_by_path=dict(matmul_int8_op.launches_by_path),
+         ptxas=ptx)
     both = {k: None if any(per_model[m][k] is None for m in LM_MODELS)
             else sum(per_model[m][k] for m in LM_MODELS)
-            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bytes",
-                      "ops")}
+            for k in sums + ("bytes", "ops", "main_bound_ms")}
     b_ms, b_by = bound(both.pop("bytes"), both.pop("ops"))
     rec = dict(both, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                per_model={m: {k: v for k, v in t.items()
                               if k not in ("bytes", "ops")}
-                          for m, t in per_model.items()})
+                          for m, t in per_model.items()},
+               per_shape={f"{r['model']} {r['roles']}": dict(
+                   ms=r["ms"], main_ms=r["main_ms"], tops=r["main_tops"],
+                   bound_ms=r["main_bound_ms"], library_ms=r["library_ms"],
+                   tiles=r["tiles"], split_k=r["split_k"])
+                   for r in shapes})
     emit("kernel", name="matmul_int8",
          per="one bucket-4 forward of each LM", **rec)
     return rec
@@ -1042,6 +1145,10 @@ def lm_scan_phase(rng, dev):
                                          B * S * di * (1 + 7 * N),
                                          F32_FLOPS_PER_S)
     t["max_abs_err"] = err
+    t["threads"] = scan_threads(B, di)
+    t["warps_per_sm"] = t["threads"] / 32 / torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    t["ptxas"] = ptxas_by_entry("selective_scan")
     emit("kernel", name="selective_scan", shape=[B, S, di, N], **t)
     return t
 
@@ -1068,18 +1175,19 @@ def lm_task_check(cfg, params, tokens):
     output within the kernel's tolerance of the plain version's, the int8
     output within one grid step.  Returns per-kind summaries."""
     plan = plan_lm(lowering.optimized_graph(cfg), params)
+    packed = BK.pack_lm_weights(plan, params)
     ctx = BK.lm_context(plan, params, cfg)
     BK.embed_tokens(ctx, plan, tokens)
     summary = {}
     for t in plan.tasks:
-        shadow = BK.lm_context(plan, params, cfg)
+        shadow = BK.lm_context(plan, params, cfg, packed)
         shadow.env, shadow.specs = dict(ctx.env), dict(ctx.specs)
         s = summary.setdefault(t.kind, dict(tasks=0, max_abs_err=0.0,
                                             int8_max_step=0,
                                             int8_differ_share=0.0))
         if t.kind == "matmul":
             mp, x2d, acc0, _ = BK._lm_matmul_prologue(t, ctx)
-            got = matmul_int8_op(x2d, mp.wq, acc0)
+            got = matmul_int8_op(x2d, packed[t.node], acc0)
             ref = matmul_int8_ref(x2d, mp.wq, acc0)
             check(torch.equal(got, ref),
                   f"{cfg.name} {t.node}: int32 accumulator differs")
@@ -1129,9 +1237,10 @@ def flip_propagation(cfg, params, tokens):
     plan = plan_lm(lowering.optimized_graph(cfg), params)
     impls = {t.node: get_task_impl("cuda", t.kind) for t in plan.tasks}
     first = next(t for t in plan.tasks if t.kind in ("attention", "scan"))
+    packed = BK.pack_lm_weights(plan, params)
     hidden = []
     for flip in (False, True):
-        ctx = BK.lm_context(plan, params, cfg)
+        ctx = BK.lm_context(plan, params, cfg, packed)
         BK.embed_tokens(ctx, plan, tokens)
         for t in plan.tasks:
             impls[t.node](t, ctx)
@@ -1166,11 +1275,14 @@ def lm_serve_phase(name, seed, dev):
         eng.submit(r)
     for op in LM_KERNEL_OPS.values():
         op.launches = 0
+    matmul_int8_op.launches_by_path = dict.fromkeys(
+        matmul_int8_op.launches_by_path, 0)
     t0 = time.perf_counter()
     ticks = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: op.launches for k, op in LM_KERNEL_OPS.items()}
+    by_path = dict(matmul_int8_op.launches_by_path)
     bucket_runs = dict(eng.model.run_counts)
 
     runs = sum(bucket_runs.values())
@@ -1181,6 +1293,9 @@ def lm_serve_phase(name, seed, dev):
     check(launches == {k: runs * v for k, v in per_run.items()},
           f"{name}: launch counts {launches} for {runs} bucket runs of "
           f"{per_run} each")
+    check(by_path == dict(wgmma=launches["matmul_int8"], mma_sync=0),
+          f"{name}: matmul_int8 launches by path {by_path}: every LM "
+          f"projection must take the wgmma path")
 
     x = torch.as_tensor(toks, device=dev)
     tasks = lm_task_check(cfg, eng.model.params, x[:LM_BUCKET])
@@ -1226,7 +1341,7 @@ def lm_serve_phase(name, seed, dev):
     emit("lm_serve", model=name, layers=cfg.num_layers, seq_len=LM_SEQ,
          d_model=cfg.d_model, requests=LM_REQUESTS, ticks=ticks,
          bucket_runs=bucket_runs, launches=launches,
-         launches_per_run=per_run, init_s=init_s, serve_wall_s=wall,
+         matmul_launches_by_path=by_path, launches_per_run=per_run, init_s=init_s, serve_wall_s=wall,
          tasks=tasks, hidden_differ_share=differ / n_el,
          hidden_max_step=max_step, one_step_flip_differ_share=flip_share,
          one_step_flip_max_step=flip_step,
@@ -1234,7 +1349,7 @@ def lm_serve_phase(name, seed, dev):
          max_abs_logit_dev=float((logits - ref_logits).abs().max()),
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          argmax_equal=f"{argmax_equal}/{LM_REQUESTS}", **summary)
-    return eng, launches, summary
+    return eng, dict(launches, matmul_int8_by_path=by_path), summary
 
 
 def lm_profile_phase(eng, dev):
@@ -1326,6 +1441,9 @@ def main(argv=None):
              launches=sum(v["matmul_int8"] for v in lm_launches.values()),
              launches_by_model={k: v["matmul_int8"]
                                 for k, v in lm_launches.items()},
+             launches_by_path={p: sum(v["matmul_int8_by_path"][p]
+                                      for v in lm_launches.values())
+                               for p in ("wgmma", "mma_sync")},
              bitwise=True,
              per="the 108 launches of one gemma-2b and the 384 of one "
                  "falcon-mamba-7b forward at bucket 4 (S = 512)", **mm),

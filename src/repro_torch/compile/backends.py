@@ -162,10 +162,11 @@ def get_task_impl(backend_name: str, kind: str) -> Callable:
 class _LMContext:
     """Mutable state one LM forward pass threads through the task impls."""
 
-    def __init__(self, params, cfg, consumer_xspec):
+    def __init__(self, params, cfg, consumer_xspec, packed=None):
         self.params = params
         self.cfg = cfg
         self.consumer_xspec = consumer_xspec   # tensor -> consuming x_spec
+        self.packed = packed or {}   # matmul node -> weight packed at lower time
         self.env: Dict[str, torch.Tensor] = {}  # tensor name -> value
         self.specs: Dict[str, Q.QSpec] = {}     # tensor name -> int8 grid
 
@@ -187,8 +188,8 @@ class _LMContext:
 
 def _lm_matmul_prologue(t, ctx):
     """Shared int32 accumulator init: the bias at the product domain
-    broadcast over the rows (a stride-0 ``expand``; the kernel wrapper
-    makes it contiguous), plus the folded residual stream shift-aligned
+    broadcast over the rows (a stride-0 ``expand``, which the kernel reads
+    in place), plus the folded residual stream shift-aligned
     into it (a pure left shift on pow2 grids, so the fold is exact)."""
     mp = ctx.params.matmul(t.layer, t.role)
     x = ctx.env[t.inputs[0]]
@@ -208,12 +209,28 @@ def _lm_matmul_epilogue(acc, t, mp, shape, ctx):
     ctx.put(t.output, yq.reshape(shape + (t.dout,)), mp.y_spec)
 
 
+def pack_lm_weights(plan, params) -> Dict[str, object]:
+    """Every matmul weight of ``plan`` packed once for ``matmul_int8``'s
+    wgmma path (``(N, K)``, K-major), by matmul node: what the ``cuda``
+    impl reads, built at lower time and never inside a forward."""
+    from repro_torch.kernels.matmul_int8.ops import pack_weight
+
+    return {t.node: pack_weight(params.matmul(t.layer, t.role).wq)
+            for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
+
+
 @register_task_impl("cuda", "matmul")
 def _cuda_matmul(t, ctx):
     from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
 
+    w = ctx.packed.get(t.node)
+    if w is None:
+        raise lowering.LoweringError(
+            f"matmul {t.node!r}: the cuda impl reads weights packed at lower "
+            f"time; build the context with lm_context(plan, params, cfg, "
+            f"packed=pack_lm_weights(plan, params))")
     mp, x2d, acc0, shape = _lm_matmul_prologue(t, ctx)
-    _lm_matmul_epilogue(matmul_int8_op(x2d, mp.wq, acc0), t, mp, shape, ctx)
+    _lm_matmul_epilogue(matmul_int8_op(x2d, w, acc0), t, mp, shape, ctx)
 
 
 @register_task_impl("torch-int", "matmul")
@@ -305,13 +322,15 @@ def _torch_scan(t, ctx):
     _lm_scan_finish(y, t, ctx)
 
 
-def lm_context(plan, params, cfg) -> _LMContext:
+def lm_context(plan, params, cfg, packed=None) -> _LMContext:
     """A fresh forward context of ``plan``: each float task output's grid
-    resolved from its consuming matmul's input grid."""
+    resolved from its consuming matmul's input grid; ``packed`` the
+    weights :func:`pack_lm_weights` built (the ``cuda`` matmul reads
+    them)."""
     consumer_xspec = {
         t.inputs[0]: params.matmul(t.layer, t.role).x_spec
         for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
-    return _LMContext(params, cfg, consumer_xspec)
+    return _LMContext(params, cfg, consumer_xspec, packed)
 
 
 def embed_tokens(ctx, plan, tokens) -> None:
@@ -327,12 +346,15 @@ def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
     to ``impl_backend``'s registered impl, and close over a ``tokens ->
     int8 hidden state`` forward: the float embed in, then the task program
     over a tensor environment.  Impl binding happens HERE, at lower time,
-    so a backend missing a kind fails before anything runs."""
+    so a backend missing a kind fails before anything runs; so does the
+    ``cuda`` impls' packing of every matmul weight."""
     plan = lowering.plan_lm(g, params)
     impls = {t.node: get_task_impl(impl_backend, t.kind) for t in plan.tasks}
+    packed = pack_lm_weights(plan, params) if impl_backend == "cuda" \
+        else None
 
     def features(tokens):
-        ctx = lm_context(plan, params, cfg)
+        ctx = lm_context(plan, params, cfg, packed)
         embed_tokens(ctx, plan, tokens)
         for t in plan.tasks:
             impls[t.node](t, ctx)

@@ -27,6 +27,9 @@ KERNELS = ("conv_stem", "resblock_fused", "block_chain", "matmul_int8",
            "flash_attention", "selective_scan", "conv2d_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# link flags of single kernels: matmul_int8 encodes TMA tensor maps with
+# cuTensorMapEncodeTiled from libcuda
+LINK_FLAGS = {"matmul_int8": ("-lcuda",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -53,7 +56,7 @@ def _digest(name: str) -> str:
     h = hashlib.sha256()
     for part in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return h.hexdigest()[:12]
 
 
@@ -77,7 +80,8 @@ def build(names: Sequence[str] = KERNELS,
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = out.with_suffix(".log").open("wb")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *LINK_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), tmp, log)
     seconds = {name: 0.0 for name in names}

@@ -17,6 +17,14 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_STATE = 16          # kMaxState in csrc/selective_scan.cu
+LANES = 4               # lanes a channel (kLanes)
+CHANNELS = 32           # channels a thread block (kChannels)
+
+
+def scan_threads(B: int, di: int) -> int:
+    """Threads one launch runs: a block of ``LANES * CHANNELS`` for every
+    ``CHANNELS`` channels of every batch row."""
+    return B * -(-di // CHANNELS) * CHANNELS * LANES
 
 
 @functools.cache
@@ -31,7 +39,7 @@ def _check(u, dt, A, Bc, Cc, h0, config):
     if config is not None:
         raise ValueError(
             f"config={config!r}: the CUDA kernel has no tiling knob yet "
-            f"(one thread a channel); pass config=None")
+            f"(four lanes a channel); pass config=None")
     ops = dict(u=u, dt=dt, A=A, Bc=Bc, Cc=Cc, h0=h0)
     for name, t in ops.items():
         if t.dtype != torch.float32:

@@ -13,7 +13,7 @@ import torch
 from repro_torch.compile import (get_task_impl, init_lm_params, lm_config,
                                  lower_features, lowering, plan_lm)
 from repro_torch.compile import backends as BK
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import dataflow as df
 from repro_torch.core.quant import shift_align
 from repro_torch.kernels.common import conv_i32, requant_u8
@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention.ops import (attn_tiles,
                                                      flash_attention_op)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_plain)
-from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
+from repro_torch.kernels.matmul_int8.ops import (matmul_int8_op,
+                                                 matmul_path, pack_weight)
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
 from repro_torch.kernels.megakernel import ops as chain_ops
 from repro_torch.kernels.megakernel.ops import ChainBlockSpec, block_chain_op
@@ -249,6 +250,111 @@ def test_matmul_int8_matches_plain_version(dev, M, K, N):
     assert matmul_int8_op.launches == before + 3
 
 
+def _lm_projections():
+    """(model, role, K, N) of every projection of gemma-2b and
+    falcon-mamba-7b at published width."""
+    g, f = get_config("gemma-2b"), get_config("falcon-mamba-7b")
+    qkv, kv = g.num_heads * g.head_dim, g.num_kv_heads * g.head_dim
+    return [("gemma-2b", "wq", g.d_model, qkv),
+            ("gemma-2b", "wk/wv", g.d_model, kv),
+            ("gemma-2b", "wo", qkv, g.d_model),
+            ("gemma-2b", "up", g.d_model, g.d_ff),
+            ("gemma-2b", "down", g.d_ff, g.d_model),
+            ("falcon-mamba-7b", "wu/wz/wdt", f.d_model, f.d_inner),
+            ("falcon-mamba-7b", "wb/wc", f.d_model, f.ssm_state),
+            ("falcon-mamba-7b", "wo", f.d_inner, f.d_model)]
+
+
+def _path_of(fn):
+    """Run ``fn`` and return the one matmul_int8 path it launched."""
+    before = dict(matmul_int8_op.launches_by_path)
+    out = fn()
+    torch.cuda.synchronize()
+    rose = {p: n - before[p] for p, n in
+            matmul_int8_op.launches_by_path.items() if n != before[p]}
+    assert len(rose) == 1 and list(rose.values()) == [1], rose
+    return out, next(iter(rose))
+
+
+@pytest.mark.parametrize("M", [512, 2048])
+@pytest.mark.parametrize("name,role,K,N", _lm_projections())
+def test_matmul_int8_lm_shapes_take_wgmma_bitwise(dev, name, role, K, N, M):
+    """Every LM projection shape at bucket 1 and 4 (M = 512, 2048): B as
+    (K, N) and packed, acc_init full, broadcast over the rows (row stride
+    0, the main path's bias) and none; bitwise with the plain version, and
+    every launch on the wgmma path."""
+    rng = np.random.default_rng(K + N + M)
+    a = _t(rng, dev, -128, 128, (M, K), np.int8)
+    b = _t(rng, dev, -128, 128, (K, N), np.int8)
+    w = pack_weight(b)
+    full = _t(rng, dev, -2 ** 20, 2 ** 20, (M, N), np.int32)
+    bias = _t(rng, dev, -2 ** 20, 2 ** 20, (1, N), np.int32).expand(M, N)
+    assert matmul_path(M, N, K) == "wgmma"
+    for acc in (full, bias, None):
+        ref = matmul_int8_ref(a, b, acc)
+        for bb in (b, w):
+            got, path = _path_of(lambda: matmul_int8_op(a, bb, acc))
+            assert path == "wgmma"
+            assert torch.equal(got, ref)
+
+
+def test_matmul_int8_init_wraps_as_int32_on_the_wgmma_path(dev):
+    """acc_init within 2^16 of +-2^31: the add wraps modulo 2^32 as the
+    plain version's int32 add does, with split-K (N = 16) and without."""
+    rng = np.random.default_rng(7)
+    for M, K, N in ((512, 2048, 2048), (2048, 4096, 16)):
+        a = _t(rng, dev, -128, 128, (M, K), np.int8)
+        w = pack_weight(_t(rng, dev, -128, 128, (K, N), np.int8))
+        near = _t(rng, dev, 0, 2 ** 16, (M, N), np.int32)
+        wrap = torch.where(near % 2 == 0, (2 ** 31 - 1) - near,
+                           -2 ** 31 + near)
+        plain = matmul_int8_ref(a, w.unpacked())
+        assert bool(((plain.to(torch.int64) + wrap.to(torch.int64)) !=
+                     (plain + wrap).to(torch.int64)).any())
+        for acc in (wrap, wrap[:1].expand(M, N)):
+            got, path = _path_of(lambda: matmul_int8_op(a, w, acc))
+            assert path == "wgmma"
+            assert torch.equal(got, matmul_int8_ref(a, w.unpacked(), acc))
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 2048, 200), (77, 30, 18),
+                                   (129, 4096, 16)])
+def test_matmul_int8_ragged_shapes_take_the_path_of_their_shape(dev, M, K,
+                                                                N):
+    """K or N not a multiple of 16 runs the mma_sync path, a ragged M with
+    aligned K and N the wgmma path; both bitwise, packed or not."""
+    rng = np.random.default_rng(M + K)
+    a = _t(rng, dev, -128, 128, (M, K), np.int8)
+    b = _t(rng, dev, -128, 128, (K, N), np.int8)
+    bias = _t(rng, dev, -2 ** 20, 2 ** 20, (1, N), np.int32).expand(M, N)
+    want = "wgmma" if K % 16 == 0 and N % 16 == 0 else "mma_sync"
+    for bb in (b, pack_weight(b)):
+        for acc in (bias, None):
+            got, path = _path_of(lambda: matmul_int8_op(a, bb, acc))
+            assert path == want
+            assert torch.equal(got, matmul_int8_ref(a, b, acc))
+    # a misaligned A (a view one byte in) takes the mma_sync path
+    a1 = _t(rng, dev, -128, 128, (M * K + 1,), np.int8)[1:].view(M, K)
+    got, path = _path_of(lambda: matmul_int8_op(a1, b, bias))
+    assert path == "mma_sync"
+    assert torch.equal(got, matmul_int8_ref(a1, b, bias))
+
+
+def test_matmul_int8_copies_an_init_view_it_cannot_read_in_place(dev):
+    """A full acc_init the TMA cannot read (4-byte aligned, a view one
+    element into its storage) or a transposed view is copied first; the
+    result is the same."""
+    rng = np.random.default_rng(3)
+    M, K, N = 256, 512, 64
+    a = _t(rng, dev, -128, 128, (M, K), np.int8)
+    w = pack_weight(_t(rng, dev, -128, 128, (K, N), np.int8))
+    flat = _t(rng, dev, -2 ** 20, 2 ** 20, (M * N + 1,), np.int32)
+    for init in (flat[1:].view(M, N), flat[:M * N].view(N, M).t()):
+        got, path = _path_of(lambda: matmul_int8_op(a, w, init))
+        assert path == "wgmma"
+        assert torch.equal(got, matmul_int8_ref(a, w.unpacked(), init))
+
+
 def _normal(rng, dev, shape, dtype=torch.float32):
     return torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev, dtype)
@@ -396,7 +502,8 @@ def test_conv2d_int8_wraps_as_int32(dev):
 
 
 @pytest.mark.parametrize("B,S,di,N", [(1, 16, 8, 4), (2, 32, 16, 8),
-                                      (2, 64, 32, 16), (2, 100, 200, 16)])
+                                      (2, 64, 32, 16), (2, 100, 200, 16),
+                                      (1, 40, 50, 7), (4, 512, 8192, 16)])
 def test_selective_scan_matches_plain_version(dev, B, S, di, N):
     """Within the JAX tests' tolerance (1e-5) of the sequential plain
     version, from a nonzero initial state."""
@@ -424,13 +531,14 @@ def test_lm_tasks_on_cuda_match_torch_int(dev, name):
     cfg = lm_config(get_smoke_config(name), seq_len=64)
     params = init_lm_params(cfg, seed=5, device=dev)
     plan = plan_lm(lowering.optimized_graph(cfg), params)
+    packed = BK.pack_lm_weights(plan, params)
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(dev)
     ctx = BK.lm_context(plan, params, cfg)
     BK.embed_tokens(ctx, plan, tokens)
     for t in plan.tasks:
         get_task_impl("torch-int", t.kind)(t, ctx)
-        shadow = BK.lm_context(plan, params, cfg)
+        shadow = BK.lm_context(plan, params, cfg, packed)
         shadow.env, shadow.specs = dict(ctx.env), dict(ctx.specs)
         get_task_impl("cuda", t.kind)(t, shadow)
         got, ref = shadow.env[t.output], ctx.env[t.output]

@@ -11,21 +11,37 @@ Phases, one JSON line each:
                 block_chain, matmul_int8, flash_attention, selective_scan,
                 conv2d_int8) from ``src/repro_torch/kernels/csrc``, one
                 nvcc each, all started together; prints ptxas registers
-                and spills.
+                and spills, and the IMMA (int8 tensor-core) and IDP (dp4a)
+                instructions in the SASS of the two block kernels: IMMA in
+                both, no IDP in resblock_fused (block_chain keeps dp4a for
+                its fused stem only).
   3. kernels  — each conv kernel against its plain PyTorch version on the
                 card, bitwise (``torch.equal``): conv_stem at N=256 and
                 N=32 for shifts > 0, = 0, < 0; resblock_fused at every
-                ResNet20 block shape for skip shifts > 0, = 0, < 0;
-                block_chain on the whole ResNet20 chain with the stem fused
-                (N=32 and N=256, batch_tile 1 and 2), the whole ResNet8
-                chain, and the four narrow chains of tests/test_kernels.py
-                at batch_tile 1 and 2, skip shifts > 0, = 0, < 0, with the
-                kernel's shared memory equal to the planner's formula.  In
-                every case at least a fifth of the outputs lie strictly
-                inside (0, 255).  Device time (``ms``, CUDA-graph replay),
-                eager call time with host launch overhead (``call_ms``), the
-                plain version's device time and the roofline bound, at the
-                main path's shapes (batch 32).
+                ResNet20 block shape for skip shifts > 0, = 0, < 0 at
+                buckets 1, 8, 32 and 256, each at the row band
+                ``tune.space.block_band_rows`` picks for the card's SMs;
+                block_chain on the
+                ResNet20 chain with the stem fused (N = 1, 8, 32 at
+                batch_tile 1 and 2, N = 256), the ResNet8 chain (N = 1, 8,
+                32) and the four narrow chains of tests/test_kernels.py at
+                batch_tile 1 and 2, skip shifts > 0, = 0, < 0, each at the
+                split ``tune.space.chain_split`` picks from the clusters
+                the card runs at once (``cudaOccupancyMaxActiveClusters``),
+                with the kernel's shared memory equal to the planner's
+                formula at that split.  In every case at
+                least a fifth of the outputs lie strictly inside (0, 255).
+                Device time (``ms``, CUDA-graph replay) of the main path's
+                call form (the launch prepared at lower time), eager call
+                time with host launch overhead (``call_ms``), the direct
+                op's device time (``op_ms``: it packs the weights every
+                call), the plain version's device time, the roofline bound,
+                TOP/s and share of the bound, at the main path's shapes
+                (batch 32), with thread blocks, shared memory and the SMs
+                used at buckets 1, 8 and 32 (each thread block's ``%smid``
+                recorded in one checked launch, distinct values counted),
+                and the host microseconds of one block_chain call, direct
+                op against prepared launch.
   4. serve    — full-width ResNet20 and ResNet8 from the port's own
                 ``init_params(seed) -> fold_params -> quantize_params``,
                 requests served through ``ResNetEngine`` with buckets
@@ -34,7 +50,8 @@ Phases, one JSON line each:
                 padded bucket batches bitwise equal to the ``torch-int``
                 backend's, logits within 1e-5; launch counters match the
                 backend's launch plan; images per second at bucket 32,
-                eager and as a CUDA-graph replay (the device time alone).
+                eager and as a CUDA-graph replay (the device time alone);
+                then the eager forward of both backends timed in turns.
   5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 forwards of
                 each backend.
   5b. conv2d — conv2d_int8, the general int8 conv (off the serving path:
@@ -107,7 +124,8 @@ from repro_torch.compile.lm_params import logit_tolerance  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dataflow as df  # noqa: E402
 from repro_torch.core.quant import (dequantize,  # noqa: E402
-                                   requantize_shift, shift_align)
+                                   percentile_linear, requantize_shift,
+                                   shift_align)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import conv_stem_op  # noqa: E402
@@ -131,10 +149,10 @@ from repro_torch.kernels.matmul_int8.ops import \
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref  # noqa: E402
 from repro_torch.kernels.megakernel import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.megakernel.ops import (  # noqa: E402
-    ChainBlockSpec, block_chain_op)
+    ChainBlockSpec, ChainLaunch, block_chain_op)
 from repro_torch.kernels.megakernel.ref import block_chain_ref  # noqa: E402
 from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
-    resblock_fused_op, smem_bytes)
+    ResblockLaunch, resblock_fused_op, smem_bytes)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
 from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
     scan_threads, selective_scan_op)
@@ -142,6 +160,7 @@ from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.serve import ImageRequest, ResNetEngine  # noqa: E402
+from repro_torch.tune import space  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
@@ -150,6 +169,7 @@ INT8_OPS_PER_S = 1979e12
 LOGIT_ATOL = 1e-5
 MIN_UNSATURATED = 0.2    # share of kernel outputs strictly inside (0, 255)
 BUCKET = 32
+BUCKETS = (1, 8, 32)   # the engine's buckets
 REQUESTS = 37     # one full bucket of 32, then 5 padded up to bucket 8
 REPS = 50         # timed calls per measurement
 # ResNet20's residual block shapes (H, Cin, Cout, stride) and how many of
@@ -261,8 +281,33 @@ def build_phase():
     ptxas = {k: [ln.strip() for ln in _build.build_log(k).splitlines()
                  if "registers" in ln or "spill" in ln]
              for k in _build.KERNELS}
+    sass = {k: sass_counts(k) for k in ("resblock_fused", "block_chain")}
+    for k, c in sass.items():
+        check(c["IMMA"] > 0, f"{k}: no IMMA (int8 tensor-core) instruction "
+                             f"in its SASS")
+    check(sass["resblock_fused"]["IDP"] == 0,
+          "resblock_fused: dp4a (IDP) left in its SASS")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         per_kernel=secs, ptxas=ptxas)
+         per_kernel=secs, ptxas=ptxas, sass=sass)
+    return sass
+
+
+def sass_counts(name):
+    """Counts of the int8 tensor-core (IMMA) and dp4a (IDP) instructions in
+    the SASS of kernel ``name``'s built library (``cuobjdump -sass``)."""
+    exe = Path(_build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(exe), "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    ops = []
+    for ln in text.splitlines():
+        # "/*0c40*/  @P0 IMMA.16832.U8.S8 R4, R8.ROW, R12.COL, R4 ; /* 0x.. */"
+        if ln.strip().startswith("/*") and "*/" in ln:
+            words = [w for w in ln.split("*/", 1)[1].split()
+                     if not w.startswith("@")]
+            if words:
+                ops.append(words[0])
+    return {op: sum(o.startswith(op) for o in ops) for op in ("IMMA", "IDP")}
 
 
 def check_unsaturated(out, what):
@@ -304,6 +349,21 @@ def block_case(rng, dev, n, h, cin, cout, stride):
     return ops
 
 
+def sms_used(launch, x, blocks, want, what):
+    """Run a prepared block-kernel launch of ``blocks`` thread blocks with
+    its SM record on, hold its output bitwise against ``want``, and return
+    the SMs its thread blocks ran on (distinct ``%smid`` values) and the
+    most thread blocks that one SM ran."""
+    ids = torch.full((blocks,), -1, dtype=torch.int32, device=x.device)
+    out = launch(x, sm_ids=ids)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"{what} with its SM record differs from "
+                                  f"plain")
+    check(int(ids.min()) >= 0, f"{what}: a thread block recorded no SM")
+    counts = torch.bincount(ids.long())
+    return int((counts > 0).sum()), int(counts.max())
+
+
 def kernels_phase(rng, dev):
     """Bitwise kernel-vs-plain checks and timings; returns the per-forward
     kernel records (ResNet20, bucket 32) with each kernel's largest
@@ -332,43 +392,84 @@ def kernels_phase(rng, dev):
         if n == BUCKET:
             stem = dict(t, max_abs_err=err["conv_stem"])
 
-    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    tot = dict(ms=0.0, call_ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0,
+               ops=0)
+    grid = {n: [] for n in BUCKETS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (h, cin, cout, stride), count in RESNET20_BLOCKS:
-        ops = block_case(rng, dev, BUCKET, h, cin, cout, stride)
-        for skip_shift in (3, 0, -2):
-            kw = dict(stride=stride, shift0=11, shift1=12,
-                      skip_shift=skip_shift)
-            got = resblock_fused_op(*ops, **kw)
-            torch.cuda.synchronize()
-            ref = resblock_ref(*ops, **kw)
-            err["resblock_fused"] = max(err["resblock_fused"],
-                                        max_abs_err(got, ref))
-            check(torch.equal(got, ref),
-                  f"resblock_fused {h}x{h} {cin}->{cout} s{stride} "
-                  f"skip_shift={skip_shift} differs from plain")
-            check_unsaturated(got, f"resblock_fused {h}x{h} {cin}->{cout} "
-                                   f"skip_shift={skip_shift}")
-        kw = dict(stride=stride, shift0=11, shift1=12, skip_shift=-2)
-        out = resblock_fused_op(*ops, **kw)
-        t = dict(ms=device_ms(lambda: resblock_fused_op(*ops, **kw), REPS),
-                 call_ms=call_ms(lambda: resblock_fused_op(*ops, **kw), REPS),
-                 plain_ms=device_ms(lambda: resblock_ref(*ops, **kw), REPS))
         oh = h // stride
+        for n in BUCKETS + (256,):
+            ops = block_case(rng, dev, n, h, cin, cout, stride)
+            band = space.block_band_rows(oh, n, sms)
+            for skip_shift in (3, 0, -2):
+                kw = dict(stride=stride, shift0=11, shift1=12,
+                          skip_shift=skip_shift)
+                got = resblock_fused_op(*ops, **kw)
+                torch.cuda.synchronize()
+                ref = resblock_ref(*ops, **kw)
+                err["resblock_fused"] = max(err["resblock_fused"],
+                                            max_abs_err(got, ref))
+                check(torch.equal(got, ref),
+                      f"resblock_fused N={n} {h}x{h} {cin}->{cout} "
+                      f"s{stride} band={band} skip_shift={skip_shift} "
+                      f"differs from plain")
+                check_unsaturated(got, f"resblock_fused N={n} {h}x{h} "
+                                       f"{cin}->{cout} "
+                                       f"skip_shift={skip_shift}")
+            if n in grid:
+                kw = dict(stride=stride, shift0=11, shift1=12, skip_shift=-2)
+                launch = ResblockLaunch(*ops[1:], **kw)
+                blocks = launch.thread_blocks(n, oh)
+                check(launch.band_rows(n, oh) == band and
+                      blocks == n * -(-oh // band),
+                      f"resblock_fused N={n} {h}x{h}: launch band "
+                      f"{launch.band_rows(n, oh)} != rule {band}")
+                used, most = sms_used(launch, ops[0], blocks,
+                                      resblock_ref(*ops, **kw),
+                                      f"resblock_fused N={n} {h}x{h}")
+                grid[n].append(dict(band=band, blocks=blocks, sms=used,
+                                    most=most))
+            if n == BUCKET:
+                main_ops = ops
+        ops = main_ops
+        kw = dict(stride=stride, shift0=11, shift1=12, skip_shift=-2)
+        # the main path's call form: a launch prepared at lower time
+        launch = ResblockLaunch(*ops[1:], **kw)
+        out = launch(ops[0])
+        check(torch.equal(out, resblock_ref(*ops, **kw)),
+              "prepared resblock_fused launch differs from plain")
+        t = dict(ms=device_ms(lambda: launch(ops[0]), REPS),
+                 call_ms=call_ms(lambda: launch(ops[0]), REPS),
+                 op_ms=device_ms(lambda: resblock_fused_op(*ops, **kw), REPS),
+                 plain_ms=device_ms(lambda: resblock_ref(*ops, **kw), REPS))
         macs = BUCKET * oh * oh * cout * (9 * cin + 9 * cout +
                                          (cin if stride == 2 else 0))
         t["bound_ms"], t["bound_by"] = bound(nbytes(*ops, out), 2 * macs)
+        t["tops"] = 2 * macs / (t["ms"] * 1e-3) / 1e12
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        band = space.block_band_rows(oh, BUCKET, sms)
         emit("kernel", name="resblock_fused", n=BUCKET, h=h, cin=cin,
              cout=cout, stride=stride, launches_per_forward=count,
-             smem_bytes=smem_bytes(h, h, cin, cout, stride, stride == 2),
+             band_rows=band, thread_blocks=BUCKET * -(-oh // band),
+             smem_bytes=smem_bytes(h, h, cin, cout, stride, stride == 2,
+                                   band),
              bitwise=True, macs_per_image=macs // BUCKET, **t)
-        for k in ("ms", "call_ms", "plain_ms"):
+        for k in ("ms", "call_ms", "op_ms", "plain_ms"):
             tot[k] += count * t[k]
         tot["bytes"] += count * nbytes(*ops, out)
         tot["ops"] += count * 2 * macs
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
-    block = dict(ms=tot["ms"], call_ms=tot["call_ms"],
+    occupancy = {
+        str(n): dict(thread_blocks=[g["blocks"] for g in grid[n]],
+                     sms_used=[g["sms"] for g in grid[n]],
+                     most_blocks_on_one_sm=[g["most"] for g in grid[n]],
+                     band_rows=[g["band"] for g in grid[n]])
+        for n in BUCKETS}
+    block = dict(ms=tot["ms"], call_ms=tot["call_ms"], op_ms=tot["op_ms"],
                  plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                 max_abs_err=err["resblock_fused"])
+                 tops=tot["ops"] / (tot["ms"] * 1e-3) / 1e12,
+                 bound_share=b_ms / tot["ms"], card_sms=sms,
+                 by_bucket=occupancy, max_abs_err=err["resblock_fused"])
     emit("kernel", name="resblock_fused", n=BUCKET,
          per="ResNet20 forward (9 launches)", **block)
     return stem, block
@@ -377,8 +478,8 @@ def kernels_phase(rng, dev):
 def fit_shift(acc):
     """The requant shift that puts the 90th percentile of the positive
     accumulators near 192, so that most outputs lie inside (0, 255)."""
-    pos = acc[acc > 0].double()
-    q = float(torch.quantile(pos[:1 << 24], 0.9)) if pos.numel() else 1.0
+    pos = acc[acc > 0].float()
+    q = percentile_linear(pos, 90.0) if pos.numel() else 1.0
     return int(math.ceil(math.log2(max(q, 1.0) / 192)))
 
 
@@ -428,34 +529,61 @@ def live_chain(rng, dev, shapes, n, stem_och=0, skips=(3, 0, -2)):
 
 
 def check_chain(what, case, shapes, stem_och, bt):
-    """block_chain against its plain version, bitwise, at one batch tile;
-    the kernel's shared memory against the planner's formula."""
+    """block_chain against its plain version, bitwise, at one batch tile
+    and the split tune.space.chain_split picks for it; the kernel's shared
+    memory at that split against the planner's formula.  Returns (largest
+    deviation, shared memory, split)."""
     x, blocks, specs, stem, stem_shift = case
+    cfg = KernelConfig(batch_tile=bt)
     got = block_chain_op(x, blocks, specs=specs, stem=stem,
-                         stem_shift=stem_shift,
-                         config=KernelConfig(batch_tile=bt))
+                         stem_shift=stem_shift, config=cfg)
     torch.cuda.synchronize()
     ref = block_chain_ref(x, blocks, specs=specs, stem=stem,
                           stem_shift=stem_shift)
     check(torch.equal(got, ref),
           f"block_chain {what} batch_tile={bt} differs from plain")
     check_unsaturated(got, f"block_chain {what} batch_tile={bt}")
-    smem = chain_ops.smem_bytes(shapes, bt, stem_och)
-    check(smem == df.chain_task_smem_bytes(shapes, bt, stem_och),
-          f"block_chain {what} batch_tile={bt}: kernel smem {smem} != "
-          f"chain_task_smem_bytes")
-    return max_abs_err(got, ref), smem
+    n = x.shape[0]
+    bt = cfg.normalize(n, shapes[-1].och).batch_tile
+    split = space.chain_split(shapes, n // bt, bt, stem_och,
+                              capacity=chain_ops.max_clusters)
+    launch = ChainLaunch(blocks, specs=specs, in_shape=x.shape[1:],
+                         stem=stem, stem_shift=stem_shift, config=cfg)
+    check(launch.tiling(n) == (bt, split),
+          f"block_chain {what}: launch tiling {launch.tiling(n)} != rule "
+          f"{(bt, split)}")
+    smem = chain_ops.smem_bytes(shapes, bt, stem_och, split)
+    check(smem == df.chain_task_smem_bytes(shapes, bt, stem_och, split),
+          f"block_chain {what} batch_tile={bt} split={split}: kernel smem "
+          f"{smem} != chain_task_smem_bytes")
+    return max_abs_err(got, ref), smem, split
+
+
+def host_us(fn, reps):
+    """Host microseconds one call takes to return (the enqueue, with the
+    device left to run behind it), after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def chain_phase(rng, dev):
-    """block_chain against its plain version on every tested chain and
-    tile, then its timings on ResNet20's chain at batch 32; returns the
-    kernel record with its largest deviation."""
-    err = 0
+    """block_chain against its plain version on every tested chain, bucket,
+    tile and split, then its timings on ResNet20's chain at buckets 1, 8
+    and 32; returns the kernel record with its largest deviation."""
+    err, splits = 0, set()
     r20, r8 = df.resnet_block_shapes(3), df.resnet_block_shapes(1)
     cases = [("resnet20", r20, n, 16, bts)
-             for n, bts in ((BUCKET, (1, 2)), (256, (1,)))]
-    cases.append(("resnet8", r8, BUCKET, 16, (1, 2)))
+             for n, bts in ((1, (1,)), (8, (1, 2)), (BUCKET, (1, 2)),
+                            (256, (1,)))]
+    cases += [("resnet8", r8, n, 16, bts)
+              for n, bts in ((1, (1,)), (8, (1, 2)), (BUCKET, (1, 2)))]
     for links in NARROW_CHAINS:
         h, shapes = 16, []
         for cin, cout, stride in links:
@@ -467,32 +595,69 @@ def chain_phase(rng, dev):
         for skips in SKIP_CYCLES[:1] if len(shapes) >= 3 else SKIP_CYCLES:
             case = live_chain(rng, dev, shapes, n, stem_och, skips)
             for bt in bts:
-                e, smem = check_chain(f"{name} N={n} skips={skips}", case,
-                                      shapes, stem_och, bt)
+                e, smem, split = check_chain(f"{name} N={n} skips={skips}",
+                                             case, shapes, stem_och, bt)
                 err = max(err, e)
+                splits.add((name, n, bt, split))
                 emit("kernel_check", name="block_chain", chain=name, n=n,
-                     batch_tile=bt, skips=list(skips), bitwise=True,
-                     smem_bytes=smem)
+                     batch_tile=bt, split=split, skips=list(skips),
+                     bitwise=True, smem_bytes=smem)
 
-    x, blocks, specs, stem, stem_shift = live_chain(rng, dev, r20, BUCKET, 16)
-    kw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
-    out = block_chain_op(x, blocks, **kw)
-    t = dict(ms=device_ms(lambda: block_chain_op(x, blocks, **kw), REPS),
-             call_ms=call_ms(lambda: block_chain_op(x, blocks, **kw), REPS),
-             plain_ms=device_ms(lambda: block_chain_ref(x, blocks, **kw),
-                                REPS))
-    bt2 = KernelConfig(batch_tile=2)
-    t["ms_batch_tile_2"] = device_ms(
-        lambda: block_chain_op(x, blocks, config=bt2, **kw), REPS)
-    operands = [x, *stem, *(w for ws in blocks for w in ws), out]
-    ops = 2 * BUCKET * macs_per_image(R.RESNET20)
-    t["bound_ms"], t["bound_by"] = bound(nbytes(*operands), ops)
-    t["bound_bytes_ms"] = nbytes(*operands) / HBM_BYTES_PER_S * 1e3
-    t["bound_ops_ms"] = ops / INT8_OPS_PER_S * 1e3
-    smem = chain_ops.smem_bytes(r20, 1, 16)
+    by_bucket = {}
+    for n in BUCKETS:
+        x, blocks, specs, stem, stem_shift = live_chain(rng, dev, r20, n, 16)
+        kw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
+        # the main path's call form: a launch prepared at lower time
+        launch = ChainLaunch(blocks, in_shape=x.shape[1:], **kw)
+        out = launch(x)
+        check(torch.equal(out, block_chain_ref(x, blocks, **kw)),
+              f"prepared block_chain launch N={n} differs from plain")
+        bt, split = launch.tiling(n)
+        smem = chain_ops.smem_bytes(r20, bt, 16, split)
+        used, most = sms_used(launch, x, launch.thread_blocks(n), out,
+                              f"block_chain N={n}")
+        rec = dict(ms=device_ms(lambda: launch(x), REPS), split=split,
+                   thread_blocks=launch.thread_blocks(n), sms_used=used,
+                   most_blocks_on_one_sm=most,
+                   max_active_clusters=chain_ops.max_clusters(split, smem),
+                   smem_bytes=smem)
+        by_bucket[str(n)] = rec
+        if n != BUCKET:
+            continue
+        t = dict(ms=rec["ms"], call_ms=call_ms(lambda: launch(x), REPS),
+                 op_ms=device_ms(lambda: block_chain_op(x, blocks, **kw),
+                                 REPS),
+                 plain_ms=device_ms(lambda: block_chain_ref(x, blocks, **kw),
+                                    REPS),
+                 # host time of one call: the direct op (validates the chain,
+                 # widens the biases, packs the weights and the link table
+                 # every call) against the prepared launch
+                 host_us_op=host_us(lambda: block_chain_op(x, blocks, **kw),
+                                    REPS),
+                 host_us_prepared=host_us(lambda: launch(x), REPS))
+        bt2 = ChainLaunch(blocks, in_shape=x.shape[1:],
+                          config=KernelConfig(batch_tile=2), **kw)
+        t["ms_batch_tile_2"] = device_ms(lambda: bt2(x), REPS)
+        operands = [x, *stem, *(w for ws in blocks for w in ws), out]
+        ops = 2 * BUCKET * macs_per_image(R.RESNET20)
+        t["bound_ms"], t["bound_by"] = bound(nbytes(*operands), ops)
+        t["bound_bytes_ms"] = nbytes(*operands) / HBM_BYTES_PER_S * 1e3
+        t["bound_ops_ms"] = ops / INT8_OPS_PER_S * 1e3
+        t["tops"] = ops / (t["ms"] * 1e-3) / 1e12
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        main = t
+    # clusters the card runs at once, at two thread blocks an SM (60,000 B
+    # each) and at one (120,000 B), from the kernel's occupancy query
+    capacity = {f"split {sp}, {per} an SM": chain_ops.max_clusters(sp, sm)
+                for sp in space.SPLITS for per, sm in ((2, 60_000),
+                                                       (1, 120_000))}
+    main.update(smem_bytes=by_bucket[str(BUCKET)]["smem_bytes"],
+                cluster_capacity=capacity,
+                by_bucket=by_bucket,
+                splits_checked=sorted({s for *_, s in splits}))
     emit("kernel", name="block_chain", n=BUCKET, chain="ResNet20 stem+b0..b8",
-         smem_bytes=smem, bitwise=True, **t)
-    return dict(t, smem_bytes=smem, max_abs_err=err)
+         bitwise=True, **main)
+    return dict(main, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +908,30 @@ def serve_phase(cfg, seed, dev, backend):
          feature_nonzero_share=float((feats > 0).float().mean()),
          macs_per_image=macs_per_image(cfg), **summary)
     return eng, launches, summary
+
+
+def eager_compare_phase(models, dev, turns=4):
+    """Eager bucket-32 forward time of each ResNet on ``cuda`` and
+    ``cuda-stream`` measured in turns (cuda, cuda-stream, cuda-stream,
+    cuda, ...), so that the host's drift within the call falls on both
+    alike; the median of each backend's turns."""
+    x = torch.rand((BUCKET, 32, 32, 3), device=dev) * 0.999
+    out = {}
+    for name, (eng, eng_s) in models.items():
+        times = {"cuda": [], "cuda-stream": []}
+        for turn in range(turns):
+            order = ("cuda", "cuda-stream")[::1 if turn % 2 == 0 else -1]
+            for b in order:
+                m = (eng if b == "cuda" else eng_s).model
+                times[b].append(call_ms(lambda: m(x), REPS))
+        ms = {b: float(np.median(t)) for b, t in times.items()}
+        out[name] = dict(
+            cuda_ms=ms["cuda"], stream_ms=ms["cuda-stream"],
+            cuda_images_per_s=BUCKET / (ms["cuda"] * 1e-3),
+            stream_images_per_s=BUCKET / (ms["cuda-stream"] * 1e-3),
+            turns_ms=times, stream_no_slower=ms["cuda-stream"] <= ms["cuda"])
+    emit("eager_compare", **out)
+    return out
 
 
 def profile_phase(eng, dev, backend):
@@ -1387,20 +1576,22 @@ def main(argv=None):
     emit("numerics", cuda_matmul_allow_tf32=torch.backends.cuda.matmul
          .allow_tf32, cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
-    build_phase()
+    sass = build_phase()
     rng = np.random.default_rng(args.seed)
     stem, block = kernels_phase(rng, dev)
     chain = chain_phase(rng, dev)
     eng20, launches, serve20 = serve_phase(R.RESNET20, args.seed, dev,
                                            "cuda")
-    _, launches8, serve8 = serve_phase(R.RESNET8, args.seed, dev, "cuda")
+    eng8, launches8, serve8 = serve_phase(R.RESNET8, args.seed, dev, "cuda")
     eng20s, launches_s, serve20s = serve_phase(R.RESNET20, args.seed, dev,
                                                "cuda-stream")
-    _, launches8s, serve8s = serve_phase(R.RESNET8, args.seed, dev,
-                                         "cuda-stream")
+    eng8s, launches8s, serve8s = serve_phase(R.RESNET8, args.seed, dev,
+                                             "cuda-stream")
+    eager = eager_compare_phase({"resnet20": (eng20, eng20s),
+                                 "resnet8": (eng8, eng8s)}, dev)
     profile_phase(eng20, dev, "cuda")
     profile_phase(eng20s, dev, "cuda-stream")
-    del eng20, eng20s
+    del eng20, eng20s, eng8, eng8s
 
     conv = conv2d_phase(rng, dev)
     mm = lm_matmul_phase(rng, dev)
@@ -1427,13 +1618,13 @@ def main(argv=None):
              replaces="src/repro/kernels/resblock_fused/"
                       "resblock_fused.py:120",
              launches=launches["resblock_fused"], bitwise=True,
-             library_ms=None,
+             library_ms=None, sass=sass["resblock_fused"],
              per="the 9 launches of one ResNet20 forward at batch 32",
              **block),
         dict(name="block_chain", route="cuda", source=src + "block_chain.cu",
              replaces="src/repro/kernels/megakernel/megakernel.py:203",
              launches=launches_s["block_chain"], bitwise=True,
-             library_ms=None,
+             library_ms=None, sass=sass["block_chain"],
              per="the one launch of a cuda-stream ResNet20 forward at "
                  "batch 32", **chain),
         dict(name="matmul_int8", route="cuda", source=src + "matmul_int8.cu",
@@ -1477,6 +1668,7 @@ def main(argv=None):
     print(json.dumps({"kernels": rows, "serve": {
         "resnet20": serve20, "resnet8": serve8,
         "resnet20_stream": serve20s, "resnet8_stream": serve8s,
+        "eager_in_turns": eager,
         **lm_serve},
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -471,7 +471,8 @@ class CudaStreamBackend(_BaseBackend):
     ``batch_tile=1`` (``block_chain_op``'s default), one image per thread
     block, unless a chain carries its own ``config``.  The results are
     bitwise the same at every tile.
-    Biases are widened and shifts derived once, here, not per call.
+    Biases are widened, shifts derived, blocks packed and link tables
+    built once, here (``ChainLaunch``, ``ResblockLaunch``), not per call.
     An LM config runs the ``cuda`` task impls: there is no LM chain
     kernel."""
 
@@ -483,30 +484,29 @@ class CudaStreamBackend(_BaseBackend):
         self.smem_budget = smem_budget
 
     def conv_features(self, g, cfg, params) -> Callable:
+        from repro_torch.core import dataflow
         from repro_torch.kernels.conv_stem.ops import conv_stem_op
-        from repro_torch.kernels.megakernel.ops import (
-            ChainBlockSpec, block_chain_op)
-        from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
+        from repro_torch.kernels.megakernel.ops import (ChainBlockSpec,
+                                                        ChainLaunch)
+        from repro_torch.kernels.resblock_fused.ops import ResblockLaunch
 
         plan = lowering.plan_model(g, params)
         chains = lowering.plan_chains(plan, cfg, cuts=self.cuts,
                                       fuse_stem=self.fuse_stem,
                                       smem_budget=self.smem_budget)
+        shapes = dataflow.resnet_block_shapes(cfg.blocks_per_stage,
+                                              cfg.base_width, cfg.img)
         stem_out, block_outs = activation_out_specs(params, A_SPEC)
         st = params.stem
         stem_op = (st.wq, st.bq.to(torch.int32))
         stem_shift = stem_out.exp - st.product_exp
         operands = _block_operands(params, plan, block_outs)
 
-        # the launch sequence, fixed at lower time
+        # the launch sequence, fixed at lower time: every block kernel is a
+        # prepared launch (operands validated and packed, link table built),
+        # so a call only allocates its output and launches
         def stem_step(h):
             return conv_stem_op(h, *stem_op, shift=stem_shift)
-
-        def block_step(ws, kw):
-            return lambda h: resblock_fused_op(h, *ws, **kw)
-
-        def chain_step(**kw):
-            return lambda h: block_chain_op(h, **kw)
 
         steps = [] if chains and chains[0].stem is not None else [stem_step]
         for chain in chains:
@@ -514,16 +514,19 @@ class CudaStreamBackend(_BaseBackend):
                 # singleton chain: the chain kernel would add nothing
                 task, = chain.blocks
                 ws, sh = operands[task.index]
-                steps.append(block_step(ws if task.has_ds
-                                        else ws + (None, None),
-                                        dict(stride=task.stride, **sh)))
+                steps.append(ResblockLaunch(
+                    *(ws if task.has_ds else ws + (None, None)),
+                    stride=task.stride, **sh))
                 continue
             fused = chain.stem is not None
-            steps.append(chain_step(
-                blocks=tuple(operands[t.index][0] for t in chain.blocks),
+            head = shapes[chain.blocks[0].index]
+            steps.append(ChainLaunch(
+                tuple(operands[t.index][0] for t in chain.blocks),
                 specs=tuple(ChainBlockSpec(stride=t.stride, has_ds=t.has_ds,
                                            **operands[t.index][1])
                             for t in chain.blocks),
+                in_shape=(cfg.img, cfg.img, dataflow.STEM_CIN) if fused
+                else (head.h, head.w, head.ich),
                 stem=stem_op if fused else None,
                 stem_shift=stem_shift if fused else None,
                 config=chain.config))
@@ -534,6 +537,7 @@ class CudaStreamBackend(_BaseBackend):
                 h = step(h)
             return h
 
+        features.steps = tuple(steps)   # the launch objects, for the tests
         return features
 
 

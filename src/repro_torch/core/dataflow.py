@@ -163,7 +163,7 @@ def chain_task_vmem_bytes(blocks: List[BlockShape], batch_tile: int,
 
 
 # The stem's input channels (the RGB image), padded in shared memory to one
-# 32-bit word per pixel so that the stem runs on the same dp4a path.
+# 32-bit word per pixel so that the stem runs on dp4a.
 STEM_CIN = 3
 STEM_CIN_PADDED = 4
 
@@ -172,33 +172,61 @@ def _align16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
+def pixel_pitch(c: int) -> int:
+    """Bytes a stored pixel of a ``c``-channel map takes in the shared
+    memory of the block kernels (``repro::pixel_pitch`` in
+    ``kernels/csrc/block_body.cuh``): the channels rounded up to 16-byte
+    chunks, then to an odd count of chunks, so that the 8 pixels of one
+    ``ldmatrix`` phase fall on 8 different bank groups."""
+    p = _align16(c)
+    return p if (p // 16) % 2 else p + 16
+
+
+def packed_part_bytes(ich: int, och: int, downsample: bool,
+                      part: int) -> int:
+    """Bytes of part A (``part`` 0: b0 and w0, conv0's operands) or part B
+    (1: b1, bd, w1 and wd) of one residual block packed for the
+    tensor-core kernels (``repro::packed_part_bytes``;
+    ``kernels.resblock_fused.ops.pack_block`` writes it): int32 biases and
+    mma-fragment-ordered filters, channels rounded up to 16 with zeros."""
+    kp, np_ = _align16(ich), _align16(och)
+    if part == 0:
+        return 4 * np_ + 9 * kp * np_
+    return 8 * np_ + 9 * np_ * np_ + (kp * np_ if downsample else 0)
+
+
+def packed_block_bytes(ich: int, och: int, downsample: bool) -> int:
+    """Bytes of one packed residual block, both parts."""
+    return sum(packed_part_bytes(ich, och, downsample, p) for p in (0, 1))
+
+
 def chain_task_smem_bytes(blocks: List[BlockShape], batch_tile: int,
-                          stem_och: int = 0) -> int:
+                          stem_och: int = 0, split: int = 1) -> int:
     """Dynamic shared memory one thread block of the CUDA ``block_chain``
-    kernel uses: the same formula as ``chain_layout`` in
-    ``kernels/csrc/block_chain.cu`` (exported as
+    kernel uses when ``split`` thread blocks share an image (a cluster,
+    each owning a row band of every map): the same formula as
+    ``chain_layout`` in ``kernels/csrc/block_chain.cu`` (exported as
     ``block_chain_smem_bytes``).
 
-    * the stem's bias and transposed filter, staged once (``stem_och > 0``);
-    * ONE link's biases (b0, b1, bd) and transposed filters, restaged at
-      every link — the largest link sets the size;
-    * per image of the tile, three zero-haloed activation planes (link
-      input, y0, link output), each as large as the largest
-      ``(h + 2) x (w + 2) x c`` map of the chain, the image included.
+    * the stem's bias and dp4a filter, staged once (``stem_och > 0``);
+    * two weight slots, each the largest ``packed_part_bytes`` of any link
+      (the parts stream through them one conv phase ahead);
+    * per image of the tile, three band planes (link input, y0, link
+      output), each as large as the largest ``(h / split + 2) x (w + 2)``
+      band of the chain's maps (halo rows and zero ring included) at
+      ``pixel_pitch`` bytes a pixel, 4 for the image.
 
-    Each region is rounded up to 16 bytes."""
+    The planes are rounded up to 16 bytes."""
     stem = _align16(stem_och * 4 + 9 * STEM_CIN_PADDED * stem_och) \
         if stem_och else 0
-    link = max(_align16(3 * 4 * b.och + 9 * b.ich * b.och
-                        + 9 * b.och * b.och
-                        + (b.ich * b.och if b.downsample else 0))
-               for b in blocks)
-    planes = [(blocks[0].h + 2) * (blocks[0].w + 2) * STEM_CIN_PADDED] \
-        if stem_och else []
+    slot = max(packed_part_bytes(b.ich, b.och, b.downsample, p)
+               for b in blocks for p in (0, 1))
+    planes = [(blocks[0].h // split + 2) * (blocks[0].w + 2)
+              * STEM_CIN_PADDED] if stem_och else []
     for b in blocks:
-        planes += [(b.h + 2) * (b.w + 2) * b.ich,
-                   (b.oh + 2) * (b.ow + 2) * b.och]
-    return stem + link + 3 * batch_tile * _align16(max(planes))
+        planes += [(b.h // split + 2) * (b.w + 2) * pixel_pitch(b.ich),
+                   (b.oh // split + 2) * (b.ow + 2) * pixel_pitch(b.och)]
+    return stem + 2 * slot + 3 * batch_tile * _align16(max(planes))
 
 
 def resnet_block_shapes(blocks_per_stage: int, base: int = 16, img: int = 32

@@ -81,14 +81,36 @@ def dequantize(q: torch.Tensor, spec: QSpec) -> torch.Tensor:
     return q.to(torch.float32) * spec.scale
 
 
+def percentile_linear(a: torch.Tensor, percentile: float) -> float:
+    """The ``percentile`` of the 1-D float32 tensor ``a`` with linear
+    interpolation between the two nearest ranks, in the float32 arithmetic
+    of ``jnp.percentile`` as XLA compiles it: the rank ``q / 100 * (n - 1)``
+    becomes ``q * (float32(0.01) * float32(n - 1))`` (the division turned
+    into a multiply by the reciprocal, folded with the constant ``n - 1``;
+    past 2^24 elements this picks another rank than exact arithmetic
+    would), and the weights and the blend round to float32.  Two
+    ``kthvalue`` selections instead of ``torch.quantile``, which refuses
+    inputs of more than 2^24 elements."""
+    f32 = np.float32
+    n = a.numel()
+    pos = f32(f32(percentile) * f32(f32(0.01) * f32(f32(n) - f32(1))))
+    lo, hi = (min(max(int(f(pos)), 0), n - 1) for f in (np.floor, np.ceil))
+    w_hi = f32(pos - f32(lo))
+    w_lo = f32(f32(1) - w_hi)
+    v_lo = f32(float(torch.kthvalue(a, lo + 1).values))
+    v_hi = f32(float(torch.kthvalue(a, hi + 1).values)) if hi != lo \
+        else v_lo
+    return float(f32(f32(v_lo * w_lo) + f32(v_hi * w_hi)))
+
+
 def calibrate_exp(x: torch.Tensor, spec: QSpec,
                   percentile: float = 100.0) -> int:
     """Smallest power-of-two exponent that covers the (percentile-clipped)
     dynamic range of ``x``."""
     a = torch.abs(x.to(torch.float32)).flatten()
-    amax = a.max() if percentile >= 100.0 else \
-        torch.quantile(a, percentile / 100.0)
-    amax = float(torch.clamp_min(amax, 1e-12))
+    amax = float(a.max()) if percentile >= 100.0 else \
+        percentile_linear(a, percentile)
+    amax = max(amax, 1e-12)
     # need amax <= qmax * 2**exp  =>  exp >= log2(amax / qmax)
     return int(np.ceil(np.log2(amax / spec.qmax)))
 

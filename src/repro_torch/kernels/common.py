@@ -7,6 +7,8 @@ on.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -21,6 +23,28 @@ def check_shift(name: str, shift) -> int:
         raise ValueError(
             f"{name}={shift!r}: expected an int in [{SHIFT_MIN}, {SHIFT_MAX}]")
     return shift
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: what one wave of
+    the block kernels' thread blocks is sized to."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_ids_ptr(sm_ids, blocks: int, device):
+    """Pointer of the optional per-thread-block SM record of a block kernel
+    launch: None, or a contiguous int32 tensor of ``blocks`` elements on
+    ``device`` that the launch fills with the SM each thread block ran
+    on."""
+    if sm_ids is None:
+        return None
+    if sm_ids.dtype != torch.int32 or sm_ids.numel() != blocks or \
+            sm_ids.device != device or not sm_ids.is_contiguous():
+        raise ValueError(f"sm_ids must be a contiguous int32 tensor of "
+                         f"{blocks} on {device}, got {tuple(sm_ids.shape)} "
+                         f"{sm_ids.dtype} on {sm_ids.device}")
+    return sm_ids.data_ptr()
 
 
 def check_weight(name: str, t: torch.Tensor, shape) -> None:

@@ -45,6 +45,14 @@ __device__ __forceinline__ int dp4a_us(unsigned a, int b, int c) {
   return d;
 }
 
+// The SM this thread runs on (%smid).  The block kernels record it per
+// thread block when asked, so that a launch can report the SMs it used.
+__device__ __forceinline__ int sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return static_cast<int>(id);
+}
+
 }  // namespace repro
 
 REPRO_EXPORT const char* repro_error_string(int err) {

@@ -14,152 +14,144 @@
 // What bounds it on an H100: at the tensor-core roofline (1,979 int8 TOP/s
 // over 3.35 TB/s, ~590 ops per byte) the 16- and 32-channel blocks are
 // bound by bytes (about 290-580 ops per byte of x read and out written) and
-// the 64-channel blocks by operations (about 600-1,150).  This kernel runs
-// its products on the CUDA cores with dp4a (4 u8 x s8 products per
-// instruction), well below the tensor-core rate, so in practice it is
-// bound by operations: the dp4a issue rate and the shared-memory loads
-// that feed it.
+// the 64-channel blocks by operations (about 600-1,150).  At ResNet sizes
+// one block is a few microseconds of work spread over the card, so in
+// practice latency bounds it: the dependent mma chain of a warp item, the
+// staging, and the launch.
 //
-// Design: one thread block per image, the direct counterpart of the TPU
-// kernel's "y0 and the skip never leave VMEM".  Dynamic shared memory holds
-// the zero-haloed input tile, the zero-haloed y0, w0, w1 and (if present)
-// wd, so device memory sees x read once and out written once.  Weights are
-// staged transposed from HWIO to [tap][cout][cin] so four input channels of
-// one output channel are one 32-bit word, the operand dp4a takes.
-//   Phase A: conv0 (strided) -> requant_u8 -> y0 in shared memory.
-//   Phase B: skip (identity, or the fused 1x1 downsample) + b1 + conv1 over
-//            y0 -> requant_u8 -> device memory.
-// The two phases are the shared block body of block_body.cuh; each work
-// item is one output pixel times four consecutive output channels.  At
-// ResNet20's shapes the block needs 41.6-87.3 KB of shared memory, above
-// the 48 KB default, so the launch raises the limit first.  Tensor cores
-// (mma.sync m16n8k32 takes .u8.s8), several blocks per image and
-// cp.async/TMA staging are later work.
+// Design: a grid of (row band, image) thread blocks, so that at the serving
+// buckets the card fills (block_band_rows in tune/space.py picks the band
+// height from the map height, the batch and the card's SM count: at bucket
+// 32 on an H100, 4 bands an image).
+// Each thread block
+//   - copies the packed block (biases and the mma-fragment-ordered filters,
+//     block_body.cuh) from L2 by cp.async, and stages its band of x plus
+//     the halo rows conv0 and conv1 need, zero-padded;
+//   - phase A: conv0 for its band of y0 plus one row either side
+//     (recomputed by the neighbouring bands too), kept in shared memory;
+//   - phase B: skip (identity, or the fused 1x1 downsample) + b1 start
+//     conv1's accumulator (the add-fold); conv1 over y0; requant_u8; its
+//     band of out goes to device memory.
+// Both phases are block_body.cuh's implicit GEMMs on the int8 tensor cores
+// (mma.sync m16n8k32 / m16n8k16 .u8.s8), so device memory sees x read
+// once (plus the halo rows) and out written once.
 #include "block_body.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-// One thread block per image: at the serving buckets (up to 32 images) no
-// SM holds more than one block, so the bound lets ptxas spend registers
-// freely (about 100; at its default target of 64 the block body spills).
-constexpr int kMinBlocks = 1;
 
 struct Layout {
-  int pad_lo, hp, wp, oh, ow, bytes;
-  int w0_off, w1_off, wd_off, x_off, y_off;
+  int pad_lo, wp, oh, ow, xrows, x_off, y_off, bytes;
 };
 
-// Shared-memory layout: b0 | b1 | bd (int32) | w0t | w1t | wdt | x tile | y0.
-// Every size is a multiple of 4 bytes when cin and cout are.
+// Shared-memory layout: packed block | x band (padded coordinates, rows
+// (r0 - 1) * stride .. (r0 + band) * stride + 2) | y0 band (rows r0 - 1 ..
+// r0 + band, zero ring columns).
 __host__ __device__ inline Layout layout(int h, int w, int cin, int cout,
-                                         int stride, bool has_ds) {
+                                         int stride, bool has_ds, int band) {
   Layout l;
   l.pad_lo = stride == 1 ? 1 : 0;
-  l.hp = h + l.pad_lo + 1;
   l.wp = w + l.pad_lo + 1;
-  l.oh = (l.hp - 3) / stride + 1;
+  l.oh = (h + l.pad_lo + 1 - 3) / stride + 1;
   l.ow = (l.wp - 3) / stride + 1;
-  l.w0_off = 3 * 4 * cout;
-  l.w1_off = l.w0_off + 9 * cout * cin;
-  l.wd_off = l.w1_off + 9 * cout * cout;
-  l.x_off = l.wd_off + (has_ds ? cout * cin : 0);
-  l.y_off = l.x_off + l.hp * l.wp * cin;
-  l.bytes = l.y_off + (l.oh + 2) * (l.ow + 2) * cout;
+  l.xrows = (band + 1) * stride + 3;
+  l.x_off = repro::packed_block_bytes(cin, cout, has_ds);
+  l.y_off = l.x_off + l.xrows * l.wp * repro::pixel_pitch(cin);
+  l.bytes = l.y_off + (band + 2) * (l.ow + 2) * repro::pixel_pitch(cout);
   return l;
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-resblock_fused_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w0,
-                      const int32_t* __restrict__ b0, const int8_t* __restrict__ w1,
-                      const int32_t* __restrict__ b1, const int8_t* __restrict__ wd,
-                      const int32_t* __restrict__ bd, uint8_t* __restrict__ out,
-                      int h, int w, int cin, int cout, int stride, int shift0,
-                      int shift1, int skip_shift) {
+__global__ void __launch_bounds__(kThreads)
+resblock_fused_kernel(const uint8_t* __restrict__ x,
+                      const unsigned char* __restrict__ packed,
+                      uint8_t* __restrict__ out, int h, int w, int cin,
+                      int cout, int stride, int has_ds, int shift0, int shift1,
+                      int skip_shift, int band, int* __restrict__ sm_ids) {
   using repro::Map;
-  const bool has_ds = wd != nullptr;
-  const Layout l = layout(h, w, cin, cout, stride, has_ds);
-  const int cin4 = cin / 4;
+  if (sm_ids != nullptr && threadIdx.x == 0)
+    sm_ids[blockIdx.y * gridDim.x + blockIdx.x] = repro::sm_id();
+  const Layout l = layout(h, w, cin, cout, stride, has_ds != 0, band);
+  const int pin = repro::pixel_pitch(cin), pout = repro::pixel_pitch(cout);
+  const int r0 = blockIdx.x * band, nb = min(band, l.oh - r0);
+  const int img = blockIdx.y;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* sb0 = reinterpret_cast<int32_t*>(smem);
-  int32_t* sb1 = sb0 + cout;
-  int32_t* sbd = sb1 + cout;
-  int8_t* w0t = reinterpret_cast<int8_t*>(smem + l.w0_off);
-  int8_t* w1t = reinterpret_cast<int8_t*>(smem + l.w1_off);
-  int8_t* wdt = reinterpret_cast<int8_t*>(smem + l.wd_off);
   uint8_t* xs = smem + l.x_off;
   uint8_t* ys = smem + l.y_off;
 
-  // ---- stage biases, weights and the zero-haloed input tile ----
-  repro::stage_bias(b0, sb0, cout);
-  repro::stage_bias(b1, sb1, cout);
-  repro::stage_bias(bd, sbd, cout);
-  repro::stage_transposed(w0, w0t, 9, cin, cout);
-  repro::stage_transposed(w1, w1t, 9, cout, cout);
-  if (has_ds) repro::stage_transposed(wd, wdt, 1, cin, cout);
-  const uint8_t* xn = x + static_cast<size_t>(blockIdx.x) * h * w * cin;
-  for (int i = threadIdx.x; i < l.hp * l.wp * cin4; i += blockDim.x) {
-    const int pos = i / cin4;
-    const int c4 = i - pos * cin4;
-    const int iy = pos / l.wp - l.pad_lo;
-    const int ix = pos - (pos / l.wp) * l.wp - l.pad_lo;
-    unsigned v = 0;
-    if (iy >= 0 && iy < h && ix >= 0 && ix < w)
-      v = *reinterpret_cast<const unsigned*>(xn + (static_cast<size_t>(iy) * w + ix) * cin + 4 * c4);
-    reinterpret_cast<unsigned*>(xs)[i] = v;
-  }
-  repro::zero_ring(ys, l.oh, l.ow, cout);  // y0's zero halo for conv1
+  // ---- stage the packed block, the x band and y0's zero ring ----
+  repro::copy_async(smem, packed, l.x_off);
+  repro::cp_async_commit();
+  const int xr0 = (r0 - 1) * stride;  // first padded row of the band
+  repro::stage_rows(x + static_cast<size_t>(img) * h * w * cin, h, w, cin, xs,
+                    pin, l.wp, l.pad_lo, xr0 - l.pad_lo, l.xrows);
+  if (r0 == 0) repro::zero_rows(ys, l.ow + 2, pout, 0, 1);
+  if (r0 + nb == l.oh) repro::zero_rows(ys, l.ow + 2, pout, nb + 1, nb + 2);
+  repro::zero_ring_cols(ys, l.ow, pout, 0, nb + 2);
+  repro::cp_async_wait<0>();
+  __syncthreads();
+  const repro::Packed pk(smem, smem + repro::packed_part_bytes(cin, cout, has_ds, 0),
+                         cin, cout);
+
+  // x in its padded coordinates: padded row xr0 is stored row 0
+  const Map xm{xs, l.wp, -xr0, 0, pin};
+
+  // ---- phase A: conv0 (strided) for y0 rows [r0 - 1, r0 + nb + 1) of
+  // the map -> requant_u8 -> y0 stays on chip, stored row y - r0 + 1 ----
+  const int ylo = max(r0 - 1, 0), yhi = min(r0 + nb + 1, l.oh);
+  repro::conv3x3_mma(xm, cin, pk.w0, pk.b0, stride, ylo, yhi - ylo, l.ow, cout,
+                     shift0, Map{ys, l.ow + 2, 1 - r0, 1, pout});
   __syncthreads();
 
-  // the x tile holds the padded input as stored (off 0); y0 is stored with
-  // a one-pixel ring: written at off 1, read by conv1 as its padded input
-  const Map xm{xs, l.wp, 0, cin};
-  const int owp = l.ow + 2;
-
-  // ---- phase A: conv0 (strided) -> requant_u8 -> y0 stays on chip ----
-  repro::conv3x3_requant(xm, w0t, sb0, stride, l.oh, l.ow, cout, shift0,
-                         Map{ys, owp, 1, cout});
-  __syncthreads();
-
-  // ---- phase B: skip + b1 initialize conv1's accumulator (add-fold) ----
-  uint8_t* on = out + static_cast<size_t>(blockIdx.x) * l.oh * l.ow * cout;
-  repro::residual_requant(xm, l.pad_lo, stride, wdt, sbd, has_ds, skip_shift,
-                          Map{ys, owp, 0, cout}, w1t, sb1, l.oh, l.ow, cout,
-                          shift1, Map{on, l.ow, 0, cout});
+  // ---- phase B: skip + b1 initialize conv1's accumulator (add-fold);
+  // conv1 reads y0 in its (1, 1)-padded coordinates ----
+  uint8_t* on = out + static_cast<size_t>(img) * l.oh * l.ow * cout;
+  repro::residual_mma(xm, cin, l.pad_lo, stride, pk, has_ds != 0, skip_shift,
+                      Map{ys, l.ow + 2, -r0, 0, pout}, r0, nb, l.ow, cout,
+                      shift1, Map{on, l.ow, 0, 0, cout});
 }
 
 }  // namespace
 
-// Dynamic shared memory one block needs at this shape.
+// Dynamic shared memory one thread block needs at this shape and band
+// height (output rows a thread block takes).
 REPRO_EXPORT int resblock_fused_smem_bytes(int h, int w, int cin, int cout,
-                                           int stride, int has_ds) {
-  return layout(h, w, cin, cout, stride, has_ds != 0).bytes;
+                                           int stride, int has_ds, int band) {
+  return layout(h, w, cin, cout, stride, has_ds != 0, band).bytes;
 }
 
-// x: (n, h, w, cin) u8 unpadded; w0: (3, 3, cin, cout), w1: (3, 3, cout,
-// cout), wd: (1, 1, cin, cout) s8 or null; b0, b1, bd: (cout,) s32 (bd null
-// with wd); out: (n, oh, ow, cout) u8.  cin and cout must be multiples of 4
-// and every pointer 4-byte aligned.  Returns the cudaError_t of the launch.
-REPRO_EXPORT int resblock_fused_launch(const void* x, const void* w0,
-                                       const void* b0, const void* w1,
-                                       const void* b1, const void* wd,
-                                       const void* bd, void* out, int n, int h,
-                                       int w, int cin, int cout, int stride,
+// Bytes of the packed block (pack_block in ops.py) at these channels.
+REPRO_EXPORT int resblock_packed_bytes(int cin, int cout, int has_ds) {
+  return repro::packed_block_bytes(cin, cout, has_ds);
+}
+
+// x: (n, h, w, cin) u8 unpadded; packed: the block's biases and filters in
+// the packed layout of block_body.cuh (16-byte aligned); out: (n, oh, ow,
+// cout) u8.  cin and cout must be multiples of 4 and at most 128, x and out
+// 4-byte aligned;
+// band: output rows a thread block takes (1 .. oh).  sm_ids: null, or
+// n * ceil(oh / band) ints that receive the SM of each thread block (image
+// major).  Returns the cudaError_t of the launch.
+REPRO_EXPORT int resblock_fused_launch(const void* x, const void* packed,
+                                       void* out, int n, int h, int w, int cin,
+                                       int cout, int stride, int has_ds,
                                        int shift0, int shift1, int skip_shift,
-                                       void* stream) {
-  const int smem = layout(h, w, cin, cout, stride, wd != nullptr).bytes;
-  if (smem > repro::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
+                                       int band, int* sm_ids, void* stream) {
+  const Layout l = layout(h, w, cin, cout, stride, has_ds != 0, band);
+  if (band < 1 || band > l.oh || cin % 4 || cout % 4 || n > 65535 ||
+      repro::round16(cin) > repro::kMaxK || repro::round16(cout) > repro::kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (l.bytes > repro::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resblock_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        resblock_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  resblock_fused_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w0),
-      static_cast<const int32_t*>(b0), static_cast<const int8_t*>(w1),
-      static_cast<const int32_t*>(b1), static_cast<const int8_t*>(wd),
-      static_cast<const int32_t*>(bd), static_cast<uint8_t*>(out), h, w, cin,
-      cout, stride, shift0, shift1, skip_shift);
+  const dim3 grid((l.oh + band - 1) / band, n);
+  resblock_fused_kernel<<<grid, kThreads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<const unsigned char*>(packed),
+      static_cast<uint8_t*>(out), h, w, cin, cout, stride, has_ds, shift0, shift1,
+      skip_shift, band, sm_ids);
   return static_cast<int>(cudaGetLastError());
 }

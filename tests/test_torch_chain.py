@@ -286,16 +286,23 @@ def test_chain_hbm_identity_holds_in_the_port(bps, batch, batch_tile):
 
 
 def test_chain_smem_bytes_of_the_resnet_chains():
-    """The kernel's layout at ResNet widths: three 34x34x16 planes per
-    image (55,488 B), the 64->64 link's weights and biases (74,496 B) and
-    the stem's (640 B); monotone in links and tile."""
+    """The kernel's layout at ResNet widths: two weight slots of the
+    largest packed part (the 32->64 link's conv1 and downsample, 39,424 B
+    each), the stem's filter and bias (640 B), and three band planes per
+    image: at split 1 the whole 34x34x16 map (18,496 B), at split 4 its
+    10-row band (5,440 B), at split 8 the 16x16x32 map's 4-row band at 48 B
+    a pixel (3,456 B); monotone in links and tile."""
     r20 = df.resnet_block_shapes(3)
     assert df.chain_task_smem_bytes(r20, 1, stem_och=16) == \
-        640 + 74_496 + 55_488
+        640 + 2 * 39_424 + 3 * 18_496
     assert df.chain_task_smem_bytes(r20, 2, stem_och=16) == \
-        640 + 74_496 + 2 * 55_488
+        640 + 2 * 39_424 + 2 * 3 * 18_496
     assert df.chain_task_smem_bytes(r20, 3, stem_och=16) > space.SMEM_BUDGET
-    assert df.chain_task_smem_bytes(r20, 1) == 74_496 + 55_488
+    assert df.chain_task_smem_bytes(r20, 1) == 2 * 39_424 + 3 * 18_496
+    assert df.chain_task_smem_bytes(r20, 1, stem_och=16, split=4) == \
+        640 + 2 * 39_424 + 3 * 5_440
+    assert df.chain_task_smem_bytes(r20, 1, stem_och=16, split=8) == \
+        640 + 2 * 39_424 + 3 * 3_456
     for k in range(1, len(r20)):
         assert df.chain_task_smem_bytes(r20[:k + 1], 1) >= \
             df.chain_task_smem_bytes(r20[:k], 1)
@@ -363,8 +370,10 @@ def test_chain_cut_points_fuse_each_whole_model_at_smem_budget(bps):
     cuts = space.chain_cut_points(shapes, 1, stem_och=16)
     assert cuts == [list(range(3 * bps))]
     _check_greedy(shapes, cuts, 16, space.SMEM_BUDGET)
+    # at bucket 32 the rule splits an image 4 ways at tile 1 and 8 ways
+    # from tile 2, so the band planes of up to 8 images fit one thread block
     assert space.chain_space(shapes, 32, stem_och=16) == \
-        [KernelConfig(batch_tile=1), KernelConfig(batch_tile=2)]
+        [KernelConfig(batch_tile=bt) for bt in (1, 2, 4, 8)]
     cfg = R.RESNET8 if bps == 1 else R.RESNET20
     chains = L.plan_chains(L.plan_model(L.optimized_graph(cfg)), cfg)
     assert len(chains) == 1 and chains[0].stem is not None
@@ -374,7 +383,11 @@ def test_chain_cut_points_fuse_each_whole_model_at_smem_budget(bps):
 @pytest.mark.parametrize("delta", [1, 20_000, 60_000])
 def test_chain_cut_points_cut_under_a_small_budget(delta):
     shapes = df.resnet_block_shapes(3)
-    budget = df.chain_task_smem_bytes(shapes, 1, stem_och=16) - delta
+    # legality is judged at batch 1, where the rule splits an image 8 ways
+    split = space.chain_split(shapes, 1, 1, stem_och=16)
+    assert split == 8
+    budget = df.chain_task_smem_bytes(shapes, 1, stem_och=16,
+                                      split=split) - delta
     cuts = space.chain_cut_points(shapes, 1, stem_och=16, smem_budget=budget)
     assert len(cuts) > 1
     _check_greedy(shapes, cuts, 16, budget)

@@ -31,12 +31,14 @@ from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
 from repro_torch.kernels.megakernel import ops as chain_ops
 from repro_torch.kernels.megakernel.ops import ChainBlockSpec, block_chain_op
 from repro_torch.kernels.megakernel.ref import block_chain_ref
+from repro_torch.kernels.resblock_fused import ops as block_ops
 from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import resnet as R
 from repro_torch.tune.config import KernelConfig
+from repro_torch.tune import space
 from repro_torch.tune.space import SMEM_BUDGET
 
 pytestmark = pytest.mark.cuda
@@ -198,17 +200,128 @@ def test_block_chain_matches_plain_version(dev):
             df.chain_task_smem_bytes(narrow, bt)
 
 
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_resblock_fused_at_every_bucket_and_band(dev, n):
+    """Every ResNet20 block shape at buckets 1, 8 and 32, each at the band
+    height tune.space.block_band_rows picks for the card's SMs (more than
+    one thread block an image at every bucket), skip shifts > 0, = 0, < 0:
+    bitwise equal to the plain version; the kernel's packed block and
+    shared memory match the Python formulas; a prepared launch records an
+    SM of the card for every thread block, and more than one SM."""
+    rng = np.random.default_rng(n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h, cin, cout, stride in RESNET20_BLOCKS:
+        band = space.block_band_rows(h // stride, n, sms)
+        assert -(-(h // stride) // band) > 1
+        assert block_ops.packed_bytes(cin, cout, stride == 2) == \
+            df.packed_block_bytes(cin, cout, stride == 2)
+        assert block_ops.smem_bytes(h, h, cin, cout, stride, stride == 2,
+                                    band) <= SMEM_BUDGET
+        ops = [_t(rng, dev, 0, 256, (n, h, h, cin), np.uint8),
+               _t(rng, dev, -128, 128, (3, 3, cin, cout), np.int8),
+               _t(rng, dev, -500, 500, (cout,), np.int32),
+               _t(rng, dev, -128, 128, (3, 3, cout, cout), np.int8),
+               _t(rng, dev, -500, 500, (cout,), np.int32)]
+        if stride == 2:
+            ops += [_t(rng, dev, -128, 128, (1, 1, cin, cout), np.int8),
+                    _t(rng, dev, -500, 500, (cout,), np.int32)]
+        for skip_shift in (3, 0, -2):
+            kw = dict(stride=stride, shift0=11, shift1=12,
+                      skip_shift=skip_shift)
+            got = resblock_fused_op(*ops, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, resblock_ref(*ops, **kw)), \
+                (n, band, h, cin, cout, stride, skip_shift)
+        launch = block_ops.ResblockLaunch(*ops[1:], **kw)
+        assert launch.band_rows(n, h // stride) == band
+        ids = torch.full((launch.thread_blocks(n, h // stride),), -1,
+                         dtype=torch.int32, device=dev)
+        assert torch.equal(launch(ops[0], sm_ids=ids),
+                           resblock_ref(*ops, **kw))
+        assert 0 <= int(ids.min()) and int(ids.max()) < sms
+        assert ids.unique().numel() > 1
+
+
+@pytest.mark.parametrize("bps", [1, 3])
+@pytest.mark.parametrize("n,bt", [(1, 1), (8, 1), (8, 2), (32, 1), (32, 2)])
+def test_block_chain_at_every_bucket_and_split(dev, bps, n, bt):
+    """The ResNet8 and ResNet20 chains with the stem fused at buckets 1, 8
+    and 32, batch tiles 1 and 2, each at the split tune.space.chain_split
+    picks from the clusters the card runs at once (on an H100, 8 thread
+    blocks an image at buckets 1 and 8 and at 32 with tile 2, 4 at 32 with
+    tile 1): bitwise equal to the plain version, the kernel's shared
+    memory at that split equal to the planner's formula, and a prepared
+    launch at that split recording an SM for each of its thread blocks."""
+    rng = np.random.default_rng(10 * n + bt)
+    shapes = df.resnet_block_shapes(bps)
+    split = space.chain_split(shapes, n // bt, bt, stem_och=16,
+                              capacity=chain_ops.max_clusters)
+    assert split > 1
+    smem = chain_ops.smem_bytes(shapes, bt, 16, split)
+    assert smem == df.chain_task_smem_bytes(shapes, bt, stem_och=16,
+                                            split=split)
+    assert n // bt <= chain_ops.max_clusters(split, smem)
+    x, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes, n, 16)
+    got = block_chain_op(x, blocks, specs=specs, stem=stem,
+                         stem_shift=stem_shift,
+                         config=KernelConfig(batch_tile=bt))
+    torch.cuda.synchronize()
+    ref = block_chain_ref(x, blocks, specs=specs, stem=stem,
+                          stem_shift=stem_shift)
+    assert torch.equal(got, ref), (bps, n, bt, split)
+    launch = chain_ops.ChainLaunch(blocks, specs=specs, in_shape=x.shape[1:],
+                                   stem=stem, stem_shift=stem_shift,
+                                   config=KernelConfig(batch_tile=bt))
+    assert launch.tiling(n) == (bt, split)
+    ids = torch.full((launch.thread_blocks(n),), -1, dtype=torch.int32,
+                     device=dev)
+    assert torch.equal(launch(x, sm_ids=ids), ref)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 0 <= int(ids.min()) and int(ids.max()) < sms
+
+
 def test_block_chain_over_budget_is_refused(dev):
     """A chain whose thread block needs more shared memory than the H100
-    gives one is refused at launch, never run."""
-    shapes = [df.BlockShape(32, 32, 64, 64)] * 2
-    assert df.chain_task_smem_bytes(shapes, 1) > SMEM_BUDGET
+    gives one, at every split, is refused at launch, never run: two
+    buffers of a 128->128 link's packed block alone exceed it."""
+    shapes = [df.BlockShape(32, 32, 128, 128)] * 2
+    assert all(df.chain_task_smem_bytes(shapes, 1, split=s) > SMEM_BUDGET
+               for s in space.chain_splits(shapes))
     x, blocks, specs, _, _ = live_chain(np.random.default_rng(4), dev,
                                         shapes, 2)
     before = block_chain_op.launches
     with pytest.raises((RuntimeError, ValueError)):
         block_chain_op(x, blocks, specs=specs)
     assert block_chain_op.launches == before
+
+
+def test_lowered_cuda_stream_forward_launches_without_revalidating(
+        dev, monkeypatch):
+    """The lowered cuda-stream forward of ResNet8 is one prepared
+    ChainLaunch: with the wrappers' validation, link table and weight
+    packing made to raise after lowering, it still launches once per call
+    and its u8 map equals torch-int's."""
+    from repro_torch.compile.params import ensure_typed
+
+    cfg = R.RESNET8
+    qp = ensure_typed(R.quantize_params(R.fold_params(R.init_params(
+        cfg, torch.Generator().manual_seed(2))), cfg)).to(dev)
+    feats = BK.CudaStreamBackend().features(lowering.optimized_graph(cfg),
+                                            cfg, qp)
+    imgs = torch.from_numpy(np.random.default_rng(2).uniform(
+        0.0, 0.999, (8, 32, 32, 3)).astype(np.float32)).to(dev)
+    ref = lower_features(cfg, qp, "torch-int", device=dev)(imgs)
+
+    def refuse(*a, **k):
+        raise AssertionError("per-call validation on the lowered path")
+
+    for name in ("_check_chain", "_link_ints", "pack_block"):
+        monkeypatch.setattr(chain_ops, name, refuse)
+    before = block_chain_op.launches
+    got = feats(imgs)
+    torch.cuda.synchronize()
+    assert block_chain_op.launches == before + 1
+    assert torch.equal(got, ref) and bool(got.any())
 
 
 def test_cuda_stream_backend_matches_torch_int_on_gpu(dev):

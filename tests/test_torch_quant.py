@@ -210,3 +210,17 @@ def test_port_init_fold_quantize_pipeline_shapes():
     assert qp["blocks"][-1]["conv1"]["wq"].shape == (3, 3, 64, 64)
     assert qp["fc"]["wq"].shape == (64, 10) and \
         qp["fc"]["b"].dtype == torch.float32
+
+
+def test_calibrate_exp_past_torch_quantile_limit_matches_jax():
+    """2^24 + 1 samples, one past ``torch.quantile``'s input limit: the
+    percentile-clipped exponent equals the JAX package's, and the clipped
+    amax lies within one float32 ulp of ``jnp.percentile``'s."""
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(1 << 24) + 1).astype(np.float32)
+    spec, jspec = QSpec(8, True, 0), JQ.QSpec(8, True, 0)
+    want = float(jnp.percentile(jnp.abs(jnp.asarray(x)), 99.9))
+    got = Q.percentile_linear(torch.abs(_t(x)), 99.9)
+    assert abs(got - want) <= np.spacing(np.float32(want))
+    assert Q.calibrate_exp(_t(x), spec, 99.9) == \
+        JQ.calibrate_exp(jnp.asarray(x), jspec, 99.9)

@@ -1,7 +1,8 @@
 """The streaming backend ``cuda-stream`` on the CPU (the ``block_chain``
 kernel's plain version): against the JAX package's ``pallas-stream`` at a
 tiny config and its ``lax-int`` at full width, the chain-cut property over
-every partition, and serving through ``ResNetEngine``."""
+every partition, the lowered forward's prepared launches, and serving
+through ``ResNetEngine``."""
 import functools
 
 import jax.numpy as jnp
@@ -144,3 +145,65 @@ def test_engine_serves_cuda_stream_on_cpu_with_torch_int_shadow():
     assert eng.model.run_counts == {1: 0, 4: 2}
     shadow = eng.shadows["torch-int"](imgs).numpy()
     assert [r.label for r in reqs] == list(shadow.argmax(-1))
+
+
+@pytest.mark.parametrize("arch,cuts", [
+    ("resnet8", None), ("resnet8", [[0], [1], [2]]),
+    ("resnet20", [[0, 1, 2], [3], [4, 5, 6, 7, 8]])])
+def test_lowered_forward_runs_prepared_launches_matching_jax(arch, cuts,
+                                                             monkeypatch):
+    """The lowered cuda-stream forward is a fixed sequence of prepared
+    launches (``ChainLaunch`` per chain, ``ResblockLaunch`` per singleton
+    block), built once: with the wrappers' per-call validation and link
+    packing made to raise after lowering, the forward still runs, and it
+    matches torch-int and the JAX package's lax-int (and pallas-stream on
+    the tiny config) bitwise."""
+    from repro_torch.kernels.megakernel import ops as chain_ops
+    from repro_torch.kernels.resblock_fused import ops as block_ops
+
+    cfg, jcfg = _cfgs(arch)
+    d = _qparams(arch)
+    qp = params_from_numpy(d)
+    backend = CudaStreamBackend(cuts=cuts)
+    feats = backend.features(lowering.optimized_graph(cfg), cfg, qp)
+    kinds = [type(s).__name__ for s in feats.steps]
+    n_chains = 1 if cuts is None else len(cuts)
+    # a singleton run runs resblock_fused, unless the stem joins it
+    singles = 0 if cuts is None else sum(c != [0] and len(c) == 1
+                                         for c in cuts)
+    assert kinds.count("ChainLaunch") == n_chains - singles
+    assert kinds.count("ResblockLaunch") == singles
+
+    def refuse(*a, **k):
+        raise AssertionError("per-call validation on the lowered path")
+
+    for mod, name in ((chain_ops, "_check_chain"), (chain_ops, "_link_ints"),
+                      (chain_ops, "pack_block"), (block_ops, "_check_block"),
+                      (block_ops, "pack_block")):
+        monkeypatch.setattr(mod, name, refuse)
+    imgs = images(3, seed=11)
+    got = feats(torch.from_numpy(imgs))
+    monkeypatch.undo()
+    assert torch.equal(got, lower_features(cfg, qp, "torch-int",
+                                           device="cpu")(imgs))
+    jqp = jax_params(d)
+    np.testing.assert_array_equal(got.numpy(), jax_u8_map(jcfg, jqp, imgs))
+    logits = backend.lower(lowering.optimized_graph(cfg), cfg, qp)(
+        torch.from_numpy(imgs))
+    jlogits = np.asarray(jax_lower_forward(jcfg, jqp, "lax-int")(
+        jnp.asarray(imgs)))
+    np.testing.assert_allclose(logits.numpy(), jlogits, rtol=0,
+                               atol=LOGIT_ATOL)
+    np.testing.assert_array_equal(logits.numpy().argmax(-1),
+                                  jlogits.argmax(-1))
+
+
+def test_lowered_tiny_forward_runs_prepared_launches_matching_pallas_stream():
+    d = np_qparams(JTINY, seed=5)
+    jqp, qp = jax_params(d), params_from_numpy(d)
+    feats = CudaStreamBackend().features(lowering.optimized_graph(TINY),
+                                         TINY, qp)
+    assert [type(s).__name__ for s in feats.steps] == ["ChainLaunch"]
+    imgs = images(2, seed=3, img=8)
+    np.testing.assert_array_equal(feats(torch.from_numpy(imgs)).numpy(),
+                                  jax_u8_map(JTINY, jqp, imgs))

@@ -12,12 +12,16 @@ Phases, one JSON line each:
                 conv2d_int8) from ``src/repro_torch/kernels/csrc``, one
                 nvcc each, all started together; prints ptxas registers
                 and spills, and the IMMA (int8 tensor-core) and IDP (dp4a)
-                instructions in the SASS of the two block kernels: IMMA in
-                both, no IDP in resblock_fused (block_chain keeps dp4a for
-                its fused stem only).
+                instructions in the SASS of the block kernels and the two
+                conv kernels: IMMA in resblock_fused, block_chain and
+                conv2d_int8, no IDP in resblock_fused (block_chain keeps
+                dp4a for its fused stem only), IDP in conv_stem.
   3. kernels  — each conv kernel against its plain PyTorch version on the
-                card, bitwise (``torch.equal``): conv_stem at N=256 and
-                N=32 for shifts > 0, = 0, < 0; resblock_fused at every
+                card, bitwise (``torch.equal``): conv_stem at N = 1, 8, 32
+                and 256 for shifts > 0, = 0, < 0, every launch on the
+                banded path (``conv_stem_op.launches_by_path``), timed at
+                32 and 256 beside an empty kernel of the same grid launched
+                the same way (the launch floor); resblock_fused at every
                 ResNet20 block shape for skip shifts > 0, = 0, < 0 at
                 buckets 1, 8, 32 and 256, each at the row band
                 ``tune.space.block_band_rows`` picks for the card's SMs;
@@ -61,7 +65,10 @@ Phases, one JSON line each:
                 int32 output and uint8 input, then on ResNet20's 20 conv
                 layers at batch 32 with s8 input (a fifth of the
                 requantized outputs strictly inside their clip range);
-                times there and at the kernels_micro shape.
+                every ResNet20 layer and the kernels_micro shape on the
+                tensor-core path (``conv2d_int8_op.launches_by_path``);
+                per layer its time, bound, TOP/s and path, and at the
+                kernels_micro shape.
   6. LM kernels — matmul_int8 bitwise against its plain version at every
                 projection shape of gemma-2b and falcon-mamba-7b at M =
                 2048 (bucket 4, S = 512) and 512, B as (K, N) and packed
@@ -128,10 +135,11 @@ from repro_torch.core.quant import (dequantize,  # noqa: E402
                                    shift_align)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
-from repro_torch.kernels.conv_stem.ops import conv_stem_op  # noqa: E402
+from repro_torch.kernels.conv_stem.ops import (  # noqa: E402
+    BAND_THREADS, conv_stem_op, empty_launch, stem_band_rows, stem_path)
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
 from repro_torch.kernels.conv2d_int8.ops import (  # noqa: E402
-    conv2d_int8_op, out_hw)
+    conv2d_int8_op, conv_path, conv_tiles, out_hw)
 from repro_torch.kernels.conv2d_int8.ref import \
     conv2d_int8_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -281,12 +289,14 @@ def build_phase():
     ptxas = {k: [ln.strip() for ln in _build.build_log(k).splitlines()
                  if "registers" in ln or "spill" in ln]
              for k in _build.KERNELS}
-    sass = {k: sass_counts(k) for k in ("resblock_fused", "block_chain")}
-    for k, c in sass.items():
-        check(c["IMMA"] > 0, f"{k}: no IMMA (int8 tensor-core) instruction "
-                             f"in its SASS")
+    sass = {k: sass_counts(k) for k in ("resblock_fused", "block_chain",
+                                        "conv_stem", "conv2d_int8")}
+    for k in ("resblock_fused", "block_chain", "conv2d_int8"):
+        check(sass[k]["IMMA"] > 0, f"{k}: no IMMA (int8 tensor-core) "
+                                   f"instruction in its SASS")
     check(sass["resblock_fused"]["IDP"] == 0,
           "resblock_fused: dp4a (IDP) left in its SASS")
+    check(sass["conv_stem"]["IDP"] > 0, "conv_stem: no dp4a (IDP) in its SASS")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_kernel=secs, ptxas=ptxas, sass=sass)
     return sass
@@ -369,33 +379,51 @@ def kernels_phase(rng, dev):
     kernel records (ResNet20, bucket 32) with each kernel's largest
     deviation from its plain version."""
     err = dict(conv_stem=0, resblock_fused=0)
-    for n in (256, BUCKET):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stem = {}
+    for n in (1, 8, BUCKET, 256):
         ops = stem_case(rng, dev, n)
         small = stem_case(rng, dev, n, small=True)
+        check(stem_path(ops[0].shape, 16, sms) == "banded",
+              f"conv_stem N={n}: the RGB stem is not on the banded path")
         for shift in (9, 0, -1):
             case = ops if shift > 0 else small
+            before = dict(conv_stem_op.launches_by_path)
             got = conv_stem_op(*case, shift=shift)
             torch.cuda.synchronize()
+            check(conv_stem_op.launches_by_path["banded"] ==
+                  before["banded"] + 1, f"conv_stem N={n}: launch not on "
+                                        f"the banded path")
             ref = conv_stem_ref(*case, shift=shift)
             err["conv_stem"] = max(err["conv_stem"], max_abs_err(got, ref))
             check(torch.equal(got, ref),
                   f"conv_stem N={n} shift={shift} differs from plain")
             check_unsaturated(got, f"conv_stem N={n} shift={shift}")
+        if n not in (BUCKET, 256):
+            continue
         out = conv_stem_op(*ops, shift=9)
+        band = stem_band_rows(32, n, sms)
+        blocks = n * -(-32 // band)
         t = dict(ms=device_ms(lambda: conv_stem_op(*ops, shift=9), REPS),
                  call_ms=call_ms(lambda: conv_stem_op(*ops, shift=9), REPS),
                  plain_ms=device_ms(lambda: conv_stem_ref(*ops, shift=9),
-                                    REPS))
+                                    REPS),
+                 # an empty kernel of the same grid, launched the same way
+                 floor_ms=device_ms(lambda: empty_launch(
+                     blocks, BAND_THREADS, dev), REPS),
+                 band_rows=band, thread_blocks=blocks)
         t["bound_ms"], t["bound_by"] = bound(nbytes(*ops, out),
                                              2 * out.numel() * 27)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["ms_above_floor"] = t["ms"] - t["floor_ms"]
         emit("kernel", name="conv_stem", n=n, bitwise=True, **t)
-        if n == BUCKET:
-            stem = dict(t, max_abs_err=err["conv_stem"])
+        stem[n] = t
+    stem = dict(stem[BUCKET], batch256=stem[256],
+                max_abs_err=err["conv_stem"])
 
     tot = dict(ms=0.0, call_ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0,
                ops=0)
     grid = {n: [] for n in BUCKETS}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (h, cin, cout, stride), count in RESNET20_BLOCKS:
         oh = h // stride
         for n in BUCKETS + (256,):
@@ -717,9 +745,19 @@ def conv_inside(out, relu):
     return float(((o > lo) & (o < hi)).float().mean())
 
 
-def check_conv(what, ops, **kw):
+def check_conv(what, ops, want_path=None, **kw):
+    """conv2d_int8 bitwise against its plain version, one launch counted on
+    the path its shape picks (``want_path``, where given)."""
+    path = conv_path(ops[0].shape, ops[1].shape, kw.get("stride", 1),
+                     torch.cuda.get_device_properties(ops[0].device)
+                     .multi_processor_count)
+    check(want_path in (None, path),
+          f"conv2d_int8 {what}: path {path}, expected {want_path}")
+    before = dict(conv2d_int8_op.launches_by_path)
     got = conv2d_int8_op(*ops, **kw)
     torch.cuda.synchronize()
+    check(conv2d_int8_op.launches_by_path[path] == before[path] + 1,
+          f"conv2d_int8 {what}: launch not counted on the {path} path")
     ref = conv2d_int8_plain(*ops, **kw)
     check(got.dtype == ref.dtype and torch.equal(got, ref),
           f"conv2d_int8 {what} {kw} differs from plain")
@@ -734,6 +772,8 @@ def conv2d_phase(rng, dev):
     inside their clip range; timings there and at the kernels_micro shape.
     Returns the kernel record summed over ResNet20's 20 conv layers."""
     err, cases = 0, 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_path = dict(conv2d_int8_op.launches_by_path)
     for n, h, c, o, fh, stride, relu, shift, xdt, skip in CONV_SWEEP:
         ops = conv_operands(rng, dev, n, h, c, o, fh, stride, xdt, skip)
         err = max(err, check_conv(f"sweep N={n} {h}x{h}x{c}->{o} f{fh} "
@@ -741,6 +781,7 @@ def conv2d_phase(rng, dev):
                                   relu=relu, out_shift=shift)[1])
         cases += 1
     tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    layers = []
     for h, cin, cout, fh, stride, count in RESNET20_CONVS:
         what = f"{h}x{h}x{cin}->{cout} f{fh} s{stride}"
         ops = conv_operands(rng, dev, BUCKET, h, cin, cout, fh, stride,
@@ -756,7 +797,7 @@ def conv2d_phase(rng, dev):
         for kw in kws:
             for with_skip in (True, False):
                 case = ops if with_skip else ops[:3]
-                got, e = check_conv(what, case, **kw)
+                got, e = check_conv(what, case, want_path="mma", **kw)
                 err = max(err, e)
                 cases += 1
                 if (kw.get("out_shift") or 0) > 0:
@@ -775,10 +816,19 @@ def conv2d_phase(rng, dev):
         oh = out_hw(h, h, stride)[0]
         macs = BUCKET * oh * oh * cout * fh * fh * cin
         t["bound_ms"], t["bound_by"] = bound(nbytes(*ops[:3], out), 2 * macs)
-        emit("kernel", name="conv2d_int8", n=BUCKET, h=h, cin=cin, cout=cout,
-             fh=fh, stride=stride, relu=True, out_shift=relu_shift,
-             layers_per_forward=count, bitwise=True,
-             inside_clip_share=conv_inside(out, True), **t)
+        t["tops"] = 2 * macs / (t["ms"] * 1e-3) / 1e12
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        band, ng = conv_tiles(oh, oh, BUCKET, cin, cout, fh, fh, sms)
+        layer = dict(h=h, cin=cin, cout=cout, fh=fh, stride=stride,
+                     layers_per_forward=count,
+                     path=conv_path(ops[0].shape, ops[1].shape, stride, sms),
+                     band_rows=band, channels_a_block=ng,
+                     thread_blocks=BUCKET * -(-oh // band) * -(-cout // ng),
+                     **t)
+        layers.append(layer)
+        emit("kernel", name="conv2d_int8", n=BUCKET, relu=True,
+             out_shift=relu_shift, bitwise=True,
+             inside_clip_share=conv_inside(out, True), **layer)
         for k in ("ms", "call_ms", "plain_ms"):
             tot[k] += count * t[k]
         tot["bytes"] += count * nbytes(*ops[:3], out)
@@ -786,7 +836,7 @@ def conv2d_phase(rng, dev):
     # benchmarks/run.py's kernels_micro shape: int32 output, zero bias
     x, w, _, _ = conv_operands(rng, dev, 2, 16, 16, 16, 3, 1)
     b = torch.zeros(16, dtype=torch.int32, device=dev)
-    err = max(err, check_conv("kernels_micro", (x, w, b))[1])
+    err = max(err, check_conv("kernels_micro", (x, w, b), want_path="mma")[1])
     cases += 1
     out = conv2d_int8_op(x, w, b)
     t = dict(ms=device_ms(lambda: conv2d_int8_op(x, w, b), REPS),
@@ -800,7 +850,13 @@ def conv2d_phase(rng, dev):
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
     rec = dict(ms=tot["ms"], call_ms=tot["call_ms"],
                plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=err, kernels_micro_ms=t["ms"])
+               tops=tot["ops"] / (tot["ms"] * 1e-3) / 1e12,
+               bound_share=b_ms / tot["ms"], max_abs_err=err,
+               kernels_micro_ms=t["ms"], kernels_micro_bound_ms=t["bound_ms"],
+               layers=layers,
+               checked_launches_by_path={
+                   p: conv2d_int8_op.launches_by_path[p] - by_path[p]
+                   for p in by_path})
     emit("kernel", name="conv2d_int8", n=BUCKET,
          per="ResNet20's 20 conv layers, one launch each", **rec)
     return rec
@@ -848,6 +904,8 @@ def serve_phase(cfg, seed, dev, backend):
 
     conv_stem_op.launches = resblock_fused_op.launches = 0
     block_chain_op.launches = conv2d_int8_op.launches = 0
+    for op in (conv_stem_op, conv2d_int8_op):
+        op.launches_by_path = dict.fromkeys(op.launches_by_path, 0)
     t0 = time.perf_counter()
     ticks = eng.run()
     torch.cuda.synchronize()
@@ -856,6 +914,8 @@ def serve_phase(cfg, seed, dev, backend):
                     resblock_fused=resblock_fused_op.launches,
                     block_chain=block_chain_op.launches,
                     conv2d_int8=conv2d_int8_op.launches)
+    by_path = dict(conv_stem=dict(conv_stem_op.launches_by_path),
+                   conv2d_int8=dict(conv2d_int8_op.launches_by_path))
 
     runs = sum(eng.model.run_counts.values())
     per_run, chains = launch_plan(cfg, backend)
@@ -865,6 +925,9 @@ def serve_phase(cfg, seed, dev, backend):
     check(launches == {k: runs * v for k, v in per_run.items()},
           f"{backend}: launch counts {launches} for {runs} bucket runs of "
           f"{per_run} each")
+    check(by_path["conv_stem"]["banded"] == launches["conv_stem"],
+          f"{backend}: stem launches {by_path['conv_stem']} not all on the "
+          f"banded path")
 
     # the served model's u8 maps on the padded batches of its own bucket
     # runs (32, then 5 padded to 8), bitwise against the torch-int shadow's
@@ -899,7 +962,8 @@ def serve_phase(cfg, seed, dev, backend):
                    bucket32_forward_device_ms=graphed,
                    device_idle_share=1.0 - graphed / eager,
                    images_per_s_bucket32=BUCKET / (eager * 1e-3),
-                   images_per_s_bucket32_graphed=BUCKET / (graphed * 1e-3))
+                   images_per_s_bucket32_graphed=BUCKET / (graphed * 1e-3),
+                   launches_by_path=by_path)
     emit("serve", model=cfg.name, backend=backend, chains=chains,
          requests=REQUESTS, ticks=ticks, bucket_runs=bucket_runs,
          launches=launches,
@@ -1611,7 +1675,10 @@ def main(argv=None):
     rows = [
         dict(name="conv_stem", route="cuda", source=src + "conv_stem.cu",
              replaces="src/repro/kernels/conv_stem/conv_stem.py:49",
-             launches=launches["conv_stem"], bitwise=True, library_ms=None,
+             launches=launches["conv_stem"],
+             launches_by_path=serve20["launches_by_path"]["conv_stem"],
+             bitwise=True, library_ms=None, sass=sass["conv_stem"],
+             ptxas=ptxas_by_entry("conv_stem"),
              per="one launch at batch 32", **stem),
         dict(name="resblock_fused", route="cuda",
              source=src + "resblock_fused.cu",
@@ -1656,7 +1723,13 @@ def main(argv=None):
              **scan),
         dict(name="conv2d_int8", route="cuda", source=src + "conv2d_int8.cu",
              replaces="src/repro/kernels/conv2d_int8/conv2d_int8.py:57",
-             launches=conv_launches, bitwise=True, library_ms=None,
+             launches=conv_launches,
+             launches_by_path={p: sum(d["launches_by_path"]["conv2d_int8"][p]
+                                      for d in (serve20, serve8, serve20s,
+                                                serve8s))
+                               for p in conv2d_int8_op.launches_by_path},
+             bitwise=True, library_ms=None, sass=sass["conv2d_int8"],
+             ptxas=ptxas_by_entry("conv2d_int8"),
              library_reason="none: F.conv2d refuses int8 on CUDA, and a "
                             "float conv has no integer epilogue",
              per="off the serving path (0 launches on it); timed on "

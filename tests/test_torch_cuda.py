@@ -17,9 +17,13 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import dataflow as df
 from repro_torch.core.quant import shift_align
 from repro_torch.kernels.common import conv_i32, requant_u8
-from repro_torch.kernels.conv_stem.ops import conv_stem_op
+from repro_torch.kernels.common import sm_count
+from repro_torch.kernels.conv_stem import ops as stem_ops
+from repro_torch.kernels.conv_stem.ops import conv_stem_op, stem_path
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref
-from repro_torch.kernels.conv2d_int8.ops import conv2d_int8_op, out_hw
+from repro_torch.kernels.conv2d_int8 import ops as conv_ops
+from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8_op, conv_path,
+                                                 out_hw)
 from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_plain
 from repro_torch.kernels.flash_attention.ops import (attn_tiles,
                                                      flash_attention_op)
@@ -89,6 +93,55 @@ def test_cuda_kernels_match_plain_versions(dev):
             torch.cuda.synchronize()
             assert torch.equal(got, resblock_ref(*ops, **kw)), \
                 (h, cin, cout, stride, skip_shift)
+
+
+# (N, H, W, Cin, Cout, path): the RGB stem at the engine's buckets and at
+# 256, sizes that are not multiples of the band, and the general path
+STEM_CASES = [(1, 32, 32, 3, 16, "banded"), (8, 32, 32, 3, 16, "banded"),
+              (32, 32, 32, 3, 16, "banded"), (256, 32, 32, 3, 16, "banded"),
+              (32, 30, 30, 3, 16, "banded"), (3, 17, 13, 3, 32, "banded"),
+              (5, 9, 7, 1, 16, "banded"), (2, 11, 6, 4, 48, "banded"),
+              (3, 16, 16, 3, 8, "general"), (2, 9, 9, 3, 24, "general"),
+              (2, 8, 8, 8, 16, "general")]
+
+
+@pytest.mark.parametrize("N,H,W,cin,cout,path", STEM_CASES)
+def test_conv_stem_paths_at_every_bucket(dev, N, H, W, cin, cout, path):
+    """Bitwise with the plain version for shifts > 0, = 0 and < 0 (a left
+    shift), each launch counted on the path its shape picks."""
+    rng = np.random.default_rng(N * H + W + cin + cout)
+    big = (_t(rng, dev, 0, 256, (N, H, W, cin), np.uint8),
+           _t(rng, dev, -128, 128, (3, 3, cin, cout), np.int8),
+           _t(rng, dev, -500, 500, (cout,), np.int32))
+    # small, skewed positive: accumulators inside [0, 255] at shifts 0, -1
+    small = (_t(rng, dev, 0, 4, (N, H, W, cin), np.uint8),
+             _t(rng, dev, -1, 4, (3, 3, cin, cout), np.int8),
+             _t(rng, dev, 0, 20, (cout,), np.int32))
+    assert stem_path((N, H, W, cin), cout, sm_count(dev.index)) == path
+    for shift, ops in ((9, big), (0, small), (-1, small), (-3, big)):
+        before = dict(conv_stem_op.launches_by_path)
+        got = conv_stem_op(*ops, shift=shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, conv_stem_ref(*ops, shift=shift)), shift
+        assert conv_stem_op.launches_by_path[path] == before[path] + 1
+        if shift > 0:
+            assert 0.2 < float(((got > 0) & (got < 255)).float().mean())
+
+
+def test_kernel_smem_formulas_match_python(dev):
+    """The banded stem's and the mma conv's shared memory as the CUDA
+    sources compute it equals the wrappers' Python formulas."""
+    lib = stem_ops._lib()
+    for band, w, cin, cout in [(8, 32, 3, 16), (32, 32, 3, 16), (1, 7, 1, 48),
+                               (5, 13, 4, 32)]:
+        assert lib.conv_stem_band_smem_bytes(band, w, cin, cout) == \
+            stem_ops.band_smem_bytes(band, w, cin, cout)
+    lib = conv_ops._lib()
+    for args in [(32, 16, 16, 3, 3, 1, 8), (32, 16, 32, 3, 3, 2, 4),
+                 (8, 64, 64, 3, 3, 1, 2), (32, 16, 32, 1, 1, 2, 8),
+                 (16, 48, 16, 3, 3, 3, 3)]:
+        assert lib.conv2d_int8_mma_smem_bytes(*args) == \
+            conv_ops.mma_smem_bytes(*args)
 
 
 def test_wrappers_refuse_operands_split_across_devices(dev):
@@ -591,10 +644,15 @@ def test_conv2d_int8_matches_plain_version(dev, N, H, W, C, O, fh, fw,
     s = _t(rng, dev, -2 ** 16, 2 ** 16, (N, *out_hw(H, W, stride), O),
            np.int32) if skip else None
     kw = dict(stride=stride, relu=relu, out_shift=shift)
+    path = conv_path(x.shape, w.shape, stride, sm_count(dev.index))
+    if N == 32:   # ResNet20's layers take the tensor-core path
+        assert path == "mma"
     before = conv2d_int8_op.launches
+    by_path = dict(conv2d_int8_op.launches_by_path)
     got = conv2d_int8_op(x, w, b, s, **kw)
     torch.cuda.synchronize()
     assert conv2d_int8_op.launches == before + 1
+    assert conv2d_int8_op.launches_by_path[path] == by_path[path] + 1
     assert torch.equal(got, conv2d_int8_plain(x, w, b, s, **kw))
 
 
@@ -611,6 +669,29 @@ def test_conv2d_int8_wraps_as_int32(dev):
         torch.cuda.synchronize()
         ref = conv2d_int8_plain(x, w, b, s, out_shift=shift)
         assert torch.equal(got, ref)
+    assert bool((conv2d_int8_op(x, w, b, s) < 0).any())
+
+
+@pytest.mark.parametrize("xdt", [np.int8, np.uint8])
+def test_conv2d_int8_wraps_as_int32_on_the_mma_path(dev, xdt):
+    """The same wrap at a tensor-core shape (C = 16, O = 16): bias + skip
+    start the accumulator fragments, and the mma sums wrap (no
+    .satfinite)."""
+    rng = np.random.default_rng(11)
+    lo, hi = (0, 256) if xdt == np.uint8 else (-128, 128)
+    x = _t(rng, dev, lo, hi, (2, 8, 8, 16), xdt)
+    w = _t(rng, dev, -128, 128, (3, 3, 16, 16), np.int8)
+    b = torch.full((16,), 2 ** 20, dtype=torch.int32, device=dev)
+    s = torch.full((2, 8, 8, 16), 2 ** 31 - 2 ** 16, dtype=torch.int32,
+                   device=dev)
+    assert conv_path(x.shape, w.shape, 1, sm_count(dev.index)) == "mma"
+    before = conv2d_int8_op.launches_by_path["mma"]
+    for shift in (None, 3):
+        got = conv2d_int8_op(x, w, b, s, out_shift=shift)
+        torch.cuda.synchronize()
+        ref = conv2d_int8_plain(x, w, b, s, out_shift=shift)
+        assert torch.equal(got, ref)
+    assert conv2d_int8_op.launches_by_path["mma"] == before + 2
     assert bool((conv2d_int8_op(x, w, b, s) < 0).any())
 
 

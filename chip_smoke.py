@@ -50,14 +50,35 @@ Phases, one JSON line each:
                 ``init_params(seed) -> fold_params -> quantize_params``,
                 requests served through ``ResNetEngine`` with buckets
                 (1, 8, 32) on the ``cuda`` backend and then on the
-                ``cuda-stream`` backend; the u8 maps of the served model's
-                padded bucket batches bitwise equal to the ``torch-int``
-                backend's, logits within 1e-5; launch counters match the
-                backend's launch plan; images per second at bucket 32,
-                eager and as a CUDA-graph replay (the device time alone);
+                ``cuda-stream`` backend, each bucket a CUDA graph
+                (``CompiledModel``): one capture and one executable for
+                each bucket used, in the served model and its
+                ``torch-int`` shadow; the served run traced by
+                ``torch.profiler`` (the buckets it uses built first, as a
+                server does at start), whose kernel events (CUPTI reports
+                the kernels of each graph replay) match the backend's
+                launch plan once a bucket run, as do the wrappers'
+                counters (a replay adds what its capture counted); the
+                u8 maps of
+                the padded bucket batches bitwise equal to the
+                ``torch-int`` backend's, the served logits bitwise the
+                eager lowered forward's on the same batches and within
+                1e-5 of ``torch-int`` with equal argmax; a second call of
+                a bucket leaves the first result unchanged;
+                ``run_placed(x, cuda:0)`` bitwise the default path.  At
+                bucket 32: the served call (copy in, replay, clone), the
+                bucket's graph replayed back to back (device time), the
+                eager lowered forward, the served call's idle share;
                 then the eager forward of both backends timed in turns.
-  5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 forwards of
-                each backend.
+  5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 served
+                calls (graph replays) of each backend.
+  5a. task profile — ``obs.profile.profile_tasks`` for ResNet20 at batch
+                32 on both backends with an obs session: a stem row and
+                nine block rows on ``cuda``, one chain row on
+                ``cuda-stream``; the block rows' sum within 25% of the
+                kernels phase's resblock_fused time and the chain row
+                within 25% of block_chain's; ``vs_roofline`` per task at
+                3,350 GB/s; the session's metrics text, parsed back.
   5b. conv2d — conv2d_int8, the general int8 conv (off the serving path:
                 its launches there are counted and are 0), bitwise against
                 its plain version on the sweep of tests/test_kernels.py,
@@ -91,25 +112,34 @@ Phases, one JSON line each:
   7. LM serve — gemma-2b (18 layers) and falcon-mamba-7b (64 layers) at
                 published width, weights from ``init_lm_params(seed)`` on
                 the card: 6 token requests through ``ResNetEngine`` on
-                ``cuda`` with buckets (1, 4) and a ``torch-int`` shadow;
-                launches against the plan, every matmul on the wgmma path;
+                ``cuda`` with buckets (1, 4) and a ``torch-int`` shadow,
+                each bucket a CUDA graph (one capture a bucket used);
+                launches (profiler and counters) against the plan, every
+                matmul on the wgmma path;
                 every task replayed on
                 ``cuda`` and ``torch-int`` on the same inputs (matmul
                 accumulators and outputs bitwise, attention and scan within
-                their tolerances and one int8 step); logits within the
+                their tolerances and one int8 step); the served logits
+                bitwise the eager lowered forward's, and within the
                 bound carried from the final hidden states
-                (``lm_params.logit_tolerance``); the share of hidden int8
-                values that differ, argmax agreement, and how far one int8
-                step travels (``one_step_flip_*``); tokens/s and forward ms,
-                eager and device, idle share; a profiler pass each.
+                (``lm_params.logit_tolerance``) of ``torch-int``; the share
+                of hidden int8 values that differ, argmax agreement, and
+                how far one int8 step travels (``one_step_flip_*``); the
+                replay and placement checks of phase 4; tokens/s and ms
+                of the served call, the graph and the eager forward, idle
+                shares; a profiler pass over one served call each.
   8. the ``{"kernels": [...], "serve": {...}}`` line, then
      ``{"ok": true, "device": ...}``.
+
+Every phase's line carries ``card``: the card's name and power limit as
+nvidia-smi reports them.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +157,7 @@ from repro_torch.compile import (get_backend, get_task_impl,  # noqa: E402
                                  lower_forward, plan_lm)
 from repro_torch.compile import lowering  # noqa: E402
 from repro_torch.compile.backends import softplus  # noqa: E402
+from repro_torch.compile.compiler import GraphExecutable  # noqa: E402
 from repro_torch.compile.lm_params import logit_tolerance  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dataflow as df  # noqa: E402
@@ -135,6 +166,10 @@ from repro_torch.core.quant import (dequantize,  # noqa: E402
                                    shift_align)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
+# device time of one call: ``reps`` calls captured into one CUDA graph,
+# the median of five replays over ``reps`` (host launch overhead excluded)
+from repro_torch.kernels.common import \
+    graph_ms as device_ms  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import (  # noqa: E402
     BAND_THREADS, conv_stem_op, empty_launch, stem_band_rows, stem_path)
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
@@ -167,6 +202,10 @@ from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
+from repro_torch.obs import runtime as obs_runtime  # noqa: E402
+from repro_torch.obs.metrics import parse_text  # noqa: E402
+from repro_torch.obs.profile import REFERENCE_HBM_GBPS  # noqa: E402
+from repro_torch.obs.profile import profile_tasks  # noqa: E402
 from repro_torch.serve import ImageRequest, ResNetEngine  # noqa: E402
 from repro_torch.tune import space  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
@@ -193,8 +232,13 @@ NARROW_CHAINS = [[(8, 8, 1)], [(8, 8, 1), (8, 8, 1)],
 SKIP_CYCLES = [(3, 0, -2), (0, -2, 3), (-2, 3, 0)]
 
 
+# the card's name and power limit as nvidia-smi reports them, set by the
+# device phase and printed in every phase's line beside its numbers
+CARD = None
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "card": CARD, **kw}), flush=True)
 
 
 def check(cond, what):
@@ -219,34 +263,6 @@ def call_ms(fn, reps):
         events.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
-
-
-def device_ms(fn, reps):
-    """Device time of one call: ``reps`` calls captured into one CUDA graph,
-    the graph replayed five times, the median replay over ``reps``.  Host
-    launch overhead is excluded."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / reps)
-    return float(np.median(times))
 
 
 def bound(bytes_moved, ops, peak=INT8_OPS_PER_S):
@@ -276,6 +292,8 @@ def device_phase():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -888,6 +906,137 @@ def launch_plan(cfg, backend):
         [c.describe() for c in chains]
 
 
+def replay_ms(exe, reps):
+    """Device time of one replay of a bucket's own CUDA graph: CUDA events
+    around ``reps`` back-to-back replays, the median of five such runs.
+    The graph runs longer than its launch takes, so the device stays
+    busy between replays."""
+    exe.graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            exe.graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return float(np.median(times))
+
+
+# the port's kernel entry points by the name the profiler gives their
+# launches: (the wrapper that counts them, the path it counts them on)
+KERNEL_ENTRIES = {
+    "conv_stem_banded": ("conv_stem", "banded"),
+    "conv_stem_general": ("conv_stem", "general"),
+    "resblock_fused_kernel": ("resblock_fused", None),
+    "block_chain_kernel": ("block_chain", None),
+    "matmul_int8_wgmma": ("matmul_int8", "wgmma"),
+    "matmul_int8_mma_sync": ("matmul_int8", "mma_sync"),
+    "flash_attention_kernel": ("flash_attention", None),
+    "selective_scan_kernel": ("selective_scan", None),
+    "conv2d_int8_mma": ("conv2d_int8", "mma"),
+    "conv2d_int8_general": ("conv2d_int8", "general"),
+}
+
+
+def traced_launches(fn):
+    """Run ``fn()`` under ``torch.profiler`` and count the port's kernels
+    the card ran, by entry point: CUPTI reports every kernel a CUDA graph
+    replay runs, so this reads the served path's launches directly (the
+    wrappers' counters only add what a capture counted at each replay).
+    Returns ``(fn(), {kernel: launches}, {kernel: {path: launches}})``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ran = {k: 0 for k, _ in KERNEL_ENTRIES.values()}
+    by_path = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for entry, (kernel, path) in KERNEL_ENTRIES.items():
+            if re.search(rf"\b{entry}\s*[<(]", e.key):
+                ran[kernel] += e.count
+                if path is not None:
+                    d = by_path.setdefault(kernel, {})
+                    d[path] = d.get(path, 0) + e.count
+    return out, ran, by_path
+
+
+def check_traced(ran, launches, per_run, runs, what):
+    """The kernels the card ran in a served run (``traced_launches``): the
+    plan once for every bucket run and no other kernel of the port, and
+    the wrappers' counters agree."""
+    want = {k: 0 for k in ran}
+    want.update({k: runs * v for k, v in per_run.items()})
+    check(ran == want,
+          f"{what}: the profiler saw {ran} kernel launches, want {want} "
+          f"({runs} bucket runs of {per_run})")
+    check(all(ran[k] == n for k, n in launches.items()),
+          f"{what}: the counters say {launches}, the profiler {ran}")
+
+
+def build_served_buckets(eng, requests):
+    """Build the buckets a run of ``requests`` requests will use, in the
+    served model and its shadows, as a server does at start: the served
+    run then only replays graphs (a capture under the profiler costs
+    minutes on the 64-layer LM).  Returns the buckets."""
+    used = sorted({eng.model.bucket_for(min(eng.batch, requests - i))
+                   for i in range(0, requests, eng.batch)})
+    for m in (eng.model, *eng.shadows.values()):
+        for b in used:
+            m.executable(b)
+    torch.cuda.synchronize()
+    return used
+
+
+def check_graphs(m, buckets_used, what):
+    """One capture and one executable a bucket used, none of the others,
+    and every executable a CUDA graph."""
+    check(m.trace_counts == {b: 1 for b in buckets_used},
+          f"{what}: trace_counts {m.trace_counts}, want one capture for "
+          f"each of the buckets {sorted(buckets_used)}")
+    check(m.compile_count == len(buckets_used) and
+          sorted(m.stats()["compiled"]) == sorted(buckets_used),
+          f"{what}: compile_count {m.compile_count} for buckets "
+          f"{sorted(buckets_used)}")
+    check(all(isinstance(m.executable(b), GraphExecutable)
+              for b in buckets_used), f"{what}: a bucket is not a graph")
+
+
+def check_replays(m, x1, x2, what):
+    """Two calls of one bucket with different inputs: the first result is
+    left as it was; the placed path on the same card gives the default
+    path's result bitwise."""
+    a = m(x1)
+    kept = a.clone()
+    b = m(x2)
+    torch.cuda.synchronize()
+    check(torch.equal(a, kept) and not torch.equal(a, b),
+          f"{what}: a second replay changed the first call's result")
+    placed = m.run_placed(x1, torch.device("cuda", 0))
+    check(torch.equal(placed, kept),
+          f"{what}: run_placed on cuda:0 differs from the default path")
+
+
+def served_times(m, x, reps):
+    """The served call (copy in, replay, clone) against the bucket's graph
+    and the eager lowered forward, in ms, and the served call's idle
+    share."""
+    exe = m.executable(x.shape[0])
+    served = call_ms(lambda: m(x), reps)
+    graph = replay_ms(exe, reps)
+    eager = call_ms(lambda: m._forward(x), reps)
+    return dict(served_ms=served, graph_ms=graph, eager_ms=eager,
+                served_idle_share=1.0 - graph / served,
+                eager_idle_share=1.0 - graph / eager)
+
+
 def serve_phase(cfg, seed, dev, backend):
     """Serve ``REQUESTS`` images through the engine on ``backend``; returns
     the engine and the launch counts of that run."""
@@ -901,14 +1050,14 @@ def serve_phase(cfg, seed, dev, backend):
     reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
     for r in reqs:
         eng.submit(r)
+    built = build_served_buckets(eng, REQUESTS)
 
     conv_stem_op.launches = resblock_fused_op.launches = 0
     block_chain_op.launches = conv2d_int8_op.launches = 0
     for op in (conv_stem_op, conv2d_int8_op):
         op.launches_by_path = dict.fromkeys(op.launches_by_path, 0)
     t0 = time.perf_counter()
-    ticks = eng.run()
-    torch.cuda.synchronize()
+    ticks, ran, ran_by_path = traced_launches(eng.run)
     wall = time.perf_counter() - t0
     launches = dict(conv_stem=conv_stem_op.launches,
                     resblock_fused=resblock_fused_op.launches,
@@ -928,24 +1077,38 @@ def serve_phase(cfg, seed, dev, backend):
     check(by_path["conv_stem"]["banded"] == launches["conv_stem"],
           f"{backend}: stem launches {by_path['conv_stem']} not all on the "
           f"banded path")
+    used = [b for b, k in eng.model.run_counts.items() if k]
+    check(used == built, f"buckets {used} used, {built} built")
+    check_traced(ran, launches, per_run, runs, f"{cfg.name} {backend}")
+    check(ran_by_path.get("conv_stem", {}).get("general", 0) == 0,
+          f"{backend}: the profiler saw stem launches {ran_by_path} off the "
+          f"banded path")
+    m, shadow = eng.model, eng.shadows["torch-int"]
+    check_graphs(m, used, f"{cfg.name} {backend}")
+    check_graphs(shadow, used, f"{cfg.name} torch-int shadow")
 
     # the served model's u8 maps on the padded batches of its own bucket
-    # runs (32, then 5 padded to 8), bitwise against the torch-int shadow's
-    m, shadow = eng.model, eng.shadows["torch-int"]
+    # runs (32, then 5 padded to 8), bitwise against the torch-int shadow's;
+    # the served logits (graph replays) bitwise the eager lowered forward's
+    # on the same batches
     feats_fn = m.backend.features(m.graph, cfg, m.params)
     ref_fn = shadow.backend.features(shadow.graph, cfg, shadow.params)
     x = torch.as_tensor(imgs, device=dev)
+    logits = torch.from_numpy(np.stack([r.logits for r in reqs]))
     feats = []
     for i in range(0, REQUESTS, BUCKET):
         batch = m.pad(x[i:i + BUCKET])
+        n = min(BUCKET, REQUESTS - i)
         got, ref = feats_fn(batch), ref_fn(batch)
         check(torch.equal(got, ref),
               f"u8 feature map of the bucket-{batch.shape[0]} run differs "
               f"from torch-int")
-        feats.append(got[:min(BUCKET, REQUESTS - i)])
+        feats.append(got[:n])
+        check(torch.equal(logits[i:i + n], m._forward(batch)[:n].cpu()),
+              f"served logits of the bucket-{batch.shape[0]} run differ "
+              f"from the eager lowered forward")
     feats = torch.cat(feats)
     check(bool(feats.any()), "u8 feature map is all zero")
-    logits = torch.from_numpy(np.stack([r.logits for r in reqs]))
     ref_logits = lower_forward(cfg, qp, "torch-int")(imgs).cpu()
     dev_max = float((logits - ref_logits).abs().max())
     check(torch.isfinite(logits).all() and dev_max <= LOGIT_ATOL,
@@ -955,19 +1118,26 @@ def serve_phase(cfg, seed, dev, backend):
     check(max(eng.ab_stats["torch-int"]) <= LOGIT_ATOL, "A/B shadow")
 
     bucket_runs = dict(eng.model.run_counts)
+    trace_counts = dict(m.trace_counts)
     x = x[:BUCKET]
-    eager = call_ms(lambda: eng.model(x), REPS)
-    graphed = device_ms(lambda: eng.model(x), REPS)
-    summary = dict(bucket32_forward_ms=eager,
-                   bucket32_forward_device_ms=graphed,
-                   device_idle_share=1.0 - graphed / eager,
-                   images_per_s_bucket32=BUCKET / (eager * 1e-3),
-                   images_per_s_bucket32_graphed=BUCKET / (graphed * 1e-3),
+    check_replays(m, x, x.flip(0), f"{cfg.name} {backend}")
+    times = served_times(m, x, REPS)
+    summary = dict(bucket32_served_ms=times["served_ms"],
+                   bucket32_graph_ms=times["graph_ms"],
+                   bucket32_eager_ms=times["eager_ms"],
+                   served_idle_share=times["served_idle_share"],
+                   eager_idle_share=times["eager_idle_share"],
+                   images_per_s_bucket32=BUCKET / (times["served_ms"] * 1e-3),
+                   images_per_s_bucket32_graph=BUCKET / (
+                       times["graph_ms"] * 1e-3),
+                   images_per_s_bucket32_eager=BUCKET / (
+                       times["eager_ms"] * 1e-3),
                    launches_by_path=by_path)
     emit("serve", model=cfg.name, backend=backend, chains=chains,
          requests=REQUESTS, ticks=ticks, bucket_runs=bucket_runs,
-         launches=launches,
-         serve_wall_s=wall, u8_bitwise=True, max_abs_logit_dev=dev_max,
+         trace_counts=trace_counts, launches=launches,
+         traced_launches=ran, traced_serve_wall_s=wall, u8_bitwise=True,
+         max_abs_logit_dev=dev_max,
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          feature_nonzero_share=float((feats > 0).float().mean()),
          macs_per_image=macs_per_image(cfg), **summary)
@@ -975,10 +1145,11 @@ def serve_phase(cfg, seed, dev, backend):
 
 
 def eager_compare_phase(models, dev, turns=4):
-    """Eager bucket-32 forward time of each ResNet on ``cuda`` and
-    ``cuda-stream`` measured in turns (cuda, cuda-stream, cuda-stream,
-    cuda, ...), so that the host's drift within the call falls on both
-    alike; the median of each backend's turns."""
+    """Bucket-32 time of the eager lowered forward of each ResNet on
+    ``cuda`` and ``cuda-stream`` (the eager path), measured in
+    turns (cuda, cuda-stream, cuda-stream, cuda, ...), so that the host's
+    drift within the call falls on both alike; the median of each
+    backend's turns."""
     x = torch.rand((BUCKET, 32, 32, 3), device=dev) * 0.999
     out = {}
     for name, (eng, eng_s) in models.items():
@@ -986,8 +1157,8 @@ def eager_compare_phase(models, dev, turns=4):
         for turn in range(turns):
             order = ("cuda", "cuda-stream")[::1 if turn % 2 == 0 else -1]
             for b in order:
-                m = (eng if b == "cuda" else eng_s).model
-                times[b].append(call_ms(lambda: m(x), REPS))
+                fwd = (eng if b == "cuda" else eng_s).model._forward
+                times[b].append(call_ms(lambda: fwd(x), REPS))
         ms = {b: float(np.median(t)) for b, t in times.items()}
         out[name] = dict(
             cuda_ms=ms["cuda"], stream_ms=ms["cuda-stream"],
@@ -998,24 +1169,84 @@ def eager_compare_phase(models, dev, turns=4):
     return out
 
 
-def profile_phase(eng, dev, backend):
-    from torch.profiler import ProfilerActivity, profile
-
-    x = torch.zeros((BUCKET, 32, 32, 3), device=dev)
-    eng.model(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            eng.model(x)
-        torch.cuda.synchronize()
+def top_kernels(prof, n=12):
+    """The ``n`` entries of a profile with the most device time."""
     def device_us(e):
         return getattr(e, "self_device_time_total", 0)
 
     rows = sorted(prof.key_averages(), key=lambda e: -device_us(e))
-    emit("profile", model=eng.cfg.name, backend=backend, forwards=5,
-         top=[dict(name=e.key[:60], count=e.count, device_us=device_us(e))
-              for e in rows[:12]])
+    return [dict(name=e.key[:60], count=e.count, device_us=device_us(e))
+            for e in rows[:n]]
+
+
+def profile_phase(eng, dev, backend, x, calls):
+    """``torch.profiler`` over ``calls`` served calls of ``eng.model`` (copy
+    in, graph replay, clone): device time by kernel name, the kernels of
+    the replays included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.model(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            eng.model(x)
+        torch.cuda.synchronize()
+    emit("profile", model=eng.cfg.name, backend=backend, served_calls=calls,
+         bucket=x.shape[0], top=top_kernels(prof))
+
+
+PROFILE_TOL = 0.25   # a task profile against the kernels phase's time
+
+
+def task_profile_phase(seed, dev, block, chain):
+    """``obs.profile.profile_tasks`` for ResNet20 at batch 32 on both
+    backends, attached to one obs session: the rows' kinds, the block rows'
+    sum against the kernels phase's ``resblock_fused`` time and the chain
+    row against ``block_chain``'s (within ``PROFILE_TOL``), ``vs_roofline``
+    per task at ``REFERENCE_HBM_GBPS``, and the session's metrics text
+    parsed back through ``obs.metrics.parse_text``."""
+    cfg = R.RESNET20
+    qp = R.quantize_params(R.fold_params(R.init_params(
+        cfg, torch.Generator().manual_seed(seed))), cfg)
+    want = {"cuda": ["stem"] + ["block"] * 9, "cuda-stream": ["chain"]}
+    out = {}
+    with obs_runtime.instrumented() as ob:
+        for backend, kinds in want.items():
+            rows = profile_tasks(cfg, qp, backend=backend, batch=BUCKET,
+                                 reps=REPS, ob=ob, device=dev)
+            check([r.kind for r in rows] == kinds,
+                  f"profile {backend}: row kinds {[r.kind for r in rows]}")
+            out[backend] = [r.to_dict() for r in rows]
+        text = ob.metrics.render_text()
+        spans = sum(e.cat == "kernel" for e in ob.trace.events)
+    blocks_ms = sum(r["wall_us"] for r in out["cuda"]
+                    if r["kind"] == "block") * 1e-3
+    chain_ms = out["cuda-stream"][0]["wall_us"] * 1e-3
+    for what, got, ref in (("block rows", blocks_ms, block["ms"]),
+                           ("chain row", chain_ms, chain["ms"])):
+        check(abs(got - ref) <= PROFILE_TOL * ref,
+              f"profile: the {what} take {got:.5f} ms against the kernels "
+              f"phase's {ref:.5f}")
+    parsed = parse_text(text)
+    check(parsed["kernel_profiles_total"] == {
+        '{kind="block",model="resnet20"}': 9,
+        '{kind="chain",model="resnet20"}': 1,
+        '{kind="stem",model="resnet20"}': 1}, "profile: kernel_profiles_total")
+    check(spans == 11, f"profile: {spans} kernel spans")
+    check("wall" not in text and "gbps" not in text,
+          "profile: a measured value in the metrics registry")
+    summary = dict(blocks_ms=blocks_ms, resblock_fused_ms=block["ms"],
+                   chain_ms=chain_ms, block_chain_ms=chain["ms"],
+                   reference_hbm_gbps=REFERENCE_HBM_GBPS)
+    emit("task_profile", model=cfg.name, batch=BUCKET,
+         rows={b: [dict(task=r["task"], kind=r["kind"],
+                        wall_us=r["wall_us"], hbm_bytes=r["hbm_bytes"],
+                        vmem_bytes=r["vmem_bytes"],
+                        vs_roofline=r["vs_roofline"]) for r in rows]
+               for b, rows in out.items()},
+         metrics_text=text, **summary)
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1526,13 +1757,13 @@ def lm_serve_phase(name, seed, dev):
     reqs = [ImageRequest(rid=i, image=t) for i, t in enumerate(toks)]
     for r in reqs:
         eng.submit(r)
+    built = build_served_buckets(eng, LM_REQUESTS)
     for op in LM_KERNEL_OPS.values():
         op.launches = 0
     matmul_int8_op.launches_by_path = dict.fromkeys(
         matmul_int8_op.launches_by_path, 0)
     t0 = time.perf_counter()
-    ticks = eng.run()
-    torch.cuda.synchronize()
+    ticks, ran, ran_by_path = traced_launches(eng.run)
     wall = time.perf_counter() - t0
     launches = {k: op.launches for k, op in LM_KERNEL_OPS.items()}
     by_path = dict(matmul_int8_op.launches_by_path)
@@ -1549,6 +1780,14 @@ def lm_serve_phase(name, seed, dev):
     check(by_path == dict(wgmma=launches["matmul_int8"], mma_sync=0),
           f"{name}: matmul_int8 launches by path {by_path}: every LM "
           f"projection must take the wgmma path")
+    used = [b for b, k in bucket_runs.items() if k]
+    check(used == built, f"{name}: buckets {used} used, {built} built")
+    check_traced(ran, launches, per_run, runs, f"{name} cuda")
+    check(ran_by_path.get("matmul_int8", {}).get("mma_sync", 0) == 0,
+          f"{name}: the profiler saw matmul launches {ran_by_path} off the "
+          f"wgmma path")
+    check_graphs(eng.model, used, f"{name} cuda")
+    check_graphs(eng.shadows["torch-int"], used, f"{name} torch-int shadow")
 
     x = torch.as_tensor(toks, device=dev)
     tasks = lm_task_check(cfg, eng.model.params, x[:LM_BUCKET])
@@ -1571,6 +1810,9 @@ def lm_serve_phase(name, seed, dev):
         max_step = max(max_step, int(step.max()))
         n_el += step.numel()
         tol = logit_tolerance(h, h_ref, spec, m.params.unembed).cpu()
+        check(torch.equal(logits[i:i + n], m._forward(batch)[:n].cpu()),
+              f"{name}: served logits of the bucket-{batch.shape[0]} run "
+              f"differ from the eager lowered forward")
         got = logits[i:i + n].double()
         # the shadow's unembed of its own hidden state, as lower_lm does
         ref = (dequantize(h_ref, spec)[:, -1, :] @ m.params.unembed).cpu()
@@ -1582,19 +1824,26 @@ def lm_serve_phase(name, seed, dev):
                        f"the hidden states by {excess}")
     argmax_equal = int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())
 
+    trace_counts = dict(m.trace_counts)
     xb = x[:LM_BUCKET]
-    eager = call_ms(lambda: eng.model(xb), 3)
-    fwd = eng.model._forward
-    graphed = device_ms(lambda: fwd(xb), 2)
+    check_replays(m, xb, xb.flip(0), f"{name} cuda")
+    times = served_times(m, xb, 3)
+    tokens = LM_BUCKET * LM_SEQ
     summary = dict(
-        bucket4_forward_ms=eager, bucket4_forward_device_ms=graphed,
-        device_idle_share=1.0 - graphed / eager,
-        tokens_per_s_bucket4=LM_BUCKET * LM_SEQ / (eager * 1e-3),
-        tokens_per_s_bucket4_graphed=LM_BUCKET * LM_SEQ / (graphed * 1e-3))
+        bucket4_served_ms=times["served_ms"],
+        bucket4_graph_ms=times["graph_ms"],
+        bucket4_eager_ms=times["eager_ms"],
+        served_idle_share=times["served_idle_share"],
+        eager_idle_share=times["eager_idle_share"],
+        tokens_per_s_bucket4=tokens / (times["served_ms"] * 1e-3),
+        tokens_per_s_bucket4_graph=tokens / (times["graph_ms"] * 1e-3),
+        tokens_per_s_bucket4_eager=tokens / (times["eager_ms"] * 1e-3))
     emit("lm_serve", model=name, layers=cfg.num_layers, seq_len=LM_SEQ,
          d_model=cfg.d_model, requests=LM_REQUESTS, ticks=ticks,
-         bucket_runs=bucket_runs, launches=launches,
-         matmul_launches_by_path=by_path, launches_per_run=per_run, init_s=init_s, serve_wall_s=wall,
+         bucket_runs=bucket_runs, trace_counts=trace_counts,
+         launches=launches,
+         matmul_launches_by_path=by_path, launches_per_run=per_run,
+         traced_launches=ran, init_s=init_s, traced_serve_wall_s=wall,
          tasks=tasks, hidden_differ_share=differ / n_el,
          hidden_max_step=max_step, one_step_flip_differ_share=flip_share,
          one_step_flip_max_step=flip_step,
@@ -1603,26 +1852,6 @@ def lm_serve_phase(name, seed, dev):
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          argmax_equal=f"{argmax_equal}/{LM_REQUESTS}", **summary)
     return eng, dict(launches, matmul_int8_by_path=by_path), summary
-
-
-def lm_profile_phase(eng, dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    x = torch.zeros((LM_BUCKET, LM_SEQ), dtype=torch.int32, device=dev)
-    eng.model(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.model(x)
-        torch.cuda.synchronize()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0)
-
-    rows = sorted(prof.key_averages(), key=lambda e: -device_us(e))
-    emit("profile", model=eng.cfg.name, backend="cuda", forwards=1,
-         top=[dict(name=e.key[:60], count=e.count, device_us=device_us(e))
-              for e in rows[:12]])
 
 
 def main(argv=None):
@@ -1653,9 +1882,12 @@ def main(argv=None):
                                              "cuda-stream")
     eager = eager_compare_phase({"resnet20": (eng20, eng20s),
                                  "resnet8": (eng8, eng8s)}, dev)
-    profile_phase(eng20, dev, "cuda")
-    profile_phase(eng20s, dev, "cuda-stream")
+    x = torch.zeros((BUCKET, 32, 32, 3), device=dev)
+    profile_phase(eng20, dev, "cuda", x, 5)
+    profile_phase(eng20s, dev, "cuda-stream", x, 5)
     del eng20, eng20s, eng8, eng8s
+    torch.cuda.empty_cache()
+    task_profile = task_profile_phase(args.seed, dev, block, chain)
 
     conv = conv2d_phase(rng, dev)
     mm = lm_matmul_phase(rng, dev)
@@ -1665,7 +1897,8 @@ def main(argv=None):
     for name in LM_MODELS:
         eng, lm_launches[name], lm_serve[name] = lm_serve_phase(
             name, args.seed, dev)
-        lm_profile_phase(eng, dev)
+        profile_phase(eng, dev, "cuda", torch.zeros(
+            (LM_BUCKET, LM_SEQ), dtype=torch.int32, device=dev), 1)
         del eng
         torch.cuda.empty_cache()
 
@@ -1741,7 +1974,7 @@ def main(argv=None):
     print(json.dumps({"kernels": rows, "serve": {
         "resnet20": serve20, "resnet8": serve8,
         "resnet20_stream": serve20s, "resnet8_stream": serve8s,
-        "eager_in_turns": eager,
+        "eager_in_turns": eager, "task_profile": task_profile,
         **lm_serve},
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ Entry points: :func:`plan_model` (conv graphs -> ``LoweringPlan``),
 :func:`plan_lm` (LM graphs -> ``LMPlan``) and :func:`plan_chains` (a
 plan's blocks -> streaming ``ChainTask`` runs, the front half of the
 ``cuda-stream`` backend).  The ``config`` field of the tasks is the slot
-for a tuned kernel configuration and is always ``None`` here.
+for a tuned kernel configuration: :func:`annotate_tuning` stamps one onto a
+node (``attrs["kcfg"]``) and the walk carries it into the task; without a
+tuning it is ``None``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import graph as G
 from repro_torch.compile.params import QResNetParams
+from repro_torch.tune.config import KernelConfig
 
 
 class LoweringError(ValueError):
@@ -211,7 +214,8 @@ def _lower_conv(n: G.Node, state: _WalkState) -> None:
         if not {"bn", "relu"} <= set(n.fused):
             raise _node_err(n, "stem conv must have bn+relu folded in "
                                "(fold_bn/merge_relu did not run)")
-        state.stem = StemTask(node=n.name, och=n.attrs["och"])
+        state.stem = StemTask(node=n.name, och=n.attrs["och"],
+                              config=n.attrs.get("kcfg"))
     elif role == "conv0":
         if state.pending_conv0 is not None:
             raise _node_err(
@@ -236,7 +240,7 @@ def _lower_conv(n: G.Node, state: _WalkState) -> None:
             index=n.attrs["block"], conv0=c0.name, conv1=n.name,
             stride=c0.attrs["stride"],
             has_ds=any(f.startswith("downsample:") for f in c0.fused),
-            och=n.attrs["och"]))
+            och=n.attrs["och"], config=c0.attrs.get("kcfg")))
         state.pending_conv0 = None
     elif role == "ds":
         raise _node_err(n, "standalone downsample conv survived — "
@@ -264,7 +268,8 @@ def _lower_matmul(n: G.Node, state: _WalkState) -> None:
         node=n.name, layer=n.attrs["layer"], role=n.attrs["role"],
         din=n.attrs["din"], dout=n.attrs["dout"],
         inputs=tuple(n.inputs), output=n.outputs[0],
-        skip=n.skip_in, fused_relu="relu" in n.fused))
+        skip=n.skip_in, fused_relu="relu" in n.fused,
+        config=n.attrs.get("kcfg")))
 
 
 @register_task("attention")
@@ -276,7 +281,8 @@ def _lower_attention(n: G.Node, state: _WalkState) -> None:
         node=n.name, layer=n.attrs["layer"], heads=n.attrs["heads"],
         kv_heads=n.attrs["kv_heads"], head_dim=n.attrs["head_dim"],
         causal=n.attrs.get("causal", True),
-        inputs=tuple(n.inputs), output=n.outputs[0]))
+        inputs=tuple(n.inputs), output=n.outputs[0],
+        config=n.attrs.get("kcfg")))
 
 
 @register_task("scan")
@@ -289,7 +295,8 @@ def _lower_scan(n: G.Node, state: _WalkState) -> None:
     state.tasks.append(ScanTask(
         node=n.name, layer=n.attrs["layer"], d_inner=n.attrs["d_inner"],
         ssm_state=n.attrs["ssm_state"], gated=gated,
-        inputs=tuple(n.inputs), output=n.outputs[0]))
+        inputs=tuple(n.inputs), output=n.outputs[0],
+        config=n.attrs.get("kcfg")))
 
 
 @register_task("embed")
@@ -328,6 +335,41 @@ def optimized_graph(cfg) -> G.Graph:
     if _is_lm_cfg(cfg):
         return G.optimize_lm(model_graph(cfg))
     return G.optimize(model_graph(cfg))
+
+
+def tuning_key(n: G.Node) -> Optional[str]:
+    """The tuning-dict key of one lowered graph node (None if the node has
+    no tunable task): conv tasks keep the ``stem``/``block{i}`` keys; LM
+    tasks are ``layer{i}/{role}`` (e.g. ``layer0/wq``, ``layer1/attn``)."""
+    if n.op == "conv":
+        role = n.attrs.get("role")
+        if role == "stem":
+            return "stem"
+        if role == "conv0":
+            return f"block{n.attrs['block']}"
+        return None
+    if n.op in ("matmul", "attention", "scan"):
+        return f"layer{n.attrs['layer']}/{n.attrs.get('role', n.op)}"
+    return None
+
+
+def annotate_tuning(g: G.Graph, tuning) -> G.Graph:
+    """Stamp tuned :class:`KernelConfig`\\ s onto the optimized graph's task
+    nodes (``attrs["kcfg"]``) so the plan carries them into the tasks and
+    any backend sees the same assignment.  ``tuning`` maps task keys
+    (:func:`tuning_key`) to configs or their dict form."""
+    if not tuning:
+        return g
+    for n in g.nodes:
+        key = tuning_key(n)
+        if key is None:
+            continue
+        c = tuning.get(key)
+        if c is not None:
+            if not isinstance(c, KernelConfig):
+                c = KernelConfig.from_dict(c)
+            n.attrs["kcfg"] = c
+    return g
 
 
 def _check_optimized(g: G.Graph) -> None:

@@ -25,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+from repro_torch.core import dataflow
+
 
 @dataclasses.dataclass
 class Node:
@@ -248,6 +250,30 @@ def optimize(g: Graph) -> Graph:
     g = add_fold(g)
     g.validate()
     return g
+
+
+# ---------------------------------------------------------------------------
+# Buffering audit — ties the IR to the eq. 21/22 accounting
+# ---------------------------------------------------------------------------
+
+
+def skip_buffer_report(g_before: Graph, g_after: Graph) -> List[dict]:
+    """For every residual block, report the skip buffering before (receptive
+    field, eq. 21) and after (conv1 window buffer, eq. 22) optimization."""
+    out = []
+    g_before = merge_relu(fold_bn(g_before))  # blocks are visible post-folding
+    for blk in find_residual_blocks(g_before):
+        c0, c1 = blk.conv0.attrs, blk.conv1.attrs
+        before = dataflow.skip_buffer_receptive_field(
+            iw0=c0["iw"], ich0=c0["ich"], fh0=c0["fh"], fw0=c0["fw"],
+            fh1=c1["fh"], fw1=c1["fw"],
+        )
+        after = dataflow.window_buffer_size(
+            iw=c1["iw"], ich=c1["ich"], fh=c1["fh"], fw=c1["fw"]
+        )
+        out.append(dict(block=blk.add.name, before=before, after=after,
+                        ratio=after / before))
+    return out
 
 
 # ---------------------------------------------------------------------------

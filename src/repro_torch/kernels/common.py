@@ -8,6 +8,7 @@ on.
 from __future__ import annotations
 
 import functools
+import statistics
 
 import torch
 import torch.nn.functional as F
@@ -94,3 +95,116 @@ def conv_i32(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     acc = F.conv2d(xf, w.to(torch.float64).permute(3, 2, 0, 1),
                    stride=stride)
     return torch.round(acc).to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Launch counters.  Each kernel wrapper counts its launches in ``launches``
+# (and, where it has several paths, in ``launches_by_path``), in Python, at
+# the call that launches.  A CUDA graph replays launches without running
+# that Python, so ``compile.CompiledModel`` records what one capture
+# counted and adds it at every replay (``add_launches``), and leaves the
+# counters of its warm-up and capture passes as it found them
+# (``capture_graph``).  The counts a replay adds are bookkeeping: what the
+# card ran is read from a profiler trace of the replays.
+# ---------------------------------------------------------------------------
+
+
+def counted_ops() -> tuple:
+    """The seven kernel wrappers that count their launches."""
+    from repro_torch.kernels.conv2d_int8.ops import conv2d_int8_op
+    from repro_torch.kernels.conv_stem.ops import conv_stem_op
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
+    from repro_torch.kernels.megakernel.ops import block_chain_op
+    from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
+    return (conv_stem_op, resblock_fused_op, block_chain_op, matmul_int8_op,
+            flash_attention_op, selective_scan_op, conv2d_int8_op)
+
+
+def read_launches() -> dict:
+    """``{op: (launches, launches_by_path)}`` of every counted wrapper."""
+    return {op: (op.launches, dict(getattr(op, "launches_by_path", {})))
+            for op in counted_ops()}
+
+
+def write_launches(counts: dict) -> None:
+    """Set every counter to what :func:`read_launches` returned."""
+    for op, (n, by_path) in counts.items():
+        op.launches = n
+        if hasattr(op, "launches_by_path"):
+            op.launches_by_path = dict(by_path)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """What the counters counted between two :func:`read_launches`."""
+    return {op: (after[op][0] - n,
+                 {p: after[op][1][p] - k for p, k in by_path.items()})
+            for op, (n, by_path) in before.items()}
+
+
+def add_launches(delta: dict) -> None:
+    """Add a :func:`launch_delta` to the counters: one replay of a captured
+    graph."""
+    for op, (n, by_path) in delta.items():
+        if n:
+            op.launches += n
+            for p, k in by_path.items():
+                op.launches_by_path[p] += k
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the one capture sequence of the port (the served buckets,
+# and the device-time measurements of obs.profile and chip_smoke.py).
+# ---------------------------------------------------------------------------
+
+
+def capture_graph(fn, calls: int = 1, warmup: int = 3, warm=None,
+                  pool=None, device=None):
+    """Capture ``calls`` back-to-back calls of ``fn()`` into one
+    ``torch.cuda.CUDAGraph`` on ``device`` (default: the current one), in
+    the memory pool ``pool`` where given.  ``warm`` (default ``fn``) first
+    runs ``warmup`` times on a side stream, so that lazy state (the
+    allocator's blocks, prepared launches, TMA maps) exists before the
+    capture.  Returns
+    ``(graph, out, launches)``: the graph, what the last captured call
+    returned (the graph's static output) and the :func:`launch_delta` the
+    captured calls counted.  Every launch counter is left as found."""
+    before = read_launches()
+    try:
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    (warm or fn)()
+            torch.cuda.current_stream().wait_stream(side)
+            warmed = read_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                for _ in range(calls):
+                    out = fn()
+            launches = launch_delta(warmed, read_launches())
+    finally:
+        write_launches(before)
+    return graph, out, launches
+
+
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: ``calls`` calls captured into
+    one CUDA graph (:func:`capture_graph`), the graph timed by CUDA events
+    over ``replays`` replays, the median replay over ``calls``.  Host
+    launch overhead is excluded."""
+    graph = capture_graph(fn, calls)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    return float(statistics.median(times))

@@ -17,6 +17,15 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.obs import runtime as _obs
+
+# backends whose logits come from the same integer datapath: on a conv
+# config a shadow on one of them must agree with a primary on another
+# bitwise.  An LM's attention and scan are float, so there these backends
+# agree only within the per-task tolerances (tests/test_torch_lm.py,
+# chip_smoke.py): its deviation is recorded, never counted as a mismatch.
+_INT_BACKENDS = frozenset({"cuda", "cuda-stream", "torch-int"})
+
 
 @dataclasses.dataclass
 class ImageRequest:
@@ -61,8 +70,11 @@ class ResNetEngine:
 
     ``ab_backends`` compiles shadow models on further backends; every tick
     replays the primary batch through each shadow and records the max
-    absolute logit deviation in ``ab_stats`` — a live parity probe for a
-    new backend against the serving one, e.g.
+    absolute logit deviation in ``ab_stats`` (and, with an obs session
+    installed, in ``ab_checks_total``, the ``ab_max_abs_dev`` gauge and,
+    between two integer backends on a conv config, ``ab_mismatch_total``)
+    — a live parity
+    probe for a new backend against the serving one, e.g.
     ``ResNetEngine(cfg, qp, backend="cuda-stream",
     ab_backends=("torch-int",))``."""
 
@@ -85,6 +97,11 @@ class ResNetEngine:
                                             device=self.device)
                         for name in ab_backends}
         self.ab_stats = {name: [] for name in self.shadows}
+        # shadows whose logits must equal the primary's bitwise
+        self._bitwise = {
+            name for name in self.shadows
+            if not hasattr(cfg, "seq_len") and backend in _INT_BACKENDS
+            and name in _INT_BACKENDS}
         self.queue: List[ImageRequest] = []
         self.served = 0
 
@@ -103,8 +120,21 @@ class ResNetEngine:
         imgs = np.stack([np.asarray(r.image, dtype) for r in reqs])
         out = self.model(imgs)
         for name, shadow in self.shadows.items():
-            self.ab_stats[name].append(
-                float((shadow(imgs) - out).abs().max()))
+            dev = float((shadow(imgs) - out).abs().max())
+            self.ab_stats[name].append(dev)
+            ob = _obs.active()
+            if ob is not None:
+                ob.metrics.counter(
+                    "ab_checks_total", "A/B shadow replays").inc(shadow=name)
+                ob.metrics.gauge(
+                    "ab_max_abs_dev",
+                    "last max |shadow - primary| logit deviation").set(
+                        dev, shadow=name)
+                if dev > 0 and name in self._bitwise:
+                    ob.metrics.counter(
+                        "ab_mismatch_total",
+                        "integer shadow disagreed bitwise with primary").inc(
+                            shadow=name)
         logits = out.cpu().numpy()
         for i, r in enumerate(reqs):
             r.logits = logits[i]

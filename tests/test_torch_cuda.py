@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.compile import (get_task_impl, init_lm_params, lm_config,
-                                 lower_features, lowering, plan_lm)
+from repro_torch.compile import (compile_model, get_task_impl,
+                                 init_lm_params, lm_config, lower_features,
+                                 lower_forward, lowering, plan_lm)
+from repro_torch.compile.compiler import GraphExecutable
 from repro_torch.compile import backends as BK
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import dataflow as df
@@ -41,6 +43,7 @@ from repro_torch.kernels.resblock_fused.ref import resblock_ref
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import resnet as R
+from repro_torch.obs import runtime as obsrt
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune import space
 from repro_torch.tune.space import SMEM_BUDGET
@@ -741,3 +744,161 @@ def test_lm_tasks_on_cuda_match_torch_int(dev, name):
         else:
             step = (got.to(torch.int32) - ref.to(torch.int32)).abs().max()
             assert int(step) <= 1, t.node
+
+
+# ---------------------------------------------------------------------------
+# CompiledModel: one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+def _resnet8_qparams(seed=0):
+    cfg = R.RESNET8
+    return cfg, R.quantize_params(R.fold_params(R.init_params(
+        cfg, torch.Generator().manual_seed(seed))), cfg)
+
+
+def _images(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(0.0, 0.999, (n, 32, 32, 3)).astype(
+        np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-stream"])
+def test_graph_replay_is_bitwise_the_eager_lowered_forward(dev, backend):
+    """Buckets 1 and 8 of ResNet8 served by replaying their graphs give the
+    eager lowered forward's logits bitwise, full and padded batches, and
+    one capture a bucket."""
+    cfg, qp = _resnet8_qparams()
+    cm = compile_model(cfg, qp, backend=backend, batch_sizes=(1, 8))
+    fwd = lower_forward(cfg, qp, backend)
+    x = _images(dev, 8, seed=1)
+    for n in (1, 8, 5, 1, 8):
+        got = cm(x[:n])
+        ref = fwd(cm.pad(x[:n]))[:n]
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), n
+    assert cm.trace_counts == {1: 1, 8: 1} and cm.compile_count == 2
+    assert cm.run_counts == {1: 2, 8: 3}
+    assert all(isinstance(cm.executable(b), GraphExecutable) for b in (1, 8))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-stream"])
+def test_graph_results_are_not_aliased_across_replays(dev, backend):
+    cfg, qp = _resnet8_qparams()
+    cm = compile_model(cfg, qp, backend=backend, batch_sizes=(8,))
+    x1, x2 = _images(dev, 8, seed=2), _images(dev, 8, seed=3)
+    a = cm(x1)
+    kept = a.clone()
+    b = cm(x2)
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, kept) and not torch.equal(a, b)
+    assert torch.equal(cm(x1), kept)
+
+
+@pytest.mark.parametrize("backend,plan", [
+    ("cuda", dict(conv_stem=1, resblock_fused=3, block_chain=0)),
+    ("cuda-stream", dict(conv_stem=0, resblock_fused=0, block_chain=1))])
+def test_graph_replays_count_launches_and_the_capture_does_not(dev, backend,
+                                                               plan):
+    cfg, qp = _resnet8_qparams()
+    ops = dict(conv_stem=conv_stem_op, resblock_fused=resblock_fused_op,
+               block_chain=block_chain_op)
+    cm = compile_model(cfg, qp, backend=backend, batch_sizes=(1, 8))
+    before = {k: op.launches for k, op in ops.items()}
+    banded = conv_stem_op.launches_by_path["banded"]
+    cm.warmup()
+    assert {k: op.launches for k, op in ops.items()} == before
+    x = _images(dev, 8, seed=4)
+    for n in (8, 3, 1):
+        cm(x[:n])
+    torch.cuda.synchronize()
+    assert {k: op.launches - before[k] for k, op in ops.items()} == \
+        {k: 3 * v for k, v in plan.items()}
+    assert conv_stem_op.launches_by_path["banded"] - banded == \
+        3 * plan["conv_stem"]
+
+
+@pytest.mark.parametrize("backend,plan", [
+    ("cuda", dict(conv_stem_banded=1, resblock_fused_kernel=3)),
+    ("cuda-stream", dict(block_chain_kernel=1))])
+def test_profiler_sees_each_replay_run_the_plan(dev, backend, plan):
+    """What the card ran, read from a profiler trace (CUPTI reports the
+    kernels of a graph replay): every served call of a built bucket runs
+    the plan once, and the counters' bookkeeping agrees."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, qp = _resnet8_qparams()
+    cm = compile_model(cfg, qp, backend=backend, batch_sizes=(1, 8),
+                       eager=True)
+    x = _images(dev, 8, seed=7)
+    before = {k: op.launches for k, op in (("conv_stem", conv_stem_op),
+              ("resblock_fused", resblock_fused_op),
+              ("block_chain", block_chain_op))}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for n in (8, 3, 1, 8):
+            cm(x[:n])
+        torch.cuda.synchronize()
+    ran = dict.fromkeys(("conv_stem_banded", "conv_stem_general",
+                         "resblock_fused_kernel", "block_chain_kernel"), 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in ran:
+                if f"::{name}(" in e.key:
+                    ran[name] += e.count
+    assert ran == {k: 4 * plan.get(k, 0) for k in ran}
+    counted = dict(conv_stem=conv_stem_op.launches,
+                   resblock_fused=resblock_fused_op.launches,
+                   block_chain=block_chain_op.launches)
+    assert {k: n - before[k] for k, n in counted.items()} == dict(
+        conv_stem=ran["conv_stem_banded"],
+        resblock_fused=ran["resblock_fused_kernel"],
+        block_chain=ran["block_chain_kernel"])
+
+
+def test_capture_graph_leaves_the_counters_and_times_the_replay(dev):
+    """``kernels.common.capture_graph`` returns what the capture counted and
+    leaves every counter as found; ``graph_ms`` times a captured call."""
+    from repro_torch.kernels import common
+
+    cfg, qp = _resnet8_qparams()
+    fwd = lower_forward(cfg, qp, "cuda")
+    x = _images(dev, 8, seed=8)
+    before = common.read_launches()
+    graph, out, delta = common.capture_graph(lambda: fwd(x), calls=2)
+    assert common.read_launches() == before
+    assert delta[resblock_fused_op][0] == 2 * 3
+    assert delta[conv_stem_op] == (2, {"banded": 2, "general": 0})
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fwd(x))
+    assert common.graph_ms(lambda: fwd(x), calls=2) > 0
+
+
+def test_forced_second_capture_bumps_compile_retraces_total(dev):
+    cfg, qp = _resnet8_qparams()
+    with obsrt.instrumented() as ob:
+        cm = compile_model(cfg, qp, backend="cuda", batch_sizes=(8,))
+        x = _images(dev, 8, seed=5)
+        ref = cm(x)
+        assert ob.metrics.total("compile_traces_total") == 1
+        assert ob.metrics.total("compile_retraces_total") == 0
+        assert ob.metrics.get("compile_executables_total").value(
+            kind="default", bucket="8", backend="cuda") == 1
+        exe = cm._capture(8, cm.device)          # a rebuilt executable
+        assert cm.trace_counts == {8: 2}
+        assert ob.metrics.total("compile_retraces_total") == 1
+        assert any(e.name == "retrace" for e in ob.trace.events)
+        assert torch.equal(exe(x), ref)
+
+
+def test_run_placed_is_bitwise_the_default_path(dev):
+    cfg, qp = _resnet8_qparams()
+    cm = compile_model(cfg, qp, backend="cuda-stream", batch_sizes=(1, 8))
+    x = _images(dev, 11, seed=6)                  # 8, then 3 padded to 8
+    ref = cm(x)
+    got = cm.run_placed(x, torch.device("cuda", 0))
+    assert torch.equal(got, ref) and got.device == ref.device
+    assert cm.stats()["placed"] == [(8, "cuda:0")]
+    assert cm.compile_count == 2 and cm.trace_counts == {8: 2}

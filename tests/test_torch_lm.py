@@ -375,11 +375,14 @@ def test_compile_model_serves_token_buckets(setup):
     _, _, _, cfg, params = setup
     cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1, 4),
                        device="cpu").warmup()
-    assert cm.run_counts == {1: 1, 4: 1}
+    # warmup builds every bucket once and runs none
+    assert cm.run_counts == {1: 0, 4: 0}
+    assert cm.trace_counts == {1: 1, 4: 1} and cm.compile_count == 2
     toks = _tokens(cfg, 6, seed=5)
     out = cm(toks)                      # 4, then 2 padded to 4
     assert out.shape == (6, cfg.vocab_size)
-    assert cm.run_counts == {1: 1, 4: 3}
+    assert cm.run_counts == {1: 0, 4: 2}
+    assert cm.trace_counts == {1: 1, 4: 1} and cm.compile_count == 2
     padded = torch.cat([torch.from_numpy(toks[4:]),
                         torch.zeros((2, SEQ), dtype=torch.int32)])
     fwd = lower_forward(cfg, params, "cuda", device="cpu")

@@ -72,14 +72,39 @@ Phases, one JSON line each:
                 then the eager forward of both backends timed in turns.
   5. profile  — ``torch.profiler`` over five ResNet20 bucket-32 served
                 calls (graph replays) of each backend.
-  5a. task profile — ``obs.profile.profile_tasks`` for ResNet20 at batch
+  5a. sharded serve — full-width ResNet20 through ``ShardedResNetEngine``
+                with a replica on every card, buckets (1, 8, 32), 512
+                requests with 5 ms deadlines under a 1 ms coalescing
+                window, on ``cuda`` and ``cuda-stream``: the pool built
+                first (one capture of each bucket on each card, never
+                again), then the same images in seeded bursts, traced
+                (kernel events = bucket runs x plan, as the counters) and
+                timed, and open-loop at 20,000 images/s; every
+                micro-batch's logits bitwise ``ResNetEngine``'s model on
+                the same batch, the whole run against ``ResNetEngine``
+                serving the same images; images/s, queue-wait and compute
+                p50/p99, deadlines met, buckets used.
+  5b. tune    — ``tune.search`` for ResNet20 at bucket 32 on both
+                backends with timing on the card and validation
+                (``REPRO_TUNE_CACHE`` in a temporary directory): the winner
+                measured (``source == "device"``; a fallback fails), a
+                second search answered from the cache, the tuned model
+                bitwise with ``torch-int`` at 37, 1 and 8 images; every
+                config the space enumerates (the stem's and each block
+                shape's bands, the chain's (batch_tile, split) pairs the
+                card co-schedules) at bucket 32 bitwise with the kernel's
+                plain version, its shared memory equal to the Python
+                formula; the candidates' times, the tuned and default
+                served images/s interleaved, and the tuned kernels' times
+                beside their rules'.
+  5c. task profile — ``obs.profile.profile_tasks`` for ResNet20 at batch
                 32 on both backends with an obs session: a stem row and
                 nine block rows on ``cuda``, one chain row on
                 ``cuda-stream``; the block rows' sum within 25% of the
                 kernels phase's resblock_fused time and the chain row
                 within 25% of block_chain's; ``vs_roofline`` per task at
                 3,350 GB/s; the session's metrics text, parsed back.
-  5b. conv2d — conv2d_int8, the general int8 conv (off the serving path:
+  5d. conv2d — conv2d_int8, the general int8 conv (off the serving path:
                 its launches there are counted and are 0), bitwise against
                 its plain version on the sweep of tests/test_kernels.py,
                 the skip init, out_shift > 0, = 0 and < 0, ReLU on and off,
@@ -128,7 +153,9 @@ Phases, one JSON line each:
                 replay and placement checks of phase 4; tokens/s and ms
                 of the served call, the graph and the eager forward, idle
                 shares; a profiler pass over one served call each.
-  8. the ``{"kernels": [...], "serve": {...}}`` line, then
+  8. the ``{"kernels": [...], "serve": {...}}`` line (rows 1-3 carry their
+     tuned knob and time beside the rule's; ``serve`` the sharded and tuned
+     summaries), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -139,9 +166,12 @@ Any failure raises, and the script exits non-zero without the last line.
 import argparse
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -152,7 +182,8 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.compile import backends as BK  # noqa: E402
-from repro_torch.compile import (get_backend, get_task_impl,  # noqa: E402
+from repro_torch.compile import (compile_model,  # noqa: E402
+                                 get_backend, get_task_impl,
                                  hidden_out_spec, init_lm_params, lm_config,
                                  lower_forward, plan_lm)
 from repro_torch.compile import lowering  # noqa: E402
@@ -170,8 +201,10 @@ from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 # the median of five replays over ``reps`` (host launch overhead excluded)
 from repro_torch.kernels.common import \
     graph_ms as device_ms  # noqa: E402
+from repro_torch.kernels.conv_stem import ops as stem_ops  # noqa: E402
 from repro_torch.kernels.conv_stem.ops import (  # noqa: E402
-    BAND_THREADS, conv_stem_op, empty_launch, stem_band_rows, stem_path)
+    BAND_THREADS, band_smem_bytes, conv_stem_op, empty_launch,
+    stem_band_rows, stem_path)
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref  # noqa: E402
 from repro_torch.kernels.conv2d_int8.ops import (  # noqa: E402
     conv2d_int8_op, conv_path, conv_tiles, out_hw)
@@ -206,7 +239,9 @@ from repro_torch.obs import runtime as obs_runtime  # noqa: E402
 from repro_torch.obs.metrics import parse_text  # noqa: E402
 from repro_torch.obs.profile import REFERENCE_HBM_GBPS  # noqa: E402
 from repro_torch.obs.profile import profile_tasks  # noqa: E402
-from repro_torch.serve import ImageRequest, ResNetEngine  # noqa: E402
+from repro_torch.serve import (ImageRequest, ResNetEngine,  # noqa: E402
+                               ShardedResNetEngine)
+from repro_torch import tune as T  # noqa: E402
 from repro_torch.tune import space  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
 
@@ -1040,8 +1075,7 @@ def served_times(m, x, reps):
 def serve_phase(cfg, seed, dev, backend):
     """Serve ``REQUESTS`` images through the engine on ``backend``; returns
     the engine and the launch counts of that run."""
-    qp = R.quantize_params(R.fold_params(R.init_params(
-        cfg, torch.Generator().manual_seed(seed))), cfg)
+    qp = resnet_qparams(cfg, seed)
     rng = np.random.default_rng(seed)
     imgs = rng.uniform(0.0, 0.999, (REQUESTS, 32, 32, 3)).astype(
         np.float32)
@@ -1207,8 +1241,7 @@ def task_profile_phase(seed, dev, block, chain):
     per task at ``REFERENCE_HBM_GBPS``, and the session's metrics text
     parsed back through ``obs.metrics.parse_text``."""
     cfg = R.RESNET20
-    qp = R.quantize_params(R.fold_params(R.init_params(
-        cfg, torch.Generator().manual_seed(seed))), cfg)
+    qp = resnet_qparams(cfg, seed)
     want = {"cuda": ["stem"] + ["block"] * 9, "cuda-stream": ["chain"]}
     out = {}
     with obs_runtime.instrumented() as ob:
@@ -1246,6 +1279,364 @@ def task_profile_phase(seed, dev, block, chain):
                         vs_roofline=r["vs_roofline"]) for r in rows]
                for b, rows in out.items()},
          metrics_text=text, **summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Serving at scale: ShardedResNetEngine over a replica pool
+# ---------------------------------------------------------------------------
+
+SHARDED_REQUESTS = 512
+SHARDED_DEADLINE_MS = 5.0
+SHARDED_SLACK_MS = 1.0
+PACED_RATE = 20_000     # offered images/s of the open-loop pass (Poisson)
+
+
+def resnet_qparams(cfg, seed):
+    return R.quantize_params(R.fold_params(R.init_params(
+        cfg, torch.Generator().manual_seed(seed))), cfg)
+
+
+def pct(xs):
+    a = np.asarray(xs, np.float64)
+    return dict(p50=float(np.percentile(a, 50)),
+                p99=float(np.percentile(a, 99)), max=float(a.max()))
+
+
+def sharded_serve_phase(cfg, seed, backend):
+    """``SHARDED_REQUESTS`` images through ``ShardedResNetEngine`` with a
+    replica on every card, each with a 5 ms deadline under a 1 ms
+    coalescing window.  The pool is built first (every bucket on every
+    card); the same images are then served three times: arriving in seeded
+    bursts of 1-48 with a scheduler round after each burst, traced (the
+    profiler's kernel events against the plan once a bucket run, and the
+    counters) and then timed (the closed-loop rate), and arriving open-loop
+    at ``PACED_RATE`` images/s (seeded Poisson gaps), where the coalescer
+    dispatches partial batches.  Each micro-batch's logits bitwise equal
+    ``ResNetEngine``'s model on the same batch; the whole run against
+    ``ResNetEngine`` serving the same images in its own batches (bitwise
+    where the float head is batch-invariant, within 1e-5 and equal argmax
+    in any case); no capture during any run."""
+    qp = resnet_qparams(cfg, seed)
+    rng = np.random.default_rng(seed + 17)
+    imgs = rng.uniform(0.0, 0.999, (SHARDED_REQUESTS, 32, 32, 3)).astype(
+        np.float32)
+    bursts = []
+    while sum(bursts) < SHARDED_REQUESTS:
+        bursts.append(int(min(rng.integers(1, 49),
+                              SHARDED_REQUESTS - sum(bursts))))
+    n_dev = torch.cuda.device_count()
+    eng = ShardedResNetEngine(cfg, qp, batch=BUCKET, backend=backend,
+                              replicas=n_dev, batch_sizes=BUCKETS,
+                              slack_ms=SHARDED_SLACK_MS)
+    m = eng.model
+    t0 = time.perf_counter()
+    eng.pool.warmup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want_placed = sorted((b, f"cuda:{i}") for b in BUCKETS
+                         for i in range(n_dev))
+    check(m.trace_counts == {b: n_dev for b in BUCKETS} and
+          m.compile_count == len(BUCKETS) * n_dev and
+          m.stats()["placed"] == want_placed and not m.stats()["compiled"],
+          f"sharded {backend}: pool build {m.stats()}, want one capture of "
+          f"each bucket on each of {n_dev} cards")
+    built = (dict(m.trace_counts), m.compile_count)
+
+    batches = []                        # (images, logits) of each dispatch
+    run = eng.pool.run
+
+    def recorded(index, x):
+        out = run(index, x)
+        batches.append((x, out))
+        return out
+
+    eng.pool.run = recorded
+
+    def drive():
+        reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+        sreqs, i = [], 0
+        for k in bursts:
+            sreqs += [eng.submit(r, deadline_ms=SHARDED_DEADLINE_MS)
+                      for r in reqs[i:i + k]]
+            i += k
+            eng.tick()
+        eng.run()
+        return reqs, sreqs
+
+    runs0 = dict(m.run_counts)
+    conv_stem_op.launches = resblock_fused_op.launches = 0
+    block_chain_op.launches = conv2d_int8_op.launches = 0
+    (reqs, _), ran, _ = traced_launches(drive)
+    launches = dict(conv_stem=conv_stem_op.launches,
+                    resblock_fused=resblock_fused_op.launches,
+                    block_chain=block_chain_op.launches,
+                    conv2d_int8=conv2d_int8_op.launches)
+    runs = sum(m.run_counts.values()) - sum(runs0.values())
+    per_run, chains = launch_plan(cfg, backend)
+    check(eng.served == SHARDED_REQUESTS and all(r.done for r in reqs),
+          f"sharded {backend}: {eng.served} of {SHARDED_REQUESTS} served")
+    check(launches == {k: runs * v for k, v in per_run.items()},
+          f"sharded {backend}: launch counts {launches} for {runs} bucket "
+          f"runs of {per_run}")
+    check_traced(ran, launches, per_run, runs, f"sharded {cfg.name} "
+                                               f"{backend}")
+    traced_batches = len(batches)
+
+    t0 = time.perf_counter()
+    reqs2, sreqs = drive()
+    wall = time.perf_counter() - t0
+    check(eng.served == 2 * SHARDED_REQUESTS and all(r.done for r in reqs2),
+          f"sharded {backend}: the timed run left requests unserved")
+    timed_batches = len(batches)
+
+    arrivals = np.cumsum(rng.exponential(1.0 / PACED_RATE, len(imgs)))
+    reqs3 = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+    paced, i = [], 0
+    t0 = time.perf_counter()
+    while i < len(reqs3):
+        now = time.perf_counter() - t0
+        while i < len(reqs3) and arrivals[i] <= now:
+            paced.append(eng.submit(reqs3[i],
+                                    deadline_ms=SHARDED_DEADLINE_MS))
+            i += 1
+        eng.tick()
+    eng.run()
+    paced_wall = time.perf_counter() - t0
+    check(eng.served == 3 * SHARDED_REQUESTS and all(r.done for r in reqs3),
+          f"sharded {backend}: the paced run left requests unserved")
+    check((dict(m.trace_counts), m.compile_count) == built,
+          f"sharded {backend}: a capture during serving: {m.trace_counts}")
+    eng.pool.run = run
+
+    # every micro-batch against ResNetEngine's model on the same batch
+    plain = ResNetEngine(cfg, qp, batch=BUCKET, backend=backend,
+                         batch_sizes=BUCKETS)
+    for x, out in batches:
+        check(torch.equal(out, plain.model(x)),
+              f"sharded {backend}: a bucket-{m.bucket_for(x.shape[0])} "
+              f"micro-batch differs from ResNetEngine's model on it")
+    logits = np.stack([r.logits for r in reqs])
+    for again in (reqs2, reqs3):
+        check(np.array_equal(logits, np.stack([r.logits for r in again])),
+              f"sharded {backend}: two runs served different logits")
+    preqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+    for r in preqs:
+        plain.submit(r)
+    plain.run()
+    plain_logits = np.stack([r.logits for r in preqs])
+    dev_max = float(np.abs(logits - plain_logits).max())
+    check(dev_max <= LOGIT_ATOL and np.array_equal(
+        logits.argmax(-1), plain_logits.argmax(-1)),
+          f"sharded {backend}: logits deviate {dev_max} from ResNetEngine")
+
+    used = {b: k - runs0.get(b, 0) for b, k in m.run_counts.items()}
+
+    def buckets(recs):
+        out = {}
+        for x, _ in recs:
+            b = m.bucket_for(x.shape[0])
+            out[b] = out.get(b, 0) + 1
+        return out
+
+    def latency(srs):
+        met = [s.deadline_met for s in srs]
+        return dict(queue_wait_ms=pct([s.queue_wait * 1e3 for s in srs]),
+                    compute_ms=pct([s.compute_time * 1e3 for s in srs]),
+                    deadlines_met=int(sum(met)), deadlines_total=len(met))
+
+    summary = dict(
+        replicas=n_dev, requests=SHARDED_REQUESTS, bursts=len(bursts),
+        deadline_ms=SHARDED_DEADLINE_MS, slack_ms=SHARDED_SLACK_MS,
+        images_per_s=SHARDED_REQUESTS / wall, wall_s=wall,
+        pool_build_s=build_s,
+        dispatches=timed_batches - traced_batches,
+        bucket_runs_timed=buckets(batches[traced_batches:timed_batches]),
+        bucket_runs_all=used, **latency(sreqs),
+        paced=dict(offered_images_per_s=PACED_RATE,
+                   images_per_s=SHARDED_REQUESTS / paced_wall,
+                   dispatches=len(batches) - timed_batches,
+                   bucket_runs=buckets(batches[timed_batches:]),
+                   **latency(paced)),
+        per_replica_served=[r.served for r in eng.sched.replicas],
+        bitwise_with_resnet_engine=bool(dev_max == 0.0),
+        max_abs_dev_resnet_engine=dev_max,
+        micro_batches_bitwise=True, trace_counts=dict(m.trace_counts),
+        traced_launches=ran, launches=launches, traced_runs=runs,
+        chains=chains)
+    emit("sharded_serve", model=cfg.name, backend=backend, **summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Tuning on the card's own knobs: repro_torch.tune
+# ---------------------------------------------------------------------------
+
+TUNE_TOP_K = 6
+TUNE_REPS = 9         # interleaved samples a candidate pair
+TUNE_CALLS = 20       # served calls a sample
+
+
+def tuned_kernel_times(backend, tuning, dev, rng):
+    """Device ms at bucket 32 of the kernels a backend runs, at the tuned
+    knobs against each kernel's own rule (random operands at ResNet20's
+    shapes, prepared launches, CUDA-graph replay)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    if backend == "cuda-stream":
+        c = tuning["stem"]
+        x, blocks, specs, stem, stem_shift = live_chain(
+            rng, dev, df.resnet_block_shapes(3), BUCKET, 16)
+        kw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
+        rule = ChainLaunch(blocks, in_shape=x.shape[1:], **kw)
+        tuned = ChainLaunch(blocks, in_shape=x.shape[1:], config=c, **kw)
+        check(torch.equal(tuned(x), rule(x)), "tuned block_chain differs")
+        out["block_chain"] = dict(
+            default_tiling=list(rule.tiling(BUCKET)),
+            tuned_tiling=list(tuned.tiling(BUCKET)),
+            default_ms=device_ms(lambda: rule(x), REPS),
+            tuned_ms=device_ms(lambda: tuned(x), REPS))
+        return out
+    x, w, b = stem_case(rng, dev, BUCKET)
+    c = tuning["stem"]
+    check(torch.equal(conv_stem_op(x, w, b, shift=9, config=c),
+                      conv_stem_op(x, w, b, shift=9)),
+          "tuned conv_stem differs")
+    out["conv_stem"] = dict(
+        default_band=stem_band_rows(32, BUCKET, sms),
+        tuned_band=c.band_rows or stem_band_rows(32, BUCKET, sms),
+        default_ms=device_ms(lambda: conv_stem_op(x, w, b, shift=9), REPS),
+        tuned_ms=device_ms(lambda: conv_stem_op(x, w, b, shift=9,
+                                                config=c), REPS))
+    rows = dict(default_bands=[], tuned_bands=[], default_ms=0.0,
+                tuned_ms=0.0)
+    for i, shp in enumerate(df.resnet_block_shapes(3)):
+        ops = block_case(rng, dev, BUCKET, shp.h, shp.ich, shp.och,
+                         shp.stride)
+        kw = dict(stride=shp.stride, shift0=11, shift1=12, skip_shift=-2)
+        rule = ResblockLaunch(*ops[1:], **kw)
+        tuned = ResblockLaunch(*ops[1:], config=tuning[f"block{i}"], **kw)
+        check(torch.equal(tuned(ops[0]), rule(ops[0])),
+              f"tuned resblock_fused block{i} differs")
+        rows["default_bands"].append(rule.band_rows(BUCKET, shp.oh))
+        rows["tuned_bands"].append(tuned.band_rows(BUCKET, shp.oh))
+        rows["default_ms"] += device_ms(lambda: rule(ops[0]), REPS)
+        rows["tuned_ms"] += device_ms(lambda: tuned(ops[0]), REPS)
+    out["resblock_fused"] = rows
+    return out
+
+
+def enumerated_configs_bitwise(backend, dev, rng):
+    """Every config ``tune.space`` enumerates for ResNet20 at bucket 32 on
+    ``backend`` (on the card, with its occupancy query), each kernel at it
+    bitwise with its plain version on random operands of its shape, and the
+    kernel's shared memory at it equal to the Python formula.  Returns the
+    configs checked per kernel."""
+    layers = {l.name: l for l in df.resnet20_layers()}
+    checked = {}
+    if backend == "cuda-stream":
+        shapes = df.resnet_block_shapes(3)
+        x, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes,
+                                                        BUCKET, 16)
+        kw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
+        want = block_chain_ref(x, blocks, **kw)
+        tilings = space.chain_tilings(shapes, BUCKET, 16,
+                                      capacity=chain_ops.max_clusters)
+        for c in tilings:
+            launch = ChainLaunch(blocks, in_shape=x.shape[1:], config=c, **kw)
+            check(launch.tiling(BUCKET) == (c.batch_tile, c.split) and
+                  chain_ops.smem_bytes(shapes, c.batch_tile, 16, c.split) ==
+                  df.chain_task_smem_bytes(shapes, c.batch_tile, 16,
+                                           c.split),
+                  f"block_chain {c.describe()}: tiling or shared memory")
+            check(torch.equal(launch(x), want),
+                  f"block_chain at {c.describe()} differs from plain")
+        checked["block_chain"] = [c.describe() for c in tilings]
+        return checked
+    x, w, b = stem_case(rng, dev, BUCKET)
+    want = conv_stem_ref(x, w, b, shift=9)
+    stems = space.stem_space(layers["stem"], BUCKET)
+    for c in stems:
+        check(band_smem_bytes(c.band_rows, 32, 3, 16) ==
+              stem_ops._lib().conv_stem_band_smem_bytes(c.band_rows, 32, 3,
+                                                        16),
+              f"conv_stem band {c.band_rows}: shared memory formula")
+        check(torch.equal(conv_stem_op(x, w, b, shift=9, config=c), want),
+              f"conv_stem at {c.describe()} differs from plain")
+    checked["conv_stem"] = [c.band_rows for c in stems]
+    seen = {}
+    for i, shp in enumerate(df.resnet_block_shapes(3)):
+        key = (shp.h, shp.ich, shp.och, shp.stride)
+        if key in seen:
+            continue
+        l0 = layers[f"c{i}_0"]
+        ops = block_case(rng, dev, BUCKET, shp.h, shp.ich, shp.och,
+                         shp.stride)
+        kw = dict(stride=shp.stride, shift0=11, shift1=12, skip_shift=-2)
+        want = resblock_ref(*ops, **kw)
+        bands = space.block_space(l0, BUCKET, shp.downsample)
+        for c in bands:
+            check(smem_bytes(shp.h, shp.w, shp.ich, shp.och, shp.stride,
+                             shp.downsample, c.band_rows) ==
+                  df.resblock_task_smem_bytes(shp.h, shp.w, shp.ich, shp.och,
+                                              shp.stride, shp.downsample,
+                                              c.band_rows),
+                  f"resblock_fused {key} band {c.band_rows}: shared memory")
+            launch = ResblockLaunch(*ops[1:], config=c, **kw)
+            check(torch.equal(launch(ops[0]), want),
+                  f"resblock_fused {key} at {c.describe()} differs from "
+                  f"plain")
+        seen[key] = [c.band_rows for c in bands]
+    checked["resblock_fused"] = {str(k): v for k, v in seen.items()}
+    return checked
+
+
+def tune_phase(seed, dev, backend, rng):
+    """``tune.search`` for ResNet20 at bucket 32 on ``backend`` with device
+    timing and validation: the winner measured (``source == "device"``,
+    never a fallback), a second search answered from the cache, the tuned
+    model bitwise with ``torch-int`` at every bucket, every enumerated
+    config's kernel bitwise with its plain version, the tuned and default
+    served images/s at bucket 32 measured interleaved, and the tuned
+    kernels' times against their rules."""
+    cfg = R.RESNET20
+    qp = resnet_qparams(cfg, seed)
+    t0 = time.perf_counter()
+    res = T.search(cfg, qp, backend=backend, batch=BUCKET, top_k=TUNE_TOP_K,
+                   device=True, validate=True, reps=TUNE_REPS,
+                   calls=TUNE_CALLS)
+    search_s = time.perf_counter() - t0
+    check(res.source == "device",
+          f"tune {backend}: source {res.source!r}, want 'device'")
+    again = T.search(cfg, qp, backend=backend, batch=BUCKET)
+    check(again.source == "cache" and again.tuning == res.tuning,
+          f"tune {backend}: the second search was {again.source!r}")
+    tuned = compile_model(cfg, qp, backend=backend, batch_sizes=BUCKETS,
+                          tune=res.tuning)
+    default = compile_model(cfg, qp, backend=backend, batch_sizes=BUCKETS)
+    ref = compile_model(cfg, qp, backend="torch-int", batch_sizes=BUCKETS)
+    x = torch.rand((REQUESTS, 32, 32, 3), device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed)) * 0.999
+    for n in (REQUESTS, 1, 8):
+        check(torch.equal(tuned(x[:n]), ref(x[:n])),
+              f"tune {backend}: the tuned model differs from torch-int at "
+              f"{n} images")
+    check(tuned.stats()["tuning"] == res.config_dict(),
+          f"tune {backend}: stats()['tuning'] is not the search's")
+    us_t, us_d = T.interleaved_time(tuned, default, x[:BUCKET], reps=21,
+                                    calls=50)
+    checked = enumerated_configs_bitwise(backend, dev, rng)
+    kernels = tuned_kernel_times(backend, res.tuning, dev, rng)
+    summary = dict(
+        tuning=res.config_dict(), chosen=res.describe(),
+        candidates=res.candidates, space_size=res.space_size,
+        timings_us=res.timings_us, search_s=search_s,
+        served_us_tuned=us_t, served_us_default=us_d,
+        images_per_s_tuned=BUCKET / (us_t * 1e-6),
+        images_per_s_default=BUCKET / (us_d * 1e-6),
+        cache_hit=True, enumerated_bitwise=checked, kernels=kernels)
+    emit("tune", model=cfg.name, backend=backend, batch=BUCKET,
+         source=res.source, **summary)
     return summary
 
 
@@ -1887,6 +2278,17 @@ def main(argv=None):
     profile_phase(eng20s, dev, "cuda-stream", x, 5)
     del eng20, eng20s, eng8, eng8s
     torch.cuda.empty_cache()
+    sharded = {b: sharded_serve_phase(R.RESNET20, args.seed, b)
+               for b in ("cuda", "cuda-stream")}
+    cache_dir = tempfile.mkdtemp(prefix="repro-tune-")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(cache_dir, "tune.json")
+    try:
+        tuned = {b: tune_phase(args.seed, dev, b, rng)
+                 for b in ("cuda", "cuda-stream")}
+    finally:
+        os.environ.pop("REPRO_TUNE_CACHE")
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     task_profile = task_profile_phase(args.seed, dev, block, chain)
 
     conv = conv2d_phase(rng, dev)
@@ -1912,6 +2314,8 @@ def main(argv=None):
              launches_by_path=serve20["launches_by_path"]["conv_stem"],
              bitwise=True, library_ms=None, sass=sass["conv_stem"],
              ptxas=ptxas_by_entry("conv_stem"),
+             tuned=dict(knob="band_rows",
+                        **tuned["cuda"]["kernels"]["conv_stem"]),
              per="one launch at batch 32", **stem),
         dict(name="resblock_fused", route="cuda",
              source=src + "resblock_fused.cu",
@@ -1919,12 +2323,16 @@ def main(argv=None):
                       "resblock_fused.py:120",
              launches=launches["resblock_fused"], bitwise=True,
              library_ms=None, sass=sass["resblock_fused"],
+             tuned=dict(knob="band_rows",
+                        **tuned["cuda"]["kernels"]["resblock_fused"]),
              per="the 9 launches of one ResNet20 forward at batch 32",
              **block),
         dict(name="block_chain", route="cuda", source=src + "block_chain.cu",
              replaces="src/repro/kernels/megakernel/megakernel.py:203",
              launches=launches_s["block_chain"], bitwise=True,
              library_ms=None, sass=sass["block_chain"],
+             tuned=dict(knob="(batch_tile, split)",
+                        **tuned["cuda-stream"]["kernels"]["block_chain"]),
              per="the one launch of a cuda-stream ResNet20 forward at "
                  "batch 32", **chain),
         dict(name="matmul_int8", route="cuda", source=src + "matmul_int8.cu",
@@ -1975,6 +2383,15 @@ def main(argv=None):
         "resnet20": serve20, "resnet8": serve8,
         "resnet20_stream": serve20s, "resnet8_stream": serve8s,
         "eager_in_turns": eager, "task_profile": task_profile,
+        "sharded": {b: {k: v[k] for k in (
+            "replicas", "images_per_s", "queue_wait_ms", "compute_ms",
+            "deadlines_met", "deadlines_total", "bucket_runs_timed",
+            "paced", "bitwise_with_resnet_engine")}
+            for b, v in sharded.items()},
+        "tuned": {b: {k: v[k] for k in (
+            "chosen", "images_per_s_tuned", "images_per_s_default",
+            "served_us_tuned", "served_us_default", "timings_us")}
+                  for b, v in tuned.items()},
         **lm_serve},
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -473,6 +473,9 @@ class CudaStreamBackend(_BaseBackend):
     bitwise the same at every tile.
     Biases are widened, shifts derived, blocks packed and link tables
     built once, here (``ChainLaunch``, ``ResblockLaunch``), not per call.
+    Each launch takes its task's tuned ``KernelConfig`` (``band_rows`` for
+    the stem and a lone block, ``batch_tile`` and ``split`` for a chain,
+    which reads its head node's config) where the plan carries one.
     An LM config runs the ``cuda`` task impls: there is no LM chain
     kernel."""
 
@@ -505,8 +508,11 @@ class CudaStreamBackend(_BaseBackend):
         # the launch sequence, fixed at lower time: every block kernel is a
         # prepared launch (operands validated and packed, link table built),
         # so a call only allocates its output and launches
+        stem_config = plan.stem.config
+
         def stem_step(h):
-            return conv_stem_op(h, *stem_op, shift=stem_shift)
+            return conv_stem_op(h, *stem_op, shift=stem_shift,
+                                config=stem_config)
 
         steps = [] if chains and chains[0].stem is not None else [stem_step]
         for chain in chains:
@@ -516,7 +522,7 @@ class CudaStreamBackend(_BaseBackend):
                 ws, sh = operands[task.index]
                 steps.append(ResblockLaunch(
                     *(ws if task.has_ds else ws + (None, None)),
-                    stride=task.stride, **sh))
+                    stride=task.stride, config=task.config, **sh))
                 continue
             fused = chain.stem is not None
             head = shapes[chain.blocks[0].index]

@@ -42,6 +42,11 @@ The port's counterpart of the JAX package's ahead-of-time executables:
     launches in Python, which a replay does not run: the capture records
     what one forward launched (``kernels.common.launch_delta``) and every
     replay adds it; warm-up and capture leave the counters as they were.
+  * **Tuning.**  ``compile_model(tune=...)`` stamps a per-task
+    ``KernelConfig`` table onto the graph (``lowering.annotate_tuning``),
+    so the kernels' launches take the tuned decomposition
+    (``tune.search`` finds one; ``CompiledModel.tuning`` and
+    ``stats()["tuning"]`` show it).
   * **Placement.**  :meth:`CompiledModel.device_executable` and
     :meth:`CompiledModel.run_placed` serve on another device with the same
     batching discipline: the weights are copied and lowered again there
@@ -158,12 +163,12 @@ class CompiledModel:
     batch buckets, one executable per bucket (a CUDA graph on the GPU).
     Callable: ``logits = cm(images)`` (or ``cm(tokens)`` for an LM).
 
-    The graph goes through ``lowering.annotate_tuning`` as in the JAX
-    package, with no table: the port has no tuner yet (ROADMAP item A5),
-    so ``stats()["tuning"]`` is ``None``."""
+    ``tuning`` (task key -> ``KernelConfig``, or None) goes onto the graph
+    through ``lowering.annotate_tuning`` as in the JAX package."""
 
     def __init__(self, cfg, params, backend: Backend,
-                 batch_sizes: Sequence[int], device: torch.device):
+                 batch_sizes: Sequence[int], device: torch.device,
+                 tuning=None):
         if not batch_sizes:
             raise ValueError("need at least one batch bucket")
         if any(b <= 0 for b in batch_sizes):
@@ -173,8 +178,9 @@ class CompiledModel:
         self.params = params.to(device)
         self.backend = backend
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
+        self.tuning = tuning
         self.graph = lowering.annotate_tuning(
-            lowering.optimized_graph(cfg), None)
+            lowering.optimized_graph(cfg), tuning)
         self._forward = backend.lower(self.graph, cfg, self.params)
         self._lowered: Dict[torch.device, Callable] = {device: self._forward}
         self._pools: Dict[torch.device, tuple] = {}
@@ -355,7 +361,9 @@ class CompiledModel:
                     placed=sorted((b, str(d)) for b, d in self._dev_execs),
                     compile_count=self.compile_count,
                     trace_counts=dict(self.trace_counts),
-                    tuning=None,
+                    tuning={t: c.to_dict()
+                            for t, c in sorted(self.tuning.items())}
+                    if self.tuning else None,
                     run_counts=dict(self.run_counts))
 
     def __repr__(self):
@@ -369,6 +377,50 @@ def _backend(backend: Union[str, Backend]) -> Backend:
     return get_backend(backend) if isinstance(backend, str) else backend
 
 
+def _resolve_tuning(cfg, params, backend_name, batch_sizes, tune, device):
+    """Normalize the ``tune`` argument of :func:`compile_model` into a
+    task->KernelConfig dict (or None).  Accepted forms:
+
+      * ``None`` / ``False``   — untuned (each kernel's own rule).
+      * a dict                 — an explicit per-task assignment (the format
+                                 ``tune.search`` returns / the cache stores).
+      * a ``TuneResult``       — its ``.tuning``.
+      * ``"auto"``             — cache hit or run the full two-stage search
+                                 on ``device``.
+      * ``"analytic"``         — cost-model stage only (no timing).
+      * ``"device"``           — force a fresh two-stage search (still
+                                 written back to the cache).
+    """
+    from repro_torch.tune.config import KernelConfig
+
+    if tune is None or tune is False:
+        return None
+    if hasattr(tune, "tuning"):          # TuneResult without importing it
+        return tune.tuning
+    if isinstance(tune, dict):
+        # normalize cache-style {"task": {"knob": v}} entries to KernelConfig
+        # so stats()/engine introspection sees one type
+        return {task: c if isinstance(c, KernelConfig)
+                else KernelConfig.from_dict(c)
+                for task, c in tune.items()}
+    if isinstance(tune, str):
+        if tune not in ("auto", "analytic", "device"):
+            raise ValueError(
+                f"tune={tune!r}: expected a task->KernelConfig dict, a "
+                f"TuneResult, or one of 'auto'/'analytic'/'device'")
+        if lowering._is_lm_cfg(cfg):
+            raise ValueError(
+                f"tune={tune!r}: the search modes cover conv configs only; "
+                f"pass an explicit task->KernelConfig dict for LM config "
+                f"{cfg.name!r}")
+        from repro_torch import tune as T   # lazy: repro_torch.tune uses us
+        return T.search(cfg, params, backend=backend_name,
+                        batch=max(batch_sizes),
+                        device=tune != "analytic",
+                        use_cache=tune != "device", target=device).tuning
+    raise TypeError(f"unsupported tune argument: {type(tune).__name__}")
+
+
 def compile_model(cfg, qparams, backend: Union[str, Backend] = "cuda",
                   batch_sizes: Sequence[int] = (1, 8, 32),
                   eager: bool = False, tune=None,
@@ -380,14 +432,15 @@ def compile_model(cfg, qparams, backend: Union[str, Backend] = "cuda",
 
     ``qparams`` may be the ``quantize_params`` dict, a typed
     :class:`QResNetParams` or, for an LM config, a :class:`QLMParams`, on
-    any device; ``backend`` a registered name or an instance.  Kernel
-    tuning is not ported yet: ``tune`` must be None."""
-    if tune is not None:
-        raise ValueError(
-            f"tune={tune!r}: kernel tuning is not available in repro_torch "
-            f"yet; pass tune=None")
-    cm = CompiledModel(cfg, ensure_typed(qparams), _backend(backend),
-                       batch_sizes, resolve_device(device))
+    any device; ``backend`` a registered name or an instance.  ``tune``
+    selects the kernels' decomposition: a per-task dict / ``TuneResult``
+    from ``repro_torch.tune``, or ``"auto"``/``"analytic"``/``"device"``
+    to run the search here, on ``device`` (see :func:`_resolve_tuning`)."""
+    dev = resolve_device(device)
+    params = ensure_typed(qparams)
+    be = _backend(backend)
+    tuning = _resolve_tuning(cfg, params, be.name, batch_sizes, tune, dev)
+    cm = CompiledModel(cfg, params, be, batch_sizes, dev, tuning=tuning)
     if eager:
         cm.warmup()
     return cm

@@ -423,6 +423,33 @@ def chain_task_smem_bytes(blocks: List[BlockShape], batch_tile: int,
     return stem + 2 * slot + 3 * batch_tile * _align16(max(planes))
 
 
+def resblock_task_smem_bytes(h: int, w: int, ich: int, och: int,
+                             stride: int, downsample: bool,
+                             band: int) -> int:
+    """Dynamic shared memory one thread block of the CUDA
+    ``resblock_fused`` kernel uses when it takes ``band`` output rows: the
+    same formula as ``layout`` in ``kernels/csrc/resblock_fused.cu``
+    (exported as ``resblock_fused_smem_bytes``).  The packed block, the
+    band's ``(band + 1) * stride + 3`` staged input rows of the padded map
+    (y0's edge rows are recomputed per band), and y0's ``band + 2`` rows
+    with a zero ring, at ``pixel_pitch`` bytes a pixel."""
+    pad_lo = 1 if stride == 1 else 0
+    wp = w + pad_lo + 1
+    ow = (wp - 3) // stride + 1
+    xrows = (band + 1) * stride + 3
+    return packed_block_bytes(ich, och, downsample) + \
+        xrows * wp * pixel_pitch(ich) + (band + 2) * (ow + 2) * pixel_pitch(och)
+
+
+def stem_band_smem_bytes(band: int, w: int, cin: int, cout: int) -> int:
+    """Dynamic shared memory of one thread block of ``conv_stem``'s banded
+    path (``band_layout`` in ``kernels/csrc/conv_stem.cu``): the bias, the
+    filter as 9 x cout words, the plane of (band + 2) x (w + 2) words and
+    the raw input rows (up to 15 bytes of lead, rounded up to 16)."""
+    raw_off = _align16(4 * cout + 36 * cout + (band + 2) * (w + 2) * 4)
+    return raw_off + ((band + 2) * w * cin + 30) // 16 * 16
+
+
 def resnet_block_shapes(blocks_per_stage: int, base: int = 16, img: int = 32
                         ) -> List[BlockShape]:
     """The :class:`BlockShape` chain of a whole ResNet in graph order —

@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain version (``ref.conv_stem_ref``); a CUDA
 tensor launches the kernel, or the call raises.  ``conv_stem_op.launches``
 counts kernel launches, ``conv_stem_op.launches_by_path`` the same split by
-the path :func:`stem_path` picks from the shape.
+the path :func:`stem_path` picks from the shape.  A ``KernelConfig`` with
+``band_rows`` set fixes the banded path's band (``tune.space.stem_space``
+enumerates the legal ones); one over the shared-memory budget raises.
 """
 from __future__ import annotations
 
@@ -12,9 +14,11 @@ import functools
 
 import torch
 
+from repro_torch.core.dataflow import stem_band_smem_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_shift, sm_count
 from repro_torch.kernels.conv_stem.ref import conv_stem_ref
+from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.space import SMEM_BUDGET, block_band_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,11 +52,8 @@ def stem_band_rows(h: int, n: int, sms: int) -> int:
 
 def band_smem_bytes(band: int, w: int, cin: int, cout: int) -> int:
     """Dynamic shared memory of one banded thread block (``band_layout`` in
-    ``csrc/conv_stem.cu``): the bias, the filter as 9 x cout words, the
-    plane of (band + 2) x (w + 2) words and the raw input rows (up to 15
-    bytes of lead, rounded up to 16)."""
-    raw_off = -(-(4 * cout + 36 * cout + (band + 2) * (w + 2) * 4) // 16) * 16
-    return raw_off + ((band + 2) * w * cin + 30) // 16 * 16
+    ``csrc/conv_stem.cu``; ``core.dataflow.stem_band_smem_bytes``)."""
+    return stem_band_smem_bytes(band, w, cin, cout)
 
 
 def stem_path(shape, cout: int, sms: int) -> str:
@@ -66,6 +67,28 @@ def stem_path(shape, cout: int, sms: int) -> str:
     band = stem_band_rows(h, n, sms)
     return "banded" if band_smem_bytes(band, w, cin, cout) <= SMEM_BUDGET \
         else "general"
+
+
+def tuned_band(shape, cout: int, config) -> int:
+    """The band a ``config`` with ``band_rows`` set fixes for an (N, H, W,
+    Cin) image, snapped into [1, H]; 0 when the config leaves the band to
+    :func:`stem_band_rows`.  Raises when the shape has no banded path or
+    the band's thread block exceeds the shared-memory budget: a tuned band
+    is never clamped or moved to another path quietly."""
+    if config is None or not config.band_rows:
+        return 0
+    n, h, w, cin = shape
+    if not (1 <= cin <= 4 and cout % 16 == 0 and cout > 0):
+        raise ValueError(f"conv_stem_op: band_rows={config.band_rows} needs "
+                         f"the banded path (Cin 1..4, Cout a multiple of "
+                         f"16), got Cin {cin}, Cout {cout}")
+    band = config.normalize(n, cout, oh=h).band_rows
+    smem = band_smem_bytes(band, w, cin, cout)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"conv_stem_op: a band of {band} rows takes {smem} "
+                         f"bytes of shared memory, over the budget of "
+                         f"{SMEM_BUDGET}")
+    return band
 
 
 def _check(x, w, b):
@@ -86,12 +109,15 @@ def _check(x, w, b):
 
 
 def conv_stem_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                 shift: int) -> torch.Tensor:
+                 shift: int, config: KernelConfig = None) -> torch.Tensor:
     """x: (N,H,W,Cin) uint8 (unpadded; the kernel applies the SAME (1,1)
     pad); w: (3,3,Cin,Cout) int8; b: (Cout,) int16 or int32, widened to the
-    int32 accumulator.  Returns (N,H,W,Cout) uint8."""
+    int32 accumulator.  ``config``: its ``band_rows``, when set, is the
+    banded path's band (:func:`tuned_band`).  Returns (N,H,W,Cout)
+    uint8."""
     _check(x, w, b)
     check_shift("shift", shift)
+    tuned = tuned_band(x.shape, w.shape[3], config)
     b = b.to(torch.int32)
     if x.device.type == "cpu":
         return conv_stem_ref(x, w, b, shift=shift)
@@ -106,8 +132,8 @@ def conv_stem_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if out.numel() == 0:
         return out
     sms = sm_count(x.device.index)
-    path = stem_path(x.shape, Cout, sms)
-    band = stem_band_rows(H, N, sms) if path == "banded" else 0
+    path = "banded" if tuned else stem_path(x.shape, Cout, sms)
+    band = tuned or (stem_band_rows(H, N, sms) if path == "banded" else 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -14,8 +14,10 @@ The kernel reads each link's filters and biases as one packed block
 validates the chain, packs the links and builds the link table once, so
 that a lowered forward (``compile/backends.py``) only allocates the output
 and launches; :func:`block_chain_op` does both for a direct call.  The
-thread blocks an image (the cluster size) come from
-``tune.space.chain_split``.
+thread blocks an image (the cluster size) come from the config's
+``split`` when set, else from ``tune.space.chain_split``; a tuned tiling
+whose thread block exceeds the shared-memory budget, or whose clusters
+the card cannot run, raises.
 """
 from __future__ import annotations
 
@@ -26,14 +28,15 @@ from typing import List
 
 import torch
 
-from repro_torch.core.dataflow import STEM_CIN, BlockShape
+from repro_torch.core.dataflow import (STEM_CIN, BlockShape,
+                                       chain_task_smem_bytes)
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (check_bias, check_shift,
                                         check_weight, sm_ids_ptr)
 from repro_torch.kernels.megakernel.ref import block_chain_ref
 from repro_torch.kernels.resblock_fused.ops import MAX_CH, pack_block
 from repro_torch.tune.config import DEFAULT, KernelConfig
-from repro_torch.tune.space import chain_split
+from repro_torch.tune.space import SMEM_BUDGET, chain_split, chain_splits
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_LINKS = 32          # kMaxLinks in csrc/block_chain.cu
@@ -169,7 +172,8 @@ class ChainLaunch:
     plain version, on a CUDA tensor one kernel launch.  The per-call path
     checks x's dtype, shape and layout, allocates the output and launches;
     the batch tile (``config``, snapped to a divisor of N) and the split
-    (``tune.space.chain_split`` with the card's :func:`max_clusters`) are
+    (``config.split`` snapped to a legal split, else
+    ``tune.space.chain_split`` with the card's :func:`max_clusters`) are
     looked up once per N."""
 
     def __init__(self, blocks, *, specs, in_shape, stem=None,
@@ -186,6 +190,7 @@ class ChainLaunch:
             (stem[0], stem[1].to(torch.int32))
         self.config = config or DEFAULT
         self.device = self.blocks[0][0].device
+        self.stem_och = self.stem[0].shape[3] if stem is not None else 0
         self._tiles = {}
         if self.device.type == "cpu":
             return
@@ -195,7 +200,6 @@ class ChainLaunch:
         if len(specs) > MAX_LINKS:
             raise ValueError(f"block_chain kernel takes at most {MAX_LINKS} "
                              f"links, got {len(specs)}")
-        self.stem_och = self.stem[0].shape[3] if stem is not None else 0
         if self.stem_och % 4 or any(b.ich % 4 or b.och % 4 or
                                     max(b.ich, b.och) > MAX_CH
                                     for b in self.shapes):
@@ -228,11 +232,33 @@ class ChainLaunch:
     def tiling(self, n: int):
         """(batch_tile, split) of a launch on n images."""
         if n not in self._tiles:
-            bt = self.config.normalize(n, self.out_hwc[2]).batch_tile
-            self._tiles[n] = (bt, chain_split(self.shapes, n // bt, bt,
-                                              self.stem_och,
-                                              capacity=max_clusters))
+            cfg = self.config.normalize(n, self.shapes[-1].och,
+                                        splits=chain_splits(self.shapes))
+            bt = cfg.batch_tile
+            if cfg.split:
+                self._check_tiling(bt, cfg.split)
+                split = cfg.split
+            else:
+                split = chain_split(self.shapes, n // bt, bt, self.stem_och,
+                                    capacity=max_clusters)
+            self._tiles[n] = (bt, split)
         return self._tiles[n]
+
+    def _check_tiling(self, bt: int, split: int) -> None:
+        """Raise when a tuned (batch_tile, split) does not fit the
+        shared-memory budget or, on a GPU, runs no cluster at once."""
+        smem = chain_task_smem_bytes(self.shapes, bt, stem_och=self.stem_och,
+                                     split=split)
+        if smem > SMEM_BUDGET:
+            raise ValueError(f"block_chain_op: batch_tile={bt} split={split} "
+                             f"takes {smem} bytes of shared memory, over "
+                             f"the budget of {SMEM_BUDGET}")
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                if max_clusters(split, smem) < 1:
+                    raise ValueError(
+                        f"block_chain_op: the card runs no cluster of "
+                        f"{split} thread blocks of {smem} bytes")
 
     def thread_blocks(self, n: int) -> int:
         """Thread blocks of a launch on n images."""
@@ -244,6 +270,8 @@ class ChainLaunch:
         elements that the launch fills with the SM each thread block ran
         on."""
         if x.device.type == "cpu" and self.device.type == "cpu":
+            if self.config.split and x.dim() == 4:
+                self.tiling(x.shape[0])       # a tuned tiling is checked
             return block_chain_ref(x, self.blocks, specs=self.specs,
                                    stem=self.stem,
                                    stem_shift=self.stem_shift)
@@ -283,7 +311,8 @@ def block_chain_op(x, blocks, *, specs, stem=None, stem_shift=None,
     :class:`ChainBlockSpec` schedule; ``stem``: optional (w, b) fused at
     the chain head with ``stem_shift``.  ``config`` carries ``batch_tile``,
     the images one thread block cluster takes (snapped to a divisor of N;
-    default 1).  Returns the last link's (N,oh,ow,Cout) uint8 output."""
+    default 1), and ``split``, the thread blocks an image (0: the
+    occupancy rule).  Returns the last link's (N,oh,ow,Cout) uint8 output."""
     if x.dtype != torch.uint8 or x.dim() != 4:
         raise ValueError(f"x must be (N,H,W,C) uint8, got "
                          f"{tuple(x.shape)} {x.dtype}")

@@ -10,7 +10,10 @@ The kernel reads its filters and biases as one packed block
 (:func:`pack_block`: the mma B-fragment order of ``csrc/block_body.cuh``).
 :class:`ResblockLaunch` validates and packs the operands once, so that a
 lowered forward (``compile/backends.py``) only allocates the output and
-launches; :func:`resblock_fused_op` does both for a direct call.
+launches; :func:`resblock_fused_op` does both for a direct call.  A
+``KernelConfig`` with ``band_rows`` set fixes the band
+(``tune.space.block_space`` enumerates the legal ones); one whose thread
+block exceeds the shared-memory budget raises.
 """
 from __future__ import annotations
 
@@ -19,12 +22,14 @@ import functools
 
 import torch
 
-from repro_torch.core.dataflow import packed_block_bytes
+from repro_torch.core.dataflow import (packed_block_bytes,
+                                       resblock_task_smem_bytes)
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (check_bias, check_shift,
                                         check_weight, sm_count, sm_ids_ptr)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
-from repro_torch.tune.space import block_band_rows
+from repro_torch.tune.config import KernelConfig
+from repro_torch.tune.space import SMEM_BUDGET, block_band_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_CH = 128    # kMaxK in csrc/block_body.cuh: the deepest unrolled product
@@ -44,7 +49,9 @@ def _lib() -> ctypes.CDLL:
 
 def smem_bytes(h, w, cin, cout, stride, has_ds, band) -> int:
     """Dynamic shared memory one thread block of the kernel uses when it
-    takes ``band`` output rows (``tune.space.block_band_rows``)."""
+    takes ``band`` output rows (the kernel's own
+    ``resblock_fused_smem_bytes``; ``core.dataflow.resblock_task_smem_bytes``
+    is the same formula)."""
     return _lib().resblock_fused_smem_bytes(h, w, cin, cout, stride,
                                             int(has_ds), band)
 
@@ -138,13 +145,17 @@ class ResblockLaunch:
     validated, the biases widened to int32 and (on a GPU) the block packed
     once.  A call takes ``x`` (N,H,W,Cin) uint8 and returns (N,oh,ow,Cout)
     uint8: on a CPU tensor the plain version, on a CUDA tensor one kernel
-    launch at the band height :func:`~repro_torch.tune.space.block_band_rows`
-    picks for N and the card's SM count (looked up once per N and map
-    height).  The per-call path checks only x's dtype, channels and
+    launch at the band height :meth:`band_rows` gives: the ``config``'s
+    ``band_rows`` when set (snapped into [1, oh]), else the one
+    :func:`~repro_torch.tune.space.block_band_rows` picks for N and the
+    card's SM count (looked up once per N and map height).  A band whose
+    thread block exceeds the shared-memory budget raises, on either
+    device.  The per-call path checks only x's dtype, channels and
     layout."""
 
     def __init__(self, w0, b0, w1, b1, wd=None, bd=None, *, cin=None,
-                 stride=1, shift0, shift1, skip_shift=0):
+                 stride=1, shift0, shift1, skip_shift=0,
+                 config: KernelConfig = None):
         cin = w0.shape[2] if cin is None else cin
         self.cout = _check_block(cin, w0, b0, w1, b1, wd, bd, stride,
                                  shift0, shift1, skip_shift)
@@ -155,7 +166,9 @@ class ResblockLaunch:
         self.plain = (w0, b0, w1, b1, wd, bd)
         self.device = w0.device
         self.packed = None
+        self.config = config or KernelConfig()
         self._bands = {}
+        self._checked = {}   # (N, H, W) -> band, its shared memory checked
         if self.device.type == "cuda":
             if cin % 4 or self.cout % 4 or max(cin, self.cout) > MAX_CH:
                 raise ValueError(f"resblock_fused kernel needs channel counts "
@@ -171,9 +184,23 @@ class ResblockLaunch:
         ``oh``-row output maps."""
         key = (n, oh)
         if key not in self._bands:
-            self._bands[key] = block_band_rows(oh, n,
-                                               sm_count(self.device.index))
+            if self.config.band_rows:
+                band = self.config.normalize(n, self.cout, oh=oh).band_rows
+            else:
+                band = block_band_rows(oh, n, sm_count(self.device.index))
+            self._bands[key] = band
         return self._bands[key]
+
+    def check_band(self, h: int, w: int, band: int) -> None:
+        """Raise when a thread block of ``band`` rows on an (h, w) input
+        exceeds the shared-memory budget."""
+        smem = resblock_task_smem_bytes(h, w, self.cin, self.cout,
+                                        self.stride, self.has_ds, band)
+        if smem > SMEM_BUDGET:
+            raise ValueError(f"resblock_fused_op: a band of {band} rows on a "
+                             f"{h}x{w}x{self.cin} input takes {smem} bytes "
+                             f"of shared memory, over the budget of "
+                             f"{SMEM_BUDGET}")
 
     def thread_blocks(self, n: int, oh: int) -> int:
         """Thread blocks of a launch on n images of ``oh``-row outputs."""
@@ -185,6 +212,10 @@ class ResblockLaunch:
         on (image major)."""
         s0, s1, sk = self.shifts
         if x.device.type == "cpu" and self.device.type == "cpu":
+            if self.config.band_rows and x.dim() == 4:
+                h, w = x.shape[1:3]
+                self.check_band(h, w, self.band_rows(
+                    x.shape[0], h if self.stride == 1 else h // 2))
             return resblock_ref(x, *self.plain, stride=self.stride,
                                 shift0=s0, shift1=s1, skip_shift=sk)
         if x.device != self.device:
@@ -205,7 +236,11 @@ class ResblockLaunch:
                           device=x.device)
         if out.numel() == 0:
             return out
-        band = self._bands.get((N, oh)) or self.band_rows(N, oh)
+        band = self._checked.get((N, H, W))
+        if band is None:
+            band = self.band_rows(N, oh)
+            self.check_band(H, W, band)
+            self._checked[(N, H, W)] = band
         ids = sm_ids_ptr(sm_ids, N * -(-oh // band), x.device)
         lib = _lib()
         err = lib.resblock_fused_launch(
@@ -218,19 +253,21 @@ class ResblockLaunch:
 
 
 def resblock_fused_op(x, w0, b0, w1, b1, wd=None, bd=None, *, stride=1,
-                      shift0, shift1, skip_shift=0):
+                      shift0, shift1, skip_shift=0,
+                      config: KernelConfig = None):
     """x: (N,H,W,Cin) uint8 (unpadded; SAME padding is the kernel's: (1,1)
     at stride 1, (0,1) at stride 2).  w0: (3,3,Cin,Cout), w1:
     (3,3,Cout,Cout) int8; b0/b1: (Cout,) int16/int32.  Pass wd:
     (1,1,Cin,Cout) int8 and bd: (Cout,) to fuse the 1x1 downsample on the
-    skip path.  Returns (N,oh,ow,Cout) uint8."""
+    skip path.  ``config``: its ``band_rows``, when set, is the band
+    (:class:`ResblockLaunch`).  Returns (N,oh,ow,Cout) uint8."""
     if x.dtype != torch.uint8 or x.dim() != 4:
         raise ValueError(f"x must be (N,H,W,Cin) uint8, got "
                          f"{tuple(x.shape)} {x.dtype}")
     N, H, W, Cin = x.shape
     launch = ResblockLaunch(w0, b0, w1, b1, wd, bd, cin=Cin, stride=stride,
                             shift0=shift0, shift1=shift1,
-                            skip_shift=skip_shift)
+                            skip_shift=skip_shift, config=config)
     if stride == 2 and (H % 2 or W % 2):
         raise ValueError(f"stride-2 block needs even H/W to match SAME "
                          f"padding (0, 1), got {H}x{W}")

@@ -1,26 +1,38 @@
-"""``KernelConfig`` — the tiling knobs of the kernel pipeline.
+"""``KernelConfig`` — the decomposition knobs of the kernel pipeline.
 
-The port's copy of ``repro.tune.config`` (same fields, same ``normalize``,
-same JSON form): one frozen, hashable record per kernel invocation
-describing how the work is cut.  Today only ``block_chain`` reads it, for
-``batch_tile``; the rest of the tuner is not ported yet.
+The port's copy of ``repro.tune.config``: one frozen, hashable record per
+kernel invocation describing how the work is cut.  The fields of the
+reference stay (same names, same defaults, same JSON form, so a cache
+entry round-trips), and the H100's own knobs join them.  ``tune.space``
+enumerates the legal values, ``tune.cache`` persists them,
+``compile.lowering`` carries them into the tasks and the kernel wrappers
+read them.
 
-Knobs (0 always means "kernel default / maximal"):
+Knobs (0 always means "the kernel's own rule"):
 
-  * ``batch_tile``  — images per unit of work.  On the H100 one thread
-                      block of ``block_chain`` takes ``batch_tile`` images,
-                      so a larger tile means fewer thread blocks.
-  * ``cout_block``  — output channels per unit of work (the stem and the
-                      general conv).  Illegal for the fused residual block:
-                      conv1 consumes *all* of conv0's channels.
+  * ``band_rows``   — output rows one thread block takes in ``conv_stem``'s
+                      banded path and in ``resblock_fused``.  0: the rules
+                      ``stem_band_rows`` / ``tune.space.block_band_rows``
+                      (bands sized to fill the card's SMs at the call's
+                      batch).
+  * ``split``       — ``block_chain``'s thread blocks per image (the
+                      cluster size, 1, 2, 4 or 8).  0: ``tune.space.
+                      chain_split``'s occupancy rule.
+  * ``batch_tile``  — images per unit of work.  One thread block (one
+                      cluster) of ``block_chain`` takes ``batch_tile``
+                      images; default 1.
+  * ``cout_block``  — output channels per unit of work (the reference's
+                      TPU knob; no port kernel on the ResNet path reads
+                      it).
   * ``bm/bn/bk``    — matmul tile sizes.
 
-``normalize`` snaps requested tiles to legal divisors of the actual shapes
-so a cached config can never make a kernel call illegal.
+``normalize`` snaps every knob to a legal value at the call's shape, so a
+config tuned at one bucket stays legal at every other.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 
 def largest_divisor_leq(n: int, target: int) -> int:
@@ -34,7 +46,7 @@ def largest_divisor_leq(n: int, target: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Tiling knobs for one kernel invocation.  Hashable and JSON
+    """Decomposition knobs for one kernel invocation.  Hashable and JSON
     round-trippable."""
 
     batch_tile: int = 1          # images per unit of work (0 = whole batch)
@@ -42,16 +54,29 @@ class KernelConfig:
     bm: int = 0                  # matmul tiles (0 = kernel default)
     bn: int = 0
     bk: int = 0
+    band_rows: int = 0           # output rows a thread block (0 = rule)
+    split: int = 0               # block_chain thread blocks an image (0 = rule)
 
-    def normalize(self, n: int, cout: int) -> "KernelConfig":
-        """Snap the conv knobs to legal divisors of the actual call shapes
-        (batch ``n``, output channels ``cout``).  A config tuned at one
-        bucket stays legal at every other bucket."""
+    def normalize(self, n: int, cout: int, oh: Optional[int] = None,
+                  splits: Optional[Sequence[int]] = None) -> "KernelConfig":
+        """Snap the knobs to legal values at the actual call shapes: batch
+        ``n`` and output channels ``cout`` (``batch_tile`` and
+        ``cout_block`` to divisors), ``oh`` output rows (``band_rows`` into
+        [1, oh]) and the chain's legal ``splits`` (``split`` to the largest
+        legal one at most the requested, else the smallest).  A knob left
+        at 0 stays 0, and one whose shape is not given stays as it is."""
         bt = n if self.batch_tile == 0 else \
             largest_divisor_leq(n, self.batch_tile)
         cb = cout if self.cout_block == 0 else \
             largest_divisor_leq(cout, self.cout_block)
-        return dataclasses.replace(self, batch_tile=bt, cout_block=cb)
+        band, split = self.band_rows, self.split
+        if band and oh is not None:
+            band = max(1, min(band, oh))
+        if split and splits:
+            below = [s for s in splits if s <= split]
+            split = max(below) if below else min(splits)
+        return dataclasses.replace(self, batch_tile=bt, cout_block=cb,
+                                   band_rows=band, split=split)
 
     def resolve(self, knob: str, default: int) -> int:
         """The value of ``knob`` with unset (``None`` or the 0 sentinel)

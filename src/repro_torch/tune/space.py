@@ -1,24 +1,48 @@
-"""Chain legality space: which batch tiles a block chain may run at, and the
-greedy partition of a model's blocks into chains.
+"""Design-space enumeration on the H100's own knobs, and the chain planner.
 
-The port's copy of the chain part of ``repro.tune.space``, with the H100's
-budget in place of the TPU's: a chain is legal at a batch tile when one
-thread block of the CUDA ``block_chain`` kernel fits in the shared memory
-a thread block may opt into (``core.dataflow.chain_task_smem_bytes``
-against :data:`SMEM_BUDGET`) at the split :func:`chain_split` picks.
-Everything else is the reference's rule: divisor-legal tiles, legality
-judged at ``batch=1``, and the greedy longest legal run.  The
-decomposition rules of the two block kernels live here too:
-:func:`block_band_rows` (``resblock_fused``'s row bands) and
-:func:`chain_split` (``block_chain``'s thread blocks an image).
-``stem_space``, ``block_space`` and the LM spaces wait for the tuning
-port.
+The port's copy of ``repro.tune.space``.  The TPU's knobs (``batch_tile``
+over the grid, ``cout_block``, the VMEM budget) are not the port kernels'
+knobs: each kernel on the ResNet path picks its decomposition by a rule,
+and the tuner makes that decomposition a knob, with the rule as its
+default (0):
 
-Structure only: nothing here touches torch or weights.
+  * ``conv_stem`` (banded path) and ``resblock_fused``: ``band_rows``,
+    the output rows a thread block takes (the rules: ``conv_stem.ops.
+    stem_band_rows`` and :func:`block_band_rows`);
+  * ``block_chain``: ``split``, the thread blocks an image (the cluster),
+    and ``batch_tile``, the images a cluster takes (the rule:
+    :func:`chain_split`).
+
+A config is legal when it is
+
+  1. **shape-legal**: a band of 1 .. oh rows (only the band heights that
+     give a distinct number of bands are enumerated, each the shortest
+     that does — a taller band with as many thread blocks only lengthens
+     the longest one); a split of 1, 2, 4 or 8 that divides every map
+     height of the chain (:func:`chain_splits`); a batch tile that
+     divides the batch;
+  2. **shared-memory-legal**: one thread block fits :data:`SMEM_BUDGET`
+     (``core.dataflow.stem_band_smem_bytes``,
+     ``resblock_task_smem_bytes``, ``chain_task_smem_bytes``, the kernels'
+     own formulas), the counterpart of the TPU's VMEM cap;
+  3. **co-schedulable** (chains, on the card): the card runs at least one
+     cluster of that split at that shared memory (``capacity``, the
+     kernel's occupancy query ``kernels.megakernel.ops.max_clusters``).
+
+The eq. 12-14 balance pruning (``core.ilp.balanced_och_par``) of the
+reference prunes ``cout_block``, the TPU's channel blocking; no Hopper knob
+of these kernels blocks channels, so there is nothing for it to prune.
+
+The chain planner lives here too: :func:`chain_space` (legal batch tiles of
+a chain at the rule's split) and :func:`chain_cut_points` (the greedy
+longest legal runs), the reference's rule at the H100's budget.
+
+Structure only: nothing here touches weights.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import dataflow
 from repro_torch.tune.config import KernelConfig
@@ -150,3 +174,152 @@ def chain_cut_points(blocks, batch: int, stem_och: int = 0,
     if open_chain:
         cuts.append(open_chain)
     return cuts
+
+
+# ---------------------------------------------------------------------------
+# The tuner's spaces: legal configs per task of the lowering plan
+# ---------------------------------------------------------------------------
+
+
+def band_choices(oh: int) -> List[int]:
+    """Band heights of an ``oh``-row map that give a distinct number of
+    bands, each the shortest that does, tallest first: ``ceil(oh / k)`` for
+    k = 1 .. oh.  For 32 rows: 32, 16, 11, 8, 7, 6, 5, 4, 3, 2, 1."""
+    return sorted({-(-oh // k) for k in range(1, oh + 1)}, reverse=True)
+
+
+def stem_space(layer: dataflow.ConvLayer, batch: int,
+               smem_budget: int = SMEM_BUDGET) -> List[KernelConfig]:
+    """Legal ``band_rows`` of ``conv_stem``'s banded path for the stem
+    ``layer`` (at any batch: a thread block takes one image's band).
+
+    Stands in for the TPU stem's ``batch_tile`` (images a grid step) and
+    ``cout_block`` (channel blocks a grid step).  Neither has a
+    counterpart: a thread block takes a band of one image, and the banded
+    stem computes 16 output channels a thread in one pass, so there is
+    no channel blocking, and no balance floor (eq. 12-14) to prune by."""
+    del batch
+    if not (1 <= layer.ich <= 4 and layer.och % 16 == 0):
+        return []                     # the general path has no band knob
+    return [KernelConfig(band_rows=b) for b in band_choices(layer.oh)
+            if dataflow.stem_band_smem_bytes(b, layer.iw, layer.ich,
+                                             layer.och) <= smem_budget]
+
+
+def block_space(layer0: dataflow.ConvLayer, batch: int,
+                downsample: bool = False,
+                smem_budget: int = SMEM_BUDGET) -> List[KernelConfig]:
+    """Legal ``band_rows`` of ``resblock_fused`` for one residual block
+    (``layer0`` is the block's conv0 row of ``dataflow.resnet_layers``).
+
+    Stands in for the TPU block's ``batch_tile`` (images a grid step).
+    ``batch_tile`` itself has no counterpart here: a thread block takes a
+    band of one image, by design, so the card fills with bands, not
+    images.  ``cout_block`` is fusion-illegal, as in the reference (conv1
+    consumes all of conv0's channels).  Every band stages ``(band + 1) *
+    stride + 3`` input rows and recomputes two rows of y0, so short bands
+    cost shared memory and halo traffic."""
+    del batch
+    return [KernelConfig(band_rows=b) for b in band_choices(layer0.oh)
+            if dataflow.resblock_task_smem_bytes(
+                layer0.ih, layer0.iw, layer0.ich, layer0.och, layer0.stride,
+                downsample, b) <= smem_budget]
+
+
+def chain_tilings(blocks, batch: int, stem_och: int = 0,
+                  smem_budget: int = SMEM_BUDGET,
+                  capacity: Optional[Callable] = None) -> List[KernelConfig]:
+    """Legal ``(batch_tile, split)`` pairs of one ``block_chain`` launch
+    on ``batch`` images: a tile dividing the batch, a split of
+    :func:`chain_splits`, one thread block within ``smem_budget`` and, with
+    ``capacity(split, smem)`` (the card's occupancy query), at least one
+    cluster the card runs at once.
+
+    Stands in for the TPU chain's ``batch_tile`` (images a grid step, the
+    pinned weights amortised over them): here a cluster of ``split``
+    thread blocks takes ``batch_tile`` images, restaging every link's
+    weights once per cluster rank, so a larger tile trades fewer weight
+    restages for fewer thread blocks."""
+    out = []
+    for s in chain_splits(blocks):
+        for bt in divisors(batch):
+            smem = dataflow.chain_task_smem_bytes(blocks, bt,
+                                                  stem_och=stem_och, split=s)
+            if smem > smem_budget:
+                continue
+            if capacity is not None and capacity(s, smem) < 1:
+                continue
+            out.append(KernelConfig(batch_tile=bt, split=s))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def model_chains(cfg, smem_budget: int = SMEM_BUDGET
+                 ) -> Tuple[Tuple[str, Tuple[int, ...], int], ...]:
+    """The chains ``cuda-stream`` runs for ``cfg`` by default
+    (``compile.lowering.plan_chains`` with no cuts and the stem fused where
+    it fits): ``(key, block indices, stem_och)`` each, ``key`` the tuning
+    key of the chain's head node (``"stem"`` when the stem is fused, else
+    ``"block{i}"``), whose config the chain reads."""
+    from repro_torch.compile import lowering   # lowering imports tune
+
+    plan = lowering.plan_model(lowering.optimized_graph(cfg))
+    return tuple(
+        ("stem" if c.stem is not None else f"block{c.blocks[0].index}",
+         tuple(t.index for t in c.blocks),
+         cfg.base_width if c.stem is not None else 0)
+        for c in lowering.plan_chains(plan, cfg, smem_budget=smem_budget))
+
+
+def model_space(cfg, batch: int, backend: str = "cuda",
+                smem_budget: int = SMEM_BUDGET,
+                capacity: Optional[Callable] = None
+                ) -> Dict[str, List[KernelConfig]]:
+    """Per-task legal configs for a ResNetConfig at one batch bucket on a
+    kernel backend, one thread block within ``smem_budget``.
+
+    Keys are the plan's tuning keys (``compile.lowering.tuning_key``).
+    ``cuda``: ``"stem"`` (:func:`stem_space`) and ``"block{i}"``
+    (:func:`block_space`).  ``cuda-stream``: one key per chain of the
+    backend's plan (:func:`model_chains`; :func:`chain_tilings`, but a
+    chain cut down to one block without the stem runs ``resblock_fused``,
+    so its key gets :func:`block_space`), and ``"stem"`` when the stem
+    runs alone.  Every returned config is bitwise with the default by the
+    kernel contract (held config by config in tests/test_torch_tune.py)."""
+    layers = {l.name: l for l in dataflow.resnet_layers(
+        cfg.blocks_per_stage, cfg.base_width, cfg.img)}
+
+    def block(i):
+        return block_space(layers[f"c{i}_0"], batch,
+                           downsample=f"ds{i}" in layers,
+                           smem_budget=smem_budget)
+
+    if backend == "cuda":
+        spaces = {"stem": stem_space(layers["stem"], batch, smem_budget)}
+        for i in range(3 * cfg.blocks_per_stage):
+            spaces[f"block{i}"] = block(i)
+        return spaces
+    if backend != "cuda-stream":
+        raise ValueError(f"model_space: the kernel backends are 'cuda' and "
+                         f"'cuda-stream', not {backend!r}")
+    shapes = dataflow.resnet_block_shapes(cfg.blocks_per_stage,
+                                          cfg.base_width, cfg.img)
+    chains = model_chains(cfg)
+    spaces = {} if chains[0][2] else \
+        {"stem": stem_space(layers["stem"], batch, smem_budget)}
+    for key, run, stem_och in chains:
+        if len(run) == 1 and not stem_och:
+            spaces[key] = block(run[0])
+        else:
+            spaces[key] = chain_tilings([shapes[i] for i in run], batch,
+                                        stem_och, smem_budget, capacity)
+    return spaces
+
+
+def space_size(spaces: Dict[str, List[KernelConfig]]) -> int:
+    """Cardinality of the joint design space (product over tasks) — what an
+    exhaustive search would have to time on the card."""
+    total = 1
+    for cands in spaces.values():
+        total *= max(1, len(cands))
+    return total

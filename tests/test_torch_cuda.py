@@ -902,3 +902,139 @@ def test_run_placed_is_bitwise_the_default_path(dev):
     assert torch.equal(got, ref) and got.device == ref.device
     assert cm.stats()["placed"] == [(8, "cuda:0")]
     assert cm.compile_count == 2 and cm.trace_counts == {8: 2}
+
+
+# ---------------------------------------------------------------------------
+# serving at scale and the tuner's knobs on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-stream"])
+def test_sharded_engine_bitwise_with_resnet_engine_on_gpu(dev, backend):
+    """ShardedResNetEngine over every card (devices=None) against
+    ResNetEngine on the same images: bitwise logits, all served, each
+    bucket captured once per card and never again."""
+    from repro_torch.serve import (ImageRequest, ResNetEngine,
+                                   ShardedResNetEngine)
+
+    cfg, qp = _resnet8_qparams(seed=4)
+    xs = _images(dev, 21, seed=8).cpu().numpy()
+    plain = ResNetEngine(cfg, qp, batch=8, backend=backend,
+                         batch_sizes=(1, 8))
+    preqs = [ImageRequest(rid=i, image=x) for i, x in enumerate(xs)]
+    for r in preqs:
+        plain.submit(r)
+    plain.run()
+    eng = ShardedResNetEngine(cfg, qp, batch=8, backend=backend,
+                              batch_sizes=(1, 8), slack_ms=1.0)
+    n_dev = torch.cuda.device_count()
+    assert len(eng.pool) == n_dev
+    eng.pool.warmup()
+    reqs = [ImageRequest(rid=i, image=x) for i, x in enumerate(xs)]
+    for r in reqs:
+        eng.submit(r, deadline_ms=50.0)
+    eng.run()
+    assert eng.served == 21 and all(r.done for r in reqs)
+    assert np.array_equal(np.stack([r.logits for r in reqs]),
+                          np.stack([r.logits for r in preqs]))
+    assert eng.model.trace_counts == {1: n_dev, 8: n_dev}
+    assert eng.model.compile_count == 2 * n_dev
+    assert eng.model.stats()["compiled"] == []
+
+
+def test_wrappers_at_every_enumerated_knob_match_plain_versions(dev):
+    """Every band of tune.space at ResNet20's stem and block shapes and
+    every (batch_tile, split) of its chain that the card runs, at bucket
+    8: bitwise with the plain versions; the kernels' shared memory at each
+    enumerated knob equals the Python formulas."""
+    from repro_torch.kernels.conv_stem.ops import band_smem_bytes
+    from repro_torch.kernels.megakernel.ops import ChainLaunch
+    from repro_torch.kernels.resblock_fused.ops import ResblockLaunch
+
+    rng = np.random.default_rng(3)
+    n = 8
+    layers = {l.name: l for l in df.resnet20_layers()}
+    x = _t(rng, dev, 0, 256, (n, 32, 32, 3), np.uint8)
+    w = _t(rng, dev, -128, 128, (3, 3, 3, 16), np.int8)
+    b = _t(rng, dev, -500, 500, (16,), np.int32)
+    ref = conv_stem_ref(x, w, b, shift=9)
+    lib = stem_ops._lib()
+    for c in space.stem_space(layers["stem"], n):
+        assert lib.conv_stem_band_smem_bytes(c.band_rows, 32, 3, 16) == \
+            band_smem_bytes(c.band_rows, 32, 3, 16)
+        assert torch.equal(conv_stem_op(x, w, b, shift=9, config=c), ref), c
+    for i in (0, 3, 4, 6, 7):
+        l0, ds = layers[f"c{i}_0"], f"ds{i}" in layers
+        ops = [_t(rng, dev, 0, 256, (n, l0.ih, l0.iw, l0.ich), np.uint8),
+               _t(rng, dev, -128, 128, (3, 3, l0.ich, l0.och), np.int8),
+               _t(rng, dev, -500, 500, (l0.och,), np.int32),
+               _t(rng, dev, -128, 128, (3, 3, l0.och, l0.och), np.int8),
+               _t(rng, dev, -500, 500, (l0.och,), np.int32)]
+        ops += [_t(rng, dev, -128, 128, (1, 1, l0.ich, l0.och), np.int8),
+                _t(rng, dev, -500, 500, (l0.och,), np.int32)] if ds \
+            else [None, None]
+        kw = dict(stride=l0.stride, shift0=11, shift1=12,
+                  skip_shift=-2 if ds else 3)
+        want = resblock_ref(*ops, **kw)
+        for c in space.block_space(l0, n, ds):
+            assert block_ops.smem_bytes(l0.ih, l0.iw, l0.ich, l0.och,
+                                        l0.stride, ds, c.band_rows) == \
+                df.resblock_task_smem_bytes(l0.ih, l0.iw, l0.ich, l0.och,
+                                            l0.stride, ds, c.band_rows)
+            launch = ResblockLaunch(*ops[1:], config=c, **kw)
+            assert launch.band_rows(n, l0.oh) == c.band_rows
+            assert torch.equal(launch(ops[0]), want), (i, c)
+    shapes = df.resnet_block_shapes(3)
+    xc, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes, n, 16)
+    ckw = dict(specs=specs, stem=stem, stem_shift=stem_shift)
+    want = block_chain_ref(xc, blocks, **ckw)
+    tilings = space.chain_tilings(shapes, n, 16,
+                                  capacity=chain_ops.max_clusters)
+    assert {c.split for c in tilings} == {1, 2, 4, 8}
+    for c in tilings:
+        launch = ChainLaunch(blocks, in_shape=xc.shape[1:], config=c, **ckw)
+        assert launch.tiling(n) == (c.batch_tile, c.split)
+        assert chain_ops.smem_bytes(shapes, c.batch_tile, 16, c.split) == \
+            df.chain_task_smem_bytes(shapes, c.batch_tile, 16, c.split)
+        assert torch.equal(launch(xc), want), c
+
+
+def test_wrappers_raise_on_an_over_budget_knob(dev):
+    rng = np.random.default_rng(4)
+    ops = [_t(rng, dev, 0, 256, (1, 64, 64, 64), np.uint8),
+           _t(rng, dev, -128, 128, (3, 3, 64, 64), np.int8),
+           _t(rng, dev, -500, 500, (64,), np.int32),
+           _t(rng, dev, -128, 128, (3, 3, 64, 64), np.int8),
+           _t(rng, dev, -500, 500, (64,), np.int32)]
+    kw = dict(stride=1, shift0=11, shift1=12, skip_shift=0)
+    with pytest.raises(ValueError, match="over the budget"):
+        resblock_fused_op(*ops, config=KernelConfig(band_rows=64), **kw)
+    assert torch.equal(
+        resblock_fused_op(*ops, config=KernelConfig(band_rows=4), **kw),
+        resblock_ref(*ops, **kw))
+    shapes = df.resnet_block_shapes(3)
+    xc, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes, 4, 16)
+    with pytest.raises(ValueError, match="over the budget"):
+        block_chain_op(xc, blocks, specs=specs, stem=stem,
+                       stem_shift=stem_shift,
+                       config=KernelConfig(batch_tile=4, split=1))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-stream"])
+def test_device_search_on_the_card(dev, backend, tmp_path, monkeypatch):
+    """tune.search with device timing on the card: the winner validated
+    bitwise against torch-int (never a fallback), cached, and the tuned
+    model bitwise with torch-int at every bucket."""
+    from repro_torch import tune as T
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    cfg, qp = _resnet8_qparams(seed=5)
+    res = T.search(cfg, qp, backend=backend, batch=8, top_k=2, reps=3)
+    assert res.source == "device" and len(res.timings_us) >= 2
+    assert T.search(cfg, qp, backend=backend, batch=8).source == "cache"
+    tuned = compile_model(cfg, qp, backend=backend, batch_sizes=(1, 8),
+                          tune="auto")
+    assert tuned.tuning == res.tuning
+    ref = compile_model(cfg, qp, backend="torch-int", batch_sizes=(1, 8))
+    x = _images(dev, 11, seed=9)
+    assert torch.equal(tuned(x), ref(x))

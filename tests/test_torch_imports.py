@@ -22,8 +22,17 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
+
+# the submodules of each slice, so that a new one cannot be missed by the
+# walk (the serving-at-scale and tuning slice among them)
+EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
+            "repro_torch.tune.space", "repro_torch.tune.cost",
+            "repro_torch.tune.search", "repro_torch.tune.cache",
+            "repro_torch.tune.__main__", "repro_torch.launch.serve",
+            "repro_torch.obs.__main__", "repro_torch.compile.compiler"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -33,6 +42,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 15, res.stdout
+    assert EXPECTED <= set(res.stdout.splitlines()[1].split()), res.stdout
 
 
 def _imported_roots(path: Path):

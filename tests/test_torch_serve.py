@@ -106,9 +106,14 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(qparams8,
 
 
 def test_compile_model_rejects_tuning_and_unknown_backends(qparams8):
+    """A tune argument of no accepted form (the counterpart of
+    tests/test_tune.py::test_compile_model_rejects_bad_tune_argument), an
+    unknown backend and a max batch outside the buckets are refused."""
     qp = params_from_numpy(qparams8)
     with pytest.raises(ValueError, match="tune"):
-        compile_model(R.RESNET8, qp, tune="auto", device="cpu")
+        compile_model(R.RESNET8, qp, tune="magic", device="cpu")
+    with pytest.raises(TypeError):
+        compile_model(R.RESNET8, qp, tune=42, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         compile_model(R.RESNET8, qp, backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="batch_sizes"):

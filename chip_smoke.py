@@ -115,6 +115,25 @@ Phases, one JSON line each:
                 tensor-core path (``conv2d_int8_op.launches_by_path``);
                 per layer its time, bound, TOP/s and path, and at the
                 kernels_micro shape.
+  5e. train  — ResNet20 at full width (16/32/64), CIFAR-10 shapes, batch
+                128 on ``SyntheticCifar`` (nothing downloaded), through the
+                port's training and quantization flow: 60 float steps of
+                ``train.loop.run`` (``sgdm(lr=0.1, warmup=6)``, checkpoints
+                in a temporary directory; the loss finite and falling),
+                the resume check in deterministic mode (10 steps straight
+                against 5 + checkpoint + resume, bitwise), PTQ with the
+                percentile observer on ``calibration_batches(4, 128)``,
+                ``validate_export`` bitwise across ``cuda``, ``cuda-stream``
+                and ``torch-int``, the calibration JSON read back, 20 QAT
+                steps (``fine_tune``), re-calibration and the gate again,
+                then top-1 on a 1,024-image ``synthetic_eval_set`` through
+                ``ResNetEngine`` on the three backends and
+                ``ShardedResNetEngine`` on ``cuda`` (identical, one capture
+                a bucket) against ``evaluate_float``; the launch counters,
+                zeroed before the evaluation, show ``conv_stem``,
+                ``resblock_fused`` and ``block_chain`` replayed once a
+                bucket run.  Step ms, images/s, QAT step ms, calibration
+                seconds, eval images/s, float / PTQ / QAT top-1.
   6. LM kernels — matmul_int8 bitwise against its plain version at every
                 projection shape of gemma-2b and falcon-mamba-7b at M =
                 2048 (bucket 4, S = 512) and 512, B as (K, N) and packed
@@ -153,9 +172,10 @@ Phases, one JSON line each:
                 replay and placement checks of phase 4; tokens/s and ms
                 of the served call, the graph and the eager forward, idle
                 shares; a profiler pass over one served call each.
-  8. the ``{"kernels": [...], "serve": {...}}`` line (rows 1-3 carry their
-     tuned knob and time beside the rule's; ``serve`` the sharded and tuned
-     summaries), then
+  8. the ``{"kernels": [...], "serve": {...}, "train": {...}}`` line (rows
+     1-3 carry their tuned knob and time beside the rule's and their
+     launches in the train phase's evaluation; ``serve`` the sharded and
+     tuned summaries), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -164,6 +184,7 @@ nvidia-smi reports them.
 Any failure raises, and the script exits non-zero without the last line.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -192,11 +213,15 @@ from repro_torch.compile.compiler import GraphExecutable  # noqa: E402
 from repro_torch.compile.lm_params import logit_tolerance  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dataflow as df  # noqa: E402
+from repro_torch.core import tree  # noqa: E402
 from repro_torch.core.quant import (dequantize,  # noqa: E402
                                    percentile_linear, requantize_shift,
                                    shift_align)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.data.synthetic import SyntheticCifar  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
+from repro_torch.kernels.common import (read_launches,  # noqa: E402
+                                        write_launches)
 # device time of one call: ``reps`` calls captured into one CUDA graph,
 # the median of five replays over ``reps`` (host launch overhead excluded)
 from repro_torch.kernels.common import \
@@ -241,6 +266,16 @@ from repro_torch.obs.profile import REFERENCE_HBM_GBPS  # noqa: E402
 from repro_torch.obs.profile import profile_tasks  # noqa: E402
 from repro_torch.serve import (ImageRequest, ResNetEngine,  # noqa: E402
                                ShardedResNetEngine)
+from repro_torch.quantize import (CalibrationResult,  # noqa: E402
+                                  QuantRecipe, calibration_batches,
+                                  evaluate_compiled, evaluate_engine,
+                                  evaluate_float,
+                                  fine_tune, ptq_quantize, qat_loss,
+                                  synthetic_eval_set, validate_export)
+from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch import tune as T  # noqa: E402
 from repro_torch.tune import space  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
@@ -1283,6 +1318,276 @@ def task_profile_phase(seed, dev, block, chain):
 
 
 # ---------------------------------------------------------------------------
+# Training, PTQ, QAT and the export evaluated through the served kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 128
+TRAIN_STEPS = 60
+TRAIN_WARMUP = 6
+RESUME_STEPS = (10, 5)   # straight run; the run cut at a checkpoint
+QAT_STEPS = 20
+CALIB_BATCHES = 4
+EVAL_N = 1024
+
+
+class TimedPipeline:
+    """A data pipeline that stamps the host clock at each ``next()``: the
+    loop asks for a batch at the start of every step and waits for the
+    step's metrics on the card at its end, so consecutive stamps bound one
+    whole step."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.stamps = []
+
+    @property
+    def state(self):
+        return self.pipe.state
+
+    @state.setter
+    def state(self, value):
+        self.pipe.state = value
+
+    def next(self):
+        self.stamps.append(time.perf_counter())
+        return self.pipe.next()
+
+    def step_ms(self):
+        return [1e3 * (b - a) for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+def step_profile(step, params, opt_state, batch, steps=5):
+    """``torch.profiler`` over ``steps`` train steps after one warm-up:
+    wall ms a step under the profiler (host clock, ended by a
+    synchronisation), the device's busy ms (the kernels and copies it ran,
+    one stream, so they do not overlap), the idle share, launches a step
+    and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params, opt_state, _ = step(params, opt_state, 0, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, opt_state, _ = step(params, opt_state, i + 1, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
+    return dict(wall_ms=wall_s * 1e3 / steps, device_ms=busy_s * 1e3 / steps,
+                idle_share=1.0 - busy_s / wall_s,
+                launches_per_step=sum(e.count for e in dev_events) / steps,
+                top=top_kernels(prof, 8))
+
+
+def resume_check(cfg, params0, seed, dev):
+    """The card's version of tests/test_substrate.py's resume case: in
+    deterministic mode, 10 steps straight against 5 steps, a checkpoint
+    and a resume to step 10; parameters and momenta bitwise."""
+    opt = opt_lib.sgdm(lr=0.1, total_steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+    step = make_train_step(lambda p, b: R.loss_fn(p, cfg, b), opt, dev)
+    straight, cut = RESUME_STEPS
+    quiet = dict(log_every=10 ** 9)
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ckpt_dir = tempfile.mkdtemp(prefix="repro-resume-")
+    try:
+        runs = []
+        for total, ck in ((straight, None), (cut, ckpt_dir),
+                          (straight, ckpt_dir)):
+            runs.append(train_loop.run(
+                train_loop.LoopConfig(total_steps=total, ckpt_dir=ck,
+                                      **quiet),
+                params=params0, opt_state=opt.init(params0),
+                train_step=step, pipeline=SyntheticCifar(TRAIN_BATCH, seed),
+                log=lambda *_: None))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(det[0])
+        torch.backends.cudnn.deterministic = det[1]
+        torch.backends.cudnn.benchmark = det[2]
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = runs[0][:2], runs[2][:2]
+    same = all(torch.equal(x, y) for x, y in zip(tree.leaves(a),
+                                                  tree.leaves(b)))
+    check(same, f"train: {cut} steps + checkpoint + resume to {straight} "
+                f"differ from {straight} steps straight")
+    return dict(steps=straight, cut_at=cut, bitwise=same,
+                leaves=len(tree.leaves(a)))
+
+
+def train_phase(seed, dev):
+    """ResNet20 at full width (16/32/64), CIFAR-10 shapes, batch 128, on
+    ``SyntheticCifar``, through the port's own training and quantization
+    flow, and the export evaluated through the served kernels.
+
+    Float training: 60 steps of ``train.loop.run`` with ``sgdm(lr=0.1,
+    warmup=6)`` and a checkpoint directory, ``quant="none"``; the loss
+    finite and its mean over the last 10 steps below the first 10's; step
+    ms (median, each step ended by a synchronisation), images/s.  Resume
+    bitwise in deterministic mode (``resume_check``).  PTQ with the
+    percentile observer on ``calibration_batches(4, 128)`` (seconds,
+    synchronised), ``validate_export`` bitwise across ``cuda``,
+    ``cuda-stream`` and ``torch-int`` on the card, the calibration's JSON
+    read back equal.  QAT: ``fine_tune`` for 20 steps on the calibrated
+    recipe (step ms), then re-calibration, re-export and the bitwise gate
+    again; a profile of five float and five QAT steps
+    (``step_profile``).  Evaluation on a 1,024-image
+    ``synthetic_eval_set``: the QAT export through ``ResNetEngine`` on
+    ``cuda``, ``cuda-stream`` and ``torch-int`` and through
+    ``ShardedResNetEngine`` on ``cuda``, top-1 identical and one capture a
+    bucket (images/s as the harness times it, the first tick's graph
+    capture included, and again on ``cuda`` and ``cuda-stream`` engines
+    whose bucket is built first); the PTQ export on ``cuda``; the float
+    reference (``evaluate_float``).  The launch counters, zeroed just before the
+    evaluation and read just after, show ``conv_stem`` and
+    ``resblock_fused`` once a bucket run of each ``cuda`` engine and
+    ``block_chain`` once a bucket run on ``cuda-stream``: graph replays."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(R.RESNET20, quant="none")
+    params0 = R.params_to(R.init_params(
+        cfg, torch.Generator().manual_seed(seed)), dev)
+
+    # -- float training ---------------------------------------------------
+    opt = opt_lib.sgdm(lr=0.1, total_steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+    step = make_train_step(lambda p, b: R.loss_fn(p, cfg, b), opt, dev)
+    losses = []
+
+    def logged(p, s, i, b):
+        out = step(p, s, i, b)
+        losses.append(out[2]["loss"])
+        return out
+
+    pipe = TimedPipeline(SyntheticCifar(TRAIN_BATCH, seed))
+    ckpt_dir = tempfile.mkdtemp(prefix="repro-train-")
+    try:
+        params, _, metrics = train_loop.run(
+            train_loop.LoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                                  ckpt_every=TRAIN_STEPS // 2,
+                                  log_every=10 ** 9),
+            params=params0, opt_state=opt.init(params0), train_step=logged,
+            pipeline=pipe, log=lambda *_: None)
+        ckpts = checkpoint.latest_steps(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), "train: a loss not finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"train: the loss did not fall ({first} -> {last})")
+    check(ckpts == [TRAIN_STEPS // 2 - 1, TRAIN_STEPS - 1],
+          f"train: checkpoints at steps {ckpts}")
+    # the first steps pick cuDNN's kernels; the median is the steady state
+    step_ms = float(np.median(pipe.step_ms()[5:]))
+    resume = resume_check(cfg, params0, seed, dev)
+
+    # -- PTQ ----------------------------------------------------------------
+    batches = calibration_batches(CALIB_BATCHES, TRAIN_BATCH, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_bn, calib, qp_ptq = ptq_quantize(cfg, params, batches,
+                                            observer="percentile")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    gate = validate_export(cfg, qp_ptq, batches[0]["images"], device=dev)
+    check(gate["bit_exact"] and gate["max_abs_dev"] == 0.0,
+          f"train: PTQ export not bitwise across {gate['backends']}")
+    back = CalibrationResult.from_dict(json.loads(json.dumps(
+        calib.to_dict())))
+    check(back == calib, "train: the calibration's JSON reads back unequal")
+
+    # -- QAT ----------------------------------------------------------------
+    qat_pipe = TimedPipeline(SyntheticCifar(TRAIN_BATCH, seed))
+    params_q, qat_metrics = fine_tune(
+        cfg, params_bn, QuantRecipe.from_calibration(calib, cfg), qat_pipe,
+        steps=QAT_STEPS, lr=0.01, log=lambda *_: None)
+    check(math.isfinite(float(qat_metrics["loss"])), "train: QAT loss")
+    qat_step_ms = float(np.median(qat_pipe.step_ms()[3:]))
+    recipe = QuantRecipe.from_calibration(calib, cfg)
+    profiles = {
+        "float": step_profile(step, params, opt.init(params), batches[0]),
+        "qat": step_profile(make_train_step(
+            lambda p, b: qat_loss(p, cfg, recipe, b), opt, dev),
+            params_bn, opt.init(params_bn), batches[0])}
+    params_qbn, calib_q, qp_qat = ptq_quantize(cfg, params_q, batches,
+                                               observer="percentile")
+    gate_q = validate_export(cfg, qp_qat, batches[0]["images"], device=dev)
+    check(gate_q["bit_exact"] and gate_q["max_abs_dev"] == 0.0,
+          f"train: QAT export not bitwise across {gate_q['backends']}")
+
+    # -- evaluation through the served kernels ------------------------------
+    images, labels = synthetic_eval_set(EVAL_N, seed=seed)
+    float_ref = evaluate_float(cfg, params_bn, images, labels,
+                               batch=TRAIN_BATCH, device=dev)
+    float_qat = evaluate_float(cfg, params_qbn, images, labels,
+                               batch=TRAIN_BATCH, device=dev)
+    before = read_launches()
+    write_launches({op: (0, {p: 0 for p in by}) for op, (_, by)
+                    in before.items()})
+    evals = {}
+    for name, kw in (("cuda", dict(backend="cuda")),
+                     ("cuda-stream", dict(backend="cuda-stream")),
+                     ("torch-int", dict(backend="torch-int")),
+                     ("sharded-cuda", dict(backend="cuda", replicas=1))):
+        evals[name] = evaluate_compiled(cfg, qp_qat, images, labels,
+                                        batch=TRAIN_BATCH, device=dev, **kw)
+    ptq = evaluate_compiled(cfg, qp_ptq, images, labels, backend="cuda",
+                            batch=TRAIN_BATCH, device=dev)
+    ran = {op.__name__: n for op, (n, _) in read_launches().items()}
+    write_launches(before)
+    top1 = {k: v["top1"] for k, v in evals.items()}
+    check(len(set(top1.values())) == 1,
+          f"train: top-1 differs across the engines: {top1}")
+    check(all(v["retraces"] == 1 for v in evals.values()) and
+          ptq["retraces"] == 1, "train: a bucket captured twice")
+    runs = EVAL_N // TRAIN_BATCH
+    want = dict(conv_stem_op=3 * runs, resblock_fused_op=3 * runs * 9,
+                block_chain_op=runs)
+    check(all(ran[k] == v for k, v in want.items()) and
+          sum(ran.values()) == sum(want.values()),
+          f"train: eval launches {ran}, want {want}")
+    # the harness times the first tick's graph capture too (as the
+    # reference does); a served model is captured at start, so also time
+    # engines whose buckets are built first
+    warm = {}
+    for backend in ("cuda", "cuda-stream"):
+        eng = ResNetEngine(cfg, qp_qat, batch=TRAIN_BATCH, backend=backend,
+                           device=dev)
+        eng.model.warmup()
+        res = evaluate_engine(eng, images, labels)
+        check(res["top1"] == top1["cuda"], f"train: warm {backend} top-1")
+        warm[backend] = res["fps"]
+    gap = float_ref["top1"] - ptq["top1"]
+    summary = dict(
+        model=cfg.name, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+        loss_first10=first, loss_last10=last, final=dict(
+            loss=float(metrics["loss"]), acc=float(metrics["acc"])),
+        train_step_ms=step_ms,
+        train_images_per_s=TRAIN_BATCH / (step_ms * 1e-3),
+        step_profiles=profiles,
+        resume=resume, calibration_s=calib_s,
+        ptq_export=dict(gate, backends=list(gate["backends"])),
+        qat_steps=QAT_STEPS, qat_step_ms=qat_step_ms,
+        qat_export=dict(gate_q, backends=list(gate_q["backends"])),
+        eval_n=EVAL_N, float_top1=float_ref["top1"],
+        float_top1_after_qat=float_qat["top1"], ptq_top1=ptq["top1"],
+        ptq_gap=gap, qat_top1=top1["cuda"],
+        qat_recovers_half=top1["cuda"] >= float_ref["top1"] - max(gap, 0) / 2,
+        eval_top1=top1,
+        eval_images_per_s={k: v["fps"] for k, v in evals.items()},
+        eval_images_per_s_built_first=warm,
+        eval_launches={k[:-3]: v for k, v in ran.items()},
+        phase_s=time.perf_counter() - t_phase)
+    emit("train", **summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # Serving at scale: ShardedResNetEngine over a replica pool
 # ---------------------------------------------------------------------------
 
@@ -2250,6 +2555,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and inputs")
     args = ap.parse_args(argv)
+    # the train phase's resume check runs cuBLAS in deterministic mode,
+    # which needs this set before the first cuBLAS call (32 MiB of
+    # workspace, the size PyTorch picks on Hopper anyway)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     device_phase()
     dev = torch.device("cuda")
@@ -2290,6 +2599,8 @@ def main(argv=None):
         shutil.rmtree(cache_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     task_profile = task_profile_phase(args.seed, dev, block, chain)
+    train = train_phase(args.seed, dev)
+    torch.cuda.empty_cache()
 
     conv = conv2d_phase(rng, dev)
     mm = lm_matmul_phase(rng, dev)
@@ -2311,6 +2622,7 @@ def main(argv=None):
         dict(name="conv_stem", route="cuda", source=src + "conv_stem.cu",
              replaces="src/repro/kernels/conv_stem/conv_stem.py:49",
              launches=launches["conv_stem"],
+             launches_train_eval=train["eval_launches"]["conv_stem"],
              launches_by_path=serve20["launches_by_path"]["conv_stem"],
              bitwise=True, library_ms=None, sass=sass["conv_stem"],
              ptxas=ptxas_by_entry("conv_stem"),
@@ -2321,7 +2633,9 @@ def main(argv=None):
              source=src + "resblock_fused.cu",
              replaces="src/repro/kernels/resblock_fused/"
                       "resblock_fused.py:120",
-             launches=launches["resblock_fused"], bitwise=True,
+             launches=launches["resblock_fused"],
+             launches_train_eval=train["eval_launches"]["resblock_fused"],
+             bitwise=True,
              library_ms=None, sass=sass["resblock_fused"],
              tuned=dict(knob="band_rows",
                         **tuned["cuda"]["kernels"]["resblock_fused"]),
@@ -2329,7 +2643,9 @@ def main(argv=None):
              **block),
         dict(name="block_chain", route="cuda", source=src + "block_chain.cu",
              replaces="src/repro/kernels/megakernel/megakernel.py:203",
-             launches=launches_s["block_chain"], bitwise=True,
+             launches=launches_s["block_chain"],
+             launches_train_eval=train["eval_launches"]["block_chain"],
+             bitwise=True,
              library_ms=None, sass=sass["block_chain"],
              tuned=dict(knob="(batch_tile, split)",
                         **tuned["cuda-stream"]["kernels"]["block_chain"]),
@@ -2392,7 +2708,7 @@ def main(argv=None):
             "chosen", "images_per_s_tuned", "images_per_s_default",
             "served_us_tuned", "served_us_default", "timings_us")}
                   for b, v in tuned.items()},
-        **lm_serve},
+        **lm_serve}, "train": train,
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

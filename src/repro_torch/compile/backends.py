@@ -22,6 +22,10 @@ Built-in backends, all lowering the SAME plan (``lowering.plan_model``):
                       arithmetic, unfused dataflow (the counterpart of
                       ``lax-int``).  Bit-exact with both kernel backends by
                       construction.
+  * ``float``       — float emulation of the integer graph on the same pow2
+                      grids (float32 ``F.conv2d`` on dequantized weights):
+                      the serving A/B reference for quantization loss.
+                      Conv configs only.
 
 LM configs (``compile.lm_params.QLMConfig``) lower through the same three
 backends: :func:`lower_lm` walks ``lowering.plan_lm``'s task program and
@@ -47,6 +51,7 @@ from repro_torch.compile.params import (
     QConvParams, QResNetParams, activation_out_specs)
 from repro_torch.kernels.common import conv_i32
 from repro_torch.models.resnet import A_SPEC
+from repro_torch.models.resnet import _conv as _float_conv
 
 
 @runtime_checkable
@@ -560,3 +565,50 @@ class CudaBackend(CudaStreamBackend):
 
     def __init__(self):
         super().__init__(fuse_stem=False, smem_budget=0)
+
+
+@register_backend("float")
+class FloatBackend:
+    """Float emulation of the integer graph on the same pow2 grids: convs run
+    in float32 on dequantized weights, every activation is fake-quantized
+    onto its integer grid, and the skip stream is rounded onto conv1's
+    product grid.  Tracks the integer backends to float rounding error — the
+    serving A/B reference for quantization loss (an ``ab_backends`` shadow
+    of ``ResNetEngine``, never counted as a bitwise mismatch)."""
+
+    def lower(self, g, cfg, params) -> Callable:
+        if lowering._is_lm_cfg(cfg):
+            raise lowering.LoweringError(
+                f"backend 'float' has no LM lowering for config "
+                f"{cfg.name!r} (family={cfg.family!r}); use 'cuda' or "
+                f"'torch-int'")
+        plan = lowering.plan_model(g, params)
+        stem_out, block_outs = activation_out_specs(params, A_SPEC)
+
+        def fconv(h, c: QConvParams, stride=1):
+            return _float_conv(h, Q.dequantize(c.wq, c.w_spec),
+                               Q.dequantize(c.bq, c.b_spec), stride)
+
+        def fq(x, spec):
+            return Q.dequantize(Q.quantize(x, spec), spec)
+
+        fc_w = Q.dequantize(params.fc.wq, params.fc.w_spec)
+
+        def forward(images):
+            h = fq(images, params.stem.x_spec)
+            h = fq(torch.relu(fconv(h, params.stem)), stem_out)
+            for task in plan.blocks:
+                blk = params.blocks[task.index]
+                y = fq(torch.relu(fconv(h, blk.conv0, task.stride)),
+                       blk.conv1.x_spec)
+                grid = Q.QSpec(32, True, blk.conv1.product_exp)
+                if task.has_ds:
+                    skip = fq(fconv(h, blk.ds, task.stride), grid)
+                else:
+                    skip = fq(h, grid)
+                z = fconv(y, blk.conv1, 1) + skip
+                h = fq(torch.relu(z), block_outs[task.index])
+            pooled = torch.mean(h, dim=(1, 2))
+            return pooled @ fc_w + params.fc.b
+
+        return forward

@@ -9,6 +9,9 @@ bit shift:
 The stored integer is ``clip(round(b * 2^-s), ...)``; the bias exponent is
 ``s_b = s_x + s_w`` so the bias adds straight onto the int32 accumulator.
 
+``fake_quant`` / ``ste_round_clip`` are the QAT view: float in, float out,
+with a straight-through gradient (``torch.autograd.Function``).
+
 Rounding is the integer pipeline's, not torch's:
 
   * ``quantize`` rounds half away from zero (``torch.round`` rounds half to
@@ -23,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +69,53 @@ def bias_spec(x_spec: QSpec, w_spec: QSpec, bits: int = 16) -> QSpec:
     return QSpec(bits=bits, signed=True, exp=x_spec.exp + w_spec.exp)
 
 
+def acc_bits(n_acc: int, bw: int = 8) -> int:
+    """eq. (5): accumulator width = ceil(log2(N_acc)) + 2*bw."""
+    return int(np.ceil(np.log2(n_acc))) + 2 * bw
+
+
+def n_acc(och: int, ich: int, fh: int, fw: int) -> int:
+    """eq. (4): accumulations per output value as the paper writes it,
+    ``och·ich·fh·fw`` (the true per-value count is ``ich·fh·fw``; the
+    paper's expression upper-bounds it for worst-case register sizing)."""
+    return och * ich * fh * fw
+
+
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+class _SteRoundClip(torch.autograd.Function):
+    """Round half away from zero, then clip to ``[qmin, qmax]``; the
+    backward passes the gradient straight through where
+    ``qmin <= x <= qmax`` and gives zero outside (the JAX package's
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, qmin, qmax):
+        ctx.save_for_backward(x)
+        ctx.bounds = (qmin, qmax)
+        return torch.clamp(_round_half_away(x), qmin, qmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        qmin, qmax = ctx.bounds
+        inside = (x >= qmin) & (x <= qmax)
+        return torch.where(inside, g, torch.zeros_like(g)), None, None
+
+
+def ste_round_clip(x: torch.Tensor, qmin: float, qmax: float) -> torch.Tensor:
+    """The straight-through round + clip of QAT (also used with
+    data-dependent, detached scales, as ``quantize.qat`` does)."""
+    return _SteRoundClip.apply(x, float(qmin), float(qmax))
+
+
+def fake_quant(x: torch.Tensor, spec: QSpec) -> torch.Tensor:
+    """QAT fake quantization: float -> float with the STE gradient;
+    ``fake_quant(x) == dequantize(quantize(x))``."""
+    q = ste_round_clip(x * (2.0 ** (-spec.exp)), spec.qmin, spec.qmax)
+    return q * spec.scale
 
 
 def quantize(x: torch.Tensor, spec: QSpec) -> torch.Tensor:
@@ -138,6 +187,54 @@ def requantize_shift(acc: torch.Tensor, from_exp: int,
         q = (acc + (1 << (shift - 1))) >> shift
     q = torch.clamp(q, to_spec.qmin, to_spec.qmax)
     return q.to(to_spec.int_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise int8 (pow2 scale) tensor codec: int8 optimizer state.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockQuantized:
+    """A tensor stored as int8 payload + per-block pow2 exponents (a tree
+    node of two leaves, ``q`` then ``exp``, as in the JAX package)."""
+
+    q: torch.Tensor          # int8, same shape as the original
+    exp: torch.Tensor        # int8 exponents, one per block of the last dim
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() + self.exp.numel()
+
+
+def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
+    """``x`` zero-padded along its last dim to whole blocks, viewed as
+    ``(..., n_blocks, block)``."""
+    last = x.shape[-1]
+    pad = (-last) % block
+    if pad:
+        x = F.pad(x, (0, pad))
+    return x.reshape(tuple(x.shape[:-1]) + ((last + pad) // block, block))
+
+
+def block_quantize(x: torch.Tensor, block: int = 128) -> BlockQuantized:
+    """Quantize along the last dim in blocks with a per-block pow2 scale:
+    exponent ``ceil(log2(amax / 127))`` (``calibrate_exp``'s rule), so
+    dequantization is ``q * 2**exp`` (a shift)."""
+    shape, last = tuple(x.shape), x.shape[-1]
+    xb = _blocks(x.to(torch.float32), block)
+    amax = torch.clamp_min(xb.abs().amax(dim=-1, keepdim=True), 1e-12)
+    e = torch.clamp(torch.ceil(torch.log2(amax / 127.0)), -127, 127)
+    q = torch.clamp(_round_half_away(xb * torch.pow(2.0, -e)), -127, 127)
+    q = q.to(torch.int8).reshape(shape[:-1] + (-1,))[..., :last]
+    return BlockQuantized(q=q, exp=e.squeeze(-1).to(torch.int8))
+
+
+def block_dequantize(bq: BlockQuantized, block: int = 128) -> torch.Tensor:
+    shape, last = tuple(bq.q.shape), bq.q.shape[-1]
+    qb = _blocks(bq.q.to(torch.float32), block)
+    x = qb * torch.pow(2.0, bq.exp.to(torch.float32))[..., None]
+    return x.reshape(shape[:-1] + (-1,))[..., :last]
 
 
 def fold_batchnorm(w, b, gamma, beta, mean, var, eps=1e-5):

@@ -1,0 +1,151 @@
+"""Optimizers over nested parameter trees (no ``torch.optim``).
+
+* ``sgdm``  — SGD + momentum + cosine annealing (the paper's training
+  recipe).
+* ``adamw`` — AdamW with optional **int8 pow2-block-quantized moments**
+  (``core.quant.block_quantize``): moments are dequantized, updated and
+  requantized each step.
+
+API, the JAX package's: ``opt = make(name, **hp)``; ``state =
+opt.init(params)``; ``params, state = opt.update(grads, state, params,
+step)``.  Updates are functional (new tensors, the old ones untouched) and
+run without autograd.
+
+Every leaf is updated, as the reference maps over every leaf: a gradient
+of ``None`` (a leaf the loss does not read, e.g. ``bn.mean`` / ``bn.var``
+in training mode) counts as zero, so weight decay still shrinks it.  The
+learning-rate schedule is computed on the host in float32, as the
+reference computes it on the device, so both packages take the same step:
+its cosine is the C library's float32 ``cosf``, which is what XLA's CPU
+backend computes (numpy's and torch's float32 cosines differ from it in
+the last place for about one argument in twenty).
+"""
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import dataclasses
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import quant as Q
+from repro_torch.core import tree as T
+
+F32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable
+    update: Callable
+
+
+@functools.cache
+def _libm_cosf():
+    cosf = ctypes.CDLL(ctypes.util.find_library("m")).cosf
+    cosf.restype, cosf.argtypes = ctypes.c_float, [ctypes.c_float]
+    return cosf
+
+
+def cos_f32(x) -> np.float32:
+    """The float32 cosine of a float32 ``x``, as C's ``cosf``."""
+    return F32(_libm_cosf()(float(F32(x))))
+
+
+def cosine_lr(base_lr: float, total_steps: int, warmup: int = 0):
+    """``lr(step)`` -> float32: linear warm-up over ``warmup`` steps, then
+    a cosine from ``base_lr`` to 0 at ``total_steps``."""
+    def lr(step):
+        step = F32(step)
+        warm = min(F32(1.0), F32((step + F32(1)) / F32(max(warmup, 1))))
+        t = F32((step - F32(warmup)) / F32(max(total_steps - warmup, 1)))
+        t = min(max(t, F32(0.0)), F32(1.0))
+        cos = cos_f32(F32(np.pi) * t)
+        return F32(F32(F32(F32(base_lr) * warm) * F32(0.5)) * F32(1 + cos))
+    return lr
+
+
+def _grad_or_zero(g, p):
+    return torch.zeros_like(p) if g is None else g
+
+
+def sgdm(lr=0.1, momentum=0.9, weight_decay=1e-4, total_steps=1000,
+         warmup=0):
+    sched = cosine_lr(lr, total_steps, warmup)
+
+    def init(params):
+        return dict(mu=T.tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = float(sched(step))
+
+        def upd(p, g, m):
+            g = _grad_or_zero(g, p) + weight_decay * p
+            m = momentum * m + g
+            return p - lr_t * m, m
+
+        out = T.tree_map(upd, params, grads, state["mu"])
+        return T.tree_map(lambda _, o: o[0], params, out), \
+            dict(mu=T.tree_map(lambda _, o: o[1], params, out))
+
+    return Optimizer(init, update)
+
+
+def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          total_steps=10_000, warmup=200, int8_state=False,
+          state_block=128):
+    sched = cosine_lr(lr, total_steps, warmup)
+
+    def _q(x):
+        if not int8_state or x.numel() < state_block:
+            return x
+        return Q.block_quantize(x.to(torch.float32), block=state_block)
+
+    def _dq(x):
+        if isinstance(x, Q.BlockQuantized):
+            return Q.block_dequantize(x, block=state_block)
+        return x
+
+    def init(params):
+        def zeros(p):
+            return _q(torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device))
+        return dict(m=T.tree_map(zeros, params),
+                    v=T.tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = float(sched(step))
+        t = F32(step) + F32(1)
+        c1 = float(F32(1) - F32(b1) ** t)
+        c2 = float(F32(1) - F32(b2) ** t)
+
+        def upd(p, g, m, v):
+            gf = _grad_or_zero(g, p).to(torch.float32)
+            mf = b1 * _dq(m) + (1 - b1) * gf
+            vf = b2 * _dq(v) + (1 - b2) * gf * gf
+            u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+            u = u + weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr_t * u).to(p.dtype), _q(mf), \
+                _q(vf)
+
+        # the walk follows the params' structure, so a BlockQuantized
+        # moment arrives whole at its parameter's leaf
+        out = T.tree_map(upd, params, grads, state["m"], state["v"])
+        return T.tree_map(lambda _, o: o[0], params, out), dict(
+            m=T.tree_map(lambda _, o: o[1], params, out),
+            v=T.tree_map(lambda _, o: o[2], params, out))
+
+    return Optimizer(init, update)
+
+
+def make(name: str, **hp) -> Optimizer:
+    if name == "sgdm":
+        return sgdm(**hp)
+    if name == "adamw":
+        return adamw(**hp)
+    raise ValueError(name)

@@ -1038,3 +1038,34 @@ def test_device_search_on_the_card(dev, backend, tmp_path, monkeypatch):
     ref = compile_model(cfg, qp, backend="torch-int", batch_sizes=(1, 8))
     x = _images(dev, 11, seed=9)
     assert torch.equal(tuned(x), ref(x))
+
+
+def test_float_train_step_and_export_validation_on_the_card(dev):
+    """One float train step of ResNet8 on the card (finite loss, every
+    leaf still on the card, every weight moved, the bn variances decayed
+    though they have no gradient), then PTQ of the
+    result and the export held bitwise across cuda, cuda-stream and
+    torch-int on the card."""
+    import dataclasses
+
+    from repro_torch.quantize import (calibration_batches, ptq_quantize,
+                                      validate_export)
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.core import tree as T
+
+    cfg = dataclasses.replace(R.RESNET8, quant="none")
+    params = R.params_to(R.init_params(
+        cfg, torch.Generator().manual_seed(0)), dev)
+    opt = opt_lib.sgdm(lr=0.1, total_steps=10)
+    step = make_train_step(lambda p, b: R.loss_fn(p, cfg, b), opt, dev)
+    batches = calibration_batches(2, 16)
+    new, state, metrics = step(params, opt.init(params), 0, batches[0])
+    assert math.isfinite(float(metrics["loss"]))
+    for (path, a), b in zip(T.flatten_with_path(new), T.leaves(params)):
+        assert a.device.type == "cuda"
+        if path.endswith(("/w", "bn/var")):
+            assert not torch.equal(a, b), path
+    _, _, qp = ptq_quantize(cfg, new, batches, observer="percentile")
+    check = validate_export(cfg, qp, batches[1]["images"][:8], device=dev)
+    assert check["bit_exact"] and check["max_abs_dev"] == 0.0

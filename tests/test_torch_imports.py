@@ -27,12 +27,19 @@ sys.exit(1 if bad else 0)
 """
 
 # the submodules of each slice, so that a new one cannot be missed by the
-# walk (the serving-at-scale and tuning slice among them)
+# walk (the serving-at-scale and tuning slice, and the training and
+# quantization slice, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
             "repro_torch.tune.__main__", "repro_torch.launch.serve",
-            "repro_torch.obs.__main__", "repro_torch.compile.compiler"}
+            "repro_torch.obs.__main__", "repro_torch.compile.compiler",
+            "repro_torch.core.tree", "repro_torch.data.synthetic",
+            "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+            "repro_torch.train.loop", "repro_torch.quantize.observers",
+            "repro_torch.quantize.calibrate", "repro_torch.quantize.qat",
+            "repro_torch.quantize.export", "repro_torch.quantize.evaluate",
+            "repro_torch.quantize.__main__", "repro_torch.launch.train"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

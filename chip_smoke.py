@@ -84,6 +84,32 @@ Phases, one JSON line each:
                 the same batch, the whole run against ``ResNetEngine``
                 serving the same images; images/s, queue-wait and compute
                 p50/p99, deadlines met, buckets used.
+  5a'. traffic — ``repro_torch.traffic`` and ``obs.health`` with ResNet20
+                (``init_params(seed)``) as the primary and ResNet8
+                (``init_params(seed + 1)``) as the degrade variant:
+                (a) the traffic CLI's virtual-time simulation (bursty
+                2,400/s for 0.5 s, the default classes, autoscaling 1..4
+                replicas, the paper's FPGA service rates) with
+                ``cuda-stream`` models at bucket 8 and a health monitor
+                writing bundles: every dispatch bitwise the eager forward
+                and within 1e-5 of ``torch-int``, each request served its
+                row, the report equal to a run with no model, alert log
+                and bundles equal across two runs, ``block_chain``
+                launches = dispatches x plan; (b) ``LiveTrafficRunner`` over
+                ``ShardedResNetEngine`` on ``cuda`` (buckets 1, 8, 32, 1 ms
+                window, alerts actuating): steady Poisson 20,000/s for 0.5
+                s, the same with no obs session, and on-off bursts at
+                120,000/s (2/3/5 ms classes); every dispatch bitwise
+                ``ResNetEngine``'s model on its batch, every logit bitwise
+                ``ResNetEngine``'s for its image and within 1e-5 of
+                ``torch-int``, submitted =
+                served + dropped per class, the strict class never degraded
+                or dropped, the ``slo_*`` counters equal to the report,
+                bundles and alert logs parsed, ``conv_stem`` and
+                ``resblock_fused`` launches = bucket runs x plan; images/s,
+                hit rates, waits, alerts printed; (c) one ``launch.serve``
+                call with the traffic flags, its metrics, alert log,
+                bundles and trace parsed.
   5b. tune    — ``tune.search`` for ResNet20 at bucket 32 on both
                 backends with timing on the card and validation
                 (``REPRO_TUNE_CACHE`` in a temporary directory): the winner
@@ -172,10 +198,11 @@ Phases, one JSON line each:
                 replay and placement checks of phase 4; tokens/s and ms
                 of the served call, the graph and the eager forward, idle
                 shares; a profiler pass over one served call each.
-  8. the ``{"kernels": [...], "serve": {...}, "train": {...}}`` line (rows
-     1-3 carry their tuned knob and time beside the rule's and their
-     launches in the train phase's evaluation; ``serve`` the sharded and
-     tuned summaries), then
+  8. the ``{"kernels": [...], "serve": {...}, "train": {...},
+     "traffic": {...}}`` line (rows 1-3 carry their tuned knob and time
+     beside the rule's and their launches in the train phase's evaluation
+     and in the traffic phase; ``serve`` the sharded and tuned
+     summaries), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -260,7 +287,12 @@ from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
+                             alert_log_path, default_rules, read_bundle)
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
+from repro_torch.obs.__main__ import (load_alerts,  # noqa: E402
+                                      load_chrome_trace)
 from repro_torch.obs.metrics import parse_text  # noqa: E402
 from repro_torch.obs.profile import REFERENCE_HBM_GBPS  # noqa: E402
 from repro_torch.obs.profile import profile_tasks  # noqa: E402
@@ -277,6 +309,12 @@ from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch import tune as T  # noqa: E402
+from repro_torch.serve.sched import FakeClock  # noqa: E402
+from repro_torch.traffic import (PAPER_FPS, AutoscaleConfig,  # noqa: E402
+                                 Autoscaler, LiveTrafficRunner,
+                                 OnOffProcess, OverloadRouter, ServiceModel,
+                                 SimServer, TrafficSim, make_process,
+                                 parse_classes)
 from repro_torch.tune import space  # noqa: E402
 from repro_torch.tune.config import KernelConfig  # noqa: E402
 
@@ -1042,11 +1080,18 @@ def check_traced(ran, launches, per_run, runs, what):
     """The kernels the card ran in a served run (``traced_launches``): the
     plan once for every bucket run and no other kernel of the port, and
     the wrappers' counters agree."""
-    want = {k: 0 for k in ran}
-    want.update({k: runs * v for k, v in per_run.items()})
-    check(ran == want,
-          f"{what}: the profiler saw {ran} kernel launches, want {want} "
-          f"({runs} bucket runs of {per_run})")
+    check_traced_want(ran, launches,
+                      {k: runs * v for k, v in per_run.items()},
+                      f"{what} ({runs} bucket runs of {per_run})")
+
+
+def check_traced_want(ran, launches, want, what):
+    """The kernels the card ran (``traced_launches``) are ``want`` and no
+    other kernel of the port, and the wrappers' counters agree."""
+    full = {k: 0 for k in ran}
+    full.update(want)
+    check(ran == full,
+          f"{what}: the profiler saw {ran} kernel launches, want {full}")
     check(all(ran[k] == n for k, n in launches.items()),
           f"{what}: the counters say {launches}, the profiler {ran}")
 
@@ -1770,6 +1815,558 @@ def sharded_serve_phase(cfg, seed, backend):
         traced_launches=ran, launches=launches, traced_runs=runs,
         chains=chains)
     emit("sharded_serve", model=cfg.name, backend=backend, **summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Traffic and health: repro_torch.traffic over the port's engines
+# ---------------------------------------------------------------------------
+
+TRAFFIC_BATCH = 8       # the simulator's bucket (the traffic CLI's --batch)
+SIM_RATE = 2400.0       # mean arrivals/s of the simulated bursty trace
+SIM_DURATION = 0.5      # seconds of virtual time
+SIM_BURST_S = 0.05      # mean ON and OFF periods of the bursty trace
+SIM_REPLICAS = 4        # the primary autoscales over 1..4 replicas
+HEALTH_INTERVAL_S = 0.02
+LIVE_SLACK_MS = 1.0
+LIVE_IMAGES = 256       # request i carries image i % 256
+# the live legs: (name, arrival process, SLO classes; None = the defaults)
+LIVE_LEGS = (
+    ("steady", dict(pattern="poisson", rate=20_000.0, duration=0.5), None),
+    ("overload", dict(pattern="onoff", on_rate=120_000.0, on_s=0.05,
+                      off_s=0.05, duration=0.5),
+     "interactive:2:0:strict,standard:3:1:degrade,bulk:5:2:drop"),
+)
+CLI_REQUESTS = 256
+CLI_RATE = 20_000.0
+
+
+def zero_resnet_launches():
+    conv_stem_op.launches = resblock_fused_op.launches = 0
+    block_chain_op.launches = conv2d_int8_op.launches = 0
+
+
+def resnet_launches():
+    return dict(conv_stem=conv_stem_op.launches,
+                resblock_fused=resblock_fused_op.launches,
+                block_chain=block_chain_op.launches,
+                conv2d_int8=conv2d_int8_op.launches)
+
+
+class RecordedModel:
+    """A ``CompiledModel`` that keeps each call's input batch and logits:
+    what the simulator's dispatches computed, to be checked after the
+    run (its own calls are not the run's)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = []
+
+    def __call__(self, x):
+        out = self.model(x)
+        self.calls.append((np.asarray(x), out))
+        return out
+
+
+def traffic_sim_run(models, classes, arrivals, images, bundle_dir):
+    """One run of the traffic CLI's virtual-time simulation: ResNet20 as the
+    primary (``SIM_REPLICAS`` replicas behind the autoscaler), ResNet8 as
+    the degrade variant, each served at the paper's Kria KV260 FPGA rate
+    (``PAPER_FPS``; the card's own speed is invisible in virtual time),
+    a passive ``HealthMonitor`` with a ``FlightRecorder`` on a session
+    bound to the simulation's clock, dumping a bundle into ``bundle_dir``
+    on each alert.  ``models`` maps a variant to its model (none: queueing
+    only).  Returns (sim, report, alert log, the bundles read back)."""
+    clock = FakeClock()
+    ob = obs_runtime.instrument(clock=clock)
+    try:
+        rec = FlightRecorder()
+        rec.attach(ob.trace)
+        health = HealthMonitor(ob, rules=default_rules(
+            [c.name for c in classes]), interval_s=HEALTH_INTERVAL_S,
+            recorder=rec, bundle_dir=bundle_dir)
+        ob.health = health
+        scaler = Autoscaler(AutoscaleConfig(
+            min_replicas=1, max_replicas=SIM_REPLICAS, cooldown_s=0.05),
+            clock=clock)
+        servers = {arch: SimServer(
+            arch, ServiceModel.from_fps(PAPER_FPS[arch]), clock,
+            replicas=SIM_REPLICAS if arch == "resnet20" else 1,
+            max_batch=TRAFFIC_BATCH, slack_ms=2.0, model=models.get(arch),
+            active=scaler.active if arch == "resnet20" else None)
+            for arch in ("resnet20", "resnet8")}
+        router = OverloadRouter(classes, primary="resnet20",
+                                degraded="resnet8")
+        sim = TrafficSim(servers, classes, router, clock, autoscaler=scaler,
+                         health=health)
+        report = sim.run(arrivals, images=images)
+    finally:
+        obs_runtime.disable()
+    return sim, report, health.alert_log_jsonl(), [
+        read_bundle(b) for b in health.bundles]
+
+
+def class_summary(report):
+    return {name: dict(submitted=c["submitted"], served=c["count"],
+                       degraded=c["degraded"], dropped=c["dropped"],
+                       deadline_hit_rate=c["deadline_hit_rate"],
+                       queue_wait_ms=c["queue_wait_ms"],
+                       compute_ms=c["compute_ms"])
+            for name, c in report["classes"].items()}
+
+
+def traffic_sim_phase(qps, dev, seed, out_dir):
+    """(a) The simulator with real models on the card: ``cuda-stream``
+    ``CompiledModel``s at bucket ``TRAFFIC_BATCH`` (so ``block_chain``
+    runs), replaying the bursty trace of the CPU cross-check.  Every
+    request's logits bitwise the same model's eager forward on its
+    dispatch's batch and within 1e-5 of ``torch-int`` with equal argmax;
+    the schedule and report equal to a run with no model; the alert log
+    and the bundles of two runs identical; ``block_chain``'s counter =
+    dispatches x plan, and so are the kernels the profiler saw the card
+    run."""
+    classes = parse_classes(None)
+    arrivals = make_process(
+        "bursty", SIM_RATE, seed=seed,
+        class_mix={c.name: 1.0 for c in classes}, burst_on_s=SIM_BURST_S,
+        burst_off_s=SIM_BURST_S).generate(horizon_s=SIM_DURATION)
+    rng = np.random.default_rng(seed + 29)
+    images = rng.uniform(0.0, 0.999, (len(arrivals), 32, 32, 3)).astype(
+        np.float32)
+    row_of = {im.tobytes(): i for i, im in enumerate(images)}
+    served_models = {arch: compile_model(cfg, qp, backend="cuda-stream",
+                                         batch_sizes=(TRAFFIC_BATCH,),
+                                         device=dev).warmup()
+                     for arch, (cfg, qp) in qps.items()}
+    int_models = {arch: compile_model(cfg, qp, backend="torch-int",
+                                      batch_sizes=(TRAFFIC_BATCH,),
+                                      device=dev)
+                  for arch, (cfg, qp) in qps.items()}
+    recorded = {arch: RecordedModel(m) for arch, m in served_models.items()}
+    def timed_run():
+        t0 = time.perf_counter()
+        out = traffic_sim_run(recorded, classes, arrivals, images,
+                              os.path.join(out_dir, "sim1"))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    zero_resnet_launches()
+    ((sim, report, log, bundles), wall), ran, _ = traced_launches(timed_run)
+    launches = resnet_launches()
+    dispatches = {arch: len(r.calls) for arch, r in recorded.items()}
+    want = {k: 0 for k in launches}
+    for arch, (cfg, _) in qps.items():
+        per_run, _ = launch_plan(cfg, "cuda-stream")
+        for k, v in per_run.items():
+            want[k] += dispatches[arch] * v
+    check(launches == want and launches["block_chain"] > 0,
+          f"traffic sim: launch counts {launches} for {dispatches} "
+          f"dispatches, want {want}")
+    check_traced_want(ran, launches, want,
+                      f"traffic sim ({dispatches} dispatches)")
+
+    where = {}
+    max_dev = 0.0
+    for arch, rec in recorded.items():
+        m = served_models[arch]
+        for k, (x, out) in enumerate(rec.calls):
+            xt = torch.as_tensor(x, device=dev)
+            n = x.shape[0]
+            check(torch.equal(out, m._forward(m.pad(xt))[:n]),
+                  f"traffic sim {arch}: dispatch {k} differs from the "
+                  f"eager lowered forward on its batch")
+            ref = int_models[arch](xt)
+            dev_k = float((out - ref).abs().max())
+            check(dev_k <= LOGIT_ATOL and torch.equal(out.argmax(-1),
+                                                      ref.argmax(-1)),
+                  f"traffic sim {arch}: dispatch {k} deviates {dev_k} from "
+                  f"torch-int")
+            max_dev = max(max_dev, dev_k)
+            host = out.cpu().numpy()
+            for j in range(n):
+                where[row_of[x[j].tobytes()]] = (arch, host[j])
+    done = [r for r in sim.requests if r.done]
+    check(len(done) == report["totals"]["served"] == len(where),
+          f"traffic sim: {len(done)} served, {len(where)} dispatched rows")
+    for r in done:
+        arch, logits = where[r.rid]
+        check(r.variant == arch and np.array_equal(r.logits, logits),
+              f"traffic sim: request {r.rid} was not served the logits of "
+              f"its dispatch")
+
+    _, again, log2, bundles2 = traffic_sim_run(
+        served_models, classes, arrivals, images,
+        os.path.join(out_dir, "sim2"))
+    _, queueing, log3, _ = traffic_sim_run(
+        {}, classes, arrivals, images, os.path.join(out_dir, "sim3"))
+    check(log == log2,
+          "traffic sim: the alert logs of two runs on the card differ")
+    check(len(bundles) == len(bundles2) and all(
+        a == b for a, b in zip(bundles, bundles2)),
+        "traffic sim: the bundles of two runs on the card differ")
+    for key in ("totals", "classes", "servers", "autoscaler"):
+        check(report[key] == again[key] == queueing[key],
+              f"traffic sim: {key} depends on the arithmetic: {report[key]}"
+              f" / {again[key]} / {queueing[key]}")
+    check(log == log3, "traffic sim: the alert log depends on the model")
+    summary = dict(
+        arrivals=len(arrivals), offered_rate=SIM_RATE,
+        duration_s=SIM_DURATION, dispatches=dispatches,
+        launches=launches, traced_launches=ran, wall_s=wall, max_abs_dev_torch_int=max_dev,
+        totals=report["totals"], classes=class_summary(report),
+        autoscaler={k: report["autoscaler"][k] for k in (
+            "active", "scale_events", "last_reason")},
+        alerts=report["health"]["alerts"],
+        alerts_by_rule=report["health"]["by_rule"],
+        alert_log_bytes=len(log), bundles=len(bundles),
+        bundle_reasons=[b["manifest"]["reason"] for b in bundles],
+        bitwise_eager=True,
+        schedule_equals_no_model=True)
+    emit("traffic_sim", backend="cuda-stream", bucket=TRAFFIC_BATCH,
+         service_model="paper Table 3, Kria KV260 FPGA", **summary)
+    return summary
+
+
+def live_images(seed):
+    rng = np.random.default_rng(seed + 31)
+    return rng.uniform(0.0, 0.999, (LIVE_IMAGES, 32, 32, 3)).astype(
+        np.float32)
+
+
+def leg_arrivals(spec, seed, classes):
+    mix = {c.name: 1.0 for c in classes}
+    if spec["pattern"] == "onoff":
+        return OnOffProcess(spec["on_rate"], mean_on_s=spec["on_s"],
+                            mean_off_s=spec["off_s"], seed=seed,
+                            class_mix=mix).generate(
+                                horizon_s=spec["duration"])
+    return make_process(spec["pattern"], spec["rate"], seed=seed,
+                        class_mix=mix).generate(horizon_s=spec["duration"])
+
+
+def record_dispatches(eng, arch, records):
+    """Record each dispatch of ``eng`` through its ``dispatch_listeners``:
+    the payloads of the micro-batch and the logits its replica computed."""
+    eng.dispatch_listeners.append(lambda d, out: records.append(
+        (arch, [r.payload for r in d.requests], out)))
+
+
+def counter_by_class(ob, name, **match):
+    c = ob.metrics.get(name)
+    out = {}
+    if c is None:
+        return out
+    for key, value in c.labelled():
+        labels = dict(key)
+        if all(labels.get(k) == v for k, v in match.items()):
+            out[labels["cls"]] = out.get(labels["cls"], 0) + value
+    return out
+
+
+def live_leg(name, spec, classes_spec, qps, devices, refs, seed, out_dir,
+             observed=True, traced=False):
+    """One leg of (b): ``LiveTrafficRunner`` over a ``ShardedResNetEngine``
+    a variant on ``cuda`` (one replica a card for the primary), buckets
+    (1, 8, 32), a 1 ms coalescing window, a ``HealthMonitor`` with a
+    ``FlightRecorder`` writing bundles, alerts actuating the router and
+    the autoscaler.  ``observed=False`` runs the same leg with no obs
+    session and no monitor: what the obs instrumentation costs the loop.
+    ``traced=True`` runs it under ``traced_launches``: the kernels the
+    card ran are the plan once a bucket run, and the counters agree.  The
+    profiler slows the host loop, so a traced leg's rates are not the
+    leg's rates."""
+    classes = parse_classes(classes_spec)
+    arrivals = leg_arrivals(spec, seed, classes)
+    images = live_images(seed)
+    variants, records = {}, []
+    for arch, (cfg, qp) in qps.items():
+        eng = ShardedResNetEngine(
+            cfg, qp, batch=BUCKET, backend="cuda",
+            devices=devices if arch == "resnet20" else devices[:1],
+            batch_sizes=BUCKETS, slack_ms=LIVE_SLACK_MS)
+        eng.pool.warmup()
+        record_dispatches(eng, arch, records)
+        variants[arch] = eng
+    runs0 = {arch: sum(e.model.run_counts.values())
+             for arch, e in variants.items()}
+    bundle_dir = os.path.join(out_dir, name)
+    ob = obs_runtime.instrument() if observed else None
+    health = None
+    try:
+        if observed:
+            rec = FlightRecorder()
+            rec.attach(ob.trace)
+            health = HealthMonitor(ob, rules=default_rules(
+                [c.name for c in classes]), interval_s=HEALTH_INTERVAL_S,
+                recorder=rec, bundle_dir=bundle_dir)
+            health.census_extra.update(arch="resnet20",
+                                       degrade_arch="resnet8",
+                                       backend="cuda", leg=name)
+            ob.health = health
+        scaler = Autoscaler(AutoscaleConfig(
+            min_replicas=1, max_replicas=len(devices)),
+            clock=variants["resnet20"].clock, health=health)
+        variants["resnet20"].set_active_replicas(scaler.active)
+        router = OverloadRouter(classes, primary="resnet20",
+                                degraded="resnet8", health=health)
+        runner = LiveTrafficRunner(variants, classes, router,
+                                   autoscaler=scaler, health=health)
+        def timed_run():
+            t0 = time.perf_counter()
+            out = runner.run(arrivals, images)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        zero_resnet_launches()
+        if traced:
+            (report, wall), ran, _ = traced_launches(timed_run)
+        else:
+            (report, wall), ran = timed_run(), None
+        launches = resnet_launches()
+    finally:
+        if observed:
+            obs_runtime.disable()
+
+    runs = {arch: sum(e.model.run_counts.values()) - runs0[arch]
+            for arch, e in variants.items()}
+    want = {k: 0 for k in launches}
+    for arch, (cfg, _) in qps.items():
+        per_run, _ = launch_plan(cfg, "cuda")
+        for k, v in per_run.items():
+            want[k] += runs[arch] * v
+    check(launches == want and launches["conv_stem"] > 0 and
+          launches["resblock_fused"] > 0,
+          f"traffic {name}: launch counts {launches} for bucket runs "
+          f"{runs}, want {want}")
+    if traced:
+        check_traced_want(ran, launches, want,
+                          f"traffic {name} ({runs} bucket runs)")
+
+    # every dispatch bitwise ResNetEngine's model on the same batch, every
+    # request its row of it and bitwise what ResNetEngine serving the
+    # image in its own batches gave; every logit within 1e-5 of torch-int
+    served = 0
+    dev_int = 0.0
+    for arch, payloads, out in records:
+        x = np.stack([p.image for p in payloads])
+        check(torch.equal(out, refs[arch]["engine"].model(x)),
+              f"traffic {name} {arch}: a dispatch differs from "
+              f"ResNetEngine's model on its batch")
+        host = out.cpu().numpy()
+        for j, p in enumerate(payloads):
+            check(p.done and np.array_equal(p.logits, host[j]),
+                  f"traffic {name}: request {p.rid} was not served its "
+                  f"dispatch's logits")
+            k = p.rid % LIVE_IMAGES
+            check(np.array_equal(p.logits, refs[arch]["served"][k]),
+                  f"traffic {name} {arch}: request {p.rid} differs from "
+                  f"ResNetEngine serving image {k}")
+            d_int = float(np.abs(p.logits - refs[arch]["int"][k]).max())
+            check(d_int <= LOGIT_ATOL and
+                  p.logits.argmax() == refs[arch]["int"][k].argmax(),
+                  f"traffic {name} {arch}: request {p.rid} deviates "
+                  f"{d_int} from torch-int")
+            dev_int = max(dev_int, d_int)
+            served += 1
+
+    t = report["totals"]
+    check(served == t["served"] and
+          t["submitted"] == len(arrivals) == t["served"] + t["dropped"],
+          f"traffic {name}: {len(arrivals)} arrivals, report {t}, "
+          f"{served} dispatched rows")
+    strict = [c.name for c in classes if c.policy == "strict"]
+    for c in classes:
+        r = report["classes"][c.name]
+        check(r["submitted"] == r["count"] + r["dropped"],
+              f"traffic {name} {c.name}: {r['submitted']} submitted, "
+              f"{r['count']} served, {r['dropped']} dropped")
+        check(c.name not in strict or r["degraded"] == r["dropped"] == 0,
+              f"traffic {name}: strict class {c.name} was degraded or "
+              f"dropped")
+    summary = dict(
+        arrivals=len(arrivals), spec=spec, observed=observed, traced=traced,
+        wall_s=wall,
+        host_us_per_arrival=wall / len(arrivals) * 1e6,
+        duration_s=report["duration_s"],
+        images_per_s=t["served"] / report["duration_s"],
+        totals=t, classes=class_summary(report),
+        compute_ms=report["servers"]["resnet20"]["compute_ms"],
+        queue_wait_ms=report["servers"]["resnet20"]["queue_wait_ms"],
+        bucket_runs=runs, launches=launches, traced_launches=ran,
+        autoscaler={k: report["autoscaler"][k] for k in (
+            "active", "scale_events", "last_reason")},
+        strict_classes=strict, max_abs_dev_torch_int=dev_int,
+        bitwise_resnet_engine=True)
+    if observed:
+        summary.update(leg_health(name, ob, health, report, classes,
+                                  bundle_dir))
+    emit("traffic_live", leg=name, backend="cuda", **summary)
+    return summary
+
+
+def leg_health(name, ob, health, report, classes, bundle_dir):
+    """The observed leg's checks: the registry's ``slo_*`` counters equal
+    the report, every bundle reads back, the alert log parses."""
+    submitted = counter_by_class(ob, "slo_submitted_total")
+    dropped = counter_by_class(ob, "slo_dropped_total")
+    served_c = counter_by_class(ob, "slo_served_total")
+    degraded_c = counter_by_class(ob, "slo_served_total", degraded="true")
+    for c in classes:
+        r = report["classes"][c.name]
+        check((submitted.get(c.name, 0), dropped.get(c.name, 0),
+               served_c.get(c.name, 0), degraded_c.get(c.name, 0)) ==
+              (r["submitted"], r["dropped"], r["count"], r["degraded"]),
+              f"traffic {name} {c.name}: the slo_* counters disagree with "
+              f"the report")
+    bundles = [read_bundle(b) for b in health.bundles]
+    check(all(b["manifest"]["census"]["leg"] == name for b in bundles),
+          f"traffic {name}: a bundle lacks its census")
+    log = os.path.join(bundle_dir, "alerts.jsonl")
+    os.makedirs(bundle_dir, exist_ok=True)
+    health.write_alert_log(log)
+    alerts = load_alerts(log)
+    check(len(alerts) == report["health"]["alerts"],
+          f"traffic {name}: the alert log has {len(alerts)} alerts")
+    return dict(alerts=len(alerts),
+                alerts_by_rule=report["health"]["by_rule"],
+                bundles=len(bundles))
+
+
+def traffic_cli(out_dir, device):
+    """(c) One in-process call of the ``launch.serve`` CLI on its SLO path:
+    its metrics, alert log, bundles and trace each parse."""
+    d = os.path.join(out_dir, "cli")
+    os.makedirs(d, exist_ok=True)
+    metrics, trace = os.path.join(d, "metrics.txt"), os.path.join(
+        d, "trace.json")
+    bundles = os.path.join(d, "bundles")
+    t0 = time.perf_counter()
+    report = launch_serve.main([
+        "--arch", "resnet20", "--replicas", "1", "--batch", str(BUCKET),
+        "--buckets", ",".join(map(str, BUCKETS)), "--requests",
+        str(CLI_REQUESTS), "--arrival-rate", str(CLI_RATE),
+        "--slo-classes",
+        "interactive:25:0:strict,standard:50:1:degrade,bulk:200:2:drop",
+        "--degrade-arch", "resnet8", "--alerts", "--bundle-dir", bundles,
+        "--metrics-out", metrics, "--trace-out", trace,
+        "--device", str(device)])
+    wall = time.perf_counter() - t0
+    t = report["totals"]
+    check(t["submitted"] == CLI_REQUESTS == t["served"] + t["dropped"],
+          f"traffic cli: {t}")
+    with open(metrics) as f:
+        parsed = parse_text(f.read())
+    check("slo_submitted_total" in parsed and "sched_served_total" in parsed,
+          "traffic cli: the metrics lack the slo/sched counters")
+    alerts = load_alerts(alert_log_path(metrics))
+    check(alerts == load_alerts(os.path.join(bundles, "alerts.jsonl")) and
+          len(alerts) == report["health"]["alerts"],
+          "traffic cli: the alert logs disagree")
+    n_bundles = len([read_bundle(os.path.join(bundles, b))
+                     for b in sorted(os.listdir(bundles))
+                     if b.startswith("bundle_")])
+    check(n_bundles == len(report["health"]["bundles"]),
+          "traffic cli: bundles on disk and in the report differ")
+    events = load_chrome_trace(trace)
+    summary = dict(requests=CLI_REQUESTS, offered_rate=CLI_RATE,
+                   wall_s=wall, totals=t, alerts=len(alerts),
+                   bundles=n_bundles, trace_events=len(events),
+                   metrics_series=len(parsed))
+    emit("traffic_cli", **summary)
+    return summary
+
+
+def traffic_line(traffic):
+    """The traffic summary that rides on the kernels line."""
+    def leg(v):
+        return dict(arrivals=v["arrivals"], images_per_s=v["images_per_s"],
+                    totals={k: v["totals"][k] for k in (
+                        "submitted", "served", "degraded", "dropped",
+                        "deadline_hit_rate")},
+                    hit_rates={c: d["deadline_hit_rate"]
+                               for c, d in v["classes"].items()},
+                    queue_wait_ms=v["queue_wait_ms"],
+                    compute_ms=v["compute_ms"],
+                    host_us_per_arrival=v["host_us_per_arrival"],
+                    alerts_by_rule=v.get("alerts_by_rule"),
+                    bundles=v.get("bundles"), autoscaler=v["autoscaler"])
+
+    sim = traffic["sim"]
+    return dict(sim={k: sim[k] for k in (
+        "arrivals", "dispatches", "totals", "autoscaler", "alerts_by_rule",
+        "max_abs_dev_torch_int")},
+        live={name: leg(v) for name, v in traffic["live"].items()},
+        live_traced={name: {k: v[k] for k in (
+            "images_per_s", "host_us_per_arrival", "traced_launches")}
+            for name, v in traffic["live_traced"].items()},
+        cli={k: traffic["cli"][k] for k in ("totals", "alerts", "bundles")},
+        launches=traffic["launches"], phase_s=traffic["phase_s"])
+
+
+def traffic_phase(seed, dev, devices):
+    """Phase 5a': ``repro_torch.traffic`` and ``obs.health`` on the card
+    with ResNet20 (``init_params(seed)``) as the primary and ResNet8
+    (``init_params(seed + 1)``) as the degrade variant, at full width:
+    (a) the simulator, (b) the live legs, (c) the CLI.  The launch counters
+    are zeroed just before each run and read just after it; the launches
+    the phase reports are the kernels the profiler saw the card run in the
+    simulator's run and in the traced live legs."""
+    qps = {"resnet20": (R.RESNET20, resnet_qparams(R.RESNET20, seed)),
+           "resnet8": (R.RESNET8, resnet_qparams(R.RESNET8, seed + 1))}
+    t0 = time.perf_counter()
+
+    # what each variant gives for each live image: ResNetEngine on cuda
+    # serving the images in its own batches, and torch-int
+    images = live_images(seed)
+    refs = {}
+    for arch, (cfg, qp) in qps.items():
+        eng = ResNetEngine(cfg, qp, batch=BUCKET, backend="cuda",
+                           batch_sizes=BUCKETS, device=dev)
+        reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(images)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        refs[arch] = dict(engine=eng,
+                          served=np.stack([r.logits for r in reqs]),
+                          int=compile_model(
+                              cfg, qp, backend="torch-int",
+                              batch_sizes=(LIVE_IMAGES,),
+                              device=dev)(images).cpu().numpy())
+
+    out_dir = tempfile.mkdtemp(prefix="repro-traffic-")
+    try:
+        sim = traffic_sim_phase(qps, dev, seed, out_dir)
+        torch.cuda.empty_cache()
+        # the legs, and the steady leg again with no obs session (the
+        # instrumentation's cost to the loop)
+        name, spec, classes = LIVE_LEGS[0]
+        runs = [(*leg, True) for leg in LIVE_LEGS] + [
+            (name + "_no_obs", spec, classes, False)]
+        legs = {name: live_leg(name, spec, classes, qps, devices, refs,
+                               seed, out_dir, observed=observed)
+                for name, spec, classes, observed in runs}
+        # each of them again under the profiler, for the kernels the card
+        # ran: the profiler slows the loop, so the rates are the runs above
+        traced = {name: live_leg(name + "_traced", spec, classes, qps,
+                                 devices, refs, seed, out_dir,
+                                 observed=observed, traced=True)
+                  for name, spec, classes, observed in runs}
+        torch.cuda.empty_cache()
+        cli = traffic_cli(out_dir, dev)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del refs
+    torch.cuda.empty_cache()
+    launches = dict(
+        conv_stem=sum(v["traced_launches"]["conv_stem"]
+                      for v in traced.values()),
+        resblock_fused=sum(v["traced_launches"]["resblock_fused"]
+                           for v in traced.values()),
+        block_chain=sim["traced_launches"]["block_chain"])
+    summary = dict(sim=sim, live=legs, live_traced=traced, cli=cli,
+                   launches=launches,
+                   phase_s=time.perf_counter() - t0)
+    emit("traffic", launches=launches, phase_s=summary["phase_s"])
     return summary
 
 
@@ -2589,6 +3186,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     sharded = {b: sharded_serve_phase(R.RESNET20, args.seed, b)
                for b in ("cuda", "cuda-stream")}
+    torch.cuda.empty_cache()
+    traffic = traffic_phase(args.seed, dev, [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     cache_dir = tempfile.mkdtemp(prefix="repro-tune-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(cache_dir, "tune.json")
     try:
@@ -2623,6 +3223,7 @@ def main(argv=None):
              replaces="src/repro/kernels/conv_stem/conv_stem.py:49",
              launches=launches["conv_stem"],
              launches_train_eval=train["eval_launches"]["conv_stem"],
+             launches_traffic=traffic["launches"]["conv_stem"],
              launches_by_path=serve20["launches_by_path"]["conv_stem"],
              bitwise=True, library_ms=None, sass=sass["conv_stem"],
              ptxas=ptxas_by_entry("conv_stem"),
@@ -2635,6 +3236,7 @@ def main(argv=None):
                       "resblock_fused.py:120",
              launches=launches["resblock_fused"],
              launches_train_eval=train["eval_launches"]["resblock_fused"],
+             launches_traffic=traffic["launches"]["resblock_fused"],
              bitwise=True,
              library_ms=None, sass=sass["resblock_fused"],
              tuned=dict(knob="band_rows",
@@ -2645,6 +3247,7 @@ def main(argv=None):
              replaces="src/repro/kernels/megakernel/megakernel.py:203",
              launches=launches_s["block_chain"],
              launches_train_eval=train["eval_launches"]["block_chain"],
+             launches_traffic=traffic["launches"]["block_chain"],
              bitwise=True,
              library_ms=None, sass=sass["block_chain"],
              tuned=dict(knob="(batch_tile, split)",
@@ -2708,7 +3311,7 @@ def main(argv=None):
             "chosen", "images_per_s_tuned", "images_per_s_default",
             "served_us_tuned", "served_us_default", "timings_us")}
                   for b, v in tuned.items()},
-        **lm_serve}, "train": train,
+        **lm_serve}, "train": train, "traffic": traffic_line(traffic),
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

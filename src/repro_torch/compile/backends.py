@@ -235,7 +235,8 @@ def _cuda_matmul(t, ctx):
             f"time; build the context with lm_context(plan, params, cfg, "
             f"packed=pack_lm_weights(plan, params))")
     mp, x2d, acc0, shape = _lm_matmul_prologue(t, ctx)
-    _lm_matmul_epilogue(matmul_int8_op(x2d, w, acc0), t, mp, shape, ctx)
+    _lm_matmul_epilogue(matmul_int8_op(x2d, w, acc0, config=t.config), t, mp,
+                        shape, ctx)
 
 
 @register_task_impl("torch-int", "matmul")
@@ -269,7 +270,8 @@ def _cuda_attention(t, ctx):
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
 
     q, k, v = _lm_attn_qkv(t, ctx)
-    _lm_attn_finish(flash_attention_op(q, k, v, causal=t.causal), t, ctx)
+    _lm_attn_finish(flash_attention_op(q, k, v, causal=t.causal,
+                                       config=t.config), t, ctx)
 
 
 @register_task_impl("torch-int", "attention")
@@ -315,7 +317,7 @@ def _lm_scan_finish(y, t, ctx):
 def _cuda_scan(t, ctx):
     from repro_torch.kernels.selective_scan.ops import selective_scan_op
 
-    y, _ = selective_scan_op(*_lm_scan_operands(t, ctx))
+    y, _ = selective_scan_op(*_lm_scan_operands(t, ctx), config=t.config)
     _lm_scan_finish(y, t, ctx)
 
 

@@ -13,10 +13,21 @@ model replica per device, least-loaded dispatch, p50/p99 latency split):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet20 \
         --replicas 1 --deadline-ms 5
 
-Weights are random from seed 0, the request images from ``--seed``.
-``--device cpu`` runs the kernels' plain versions on the CPU (a pool of
-``--replicas`` CPU replicas).  The LM workload and the trace-driven SLO
-path of the reference are not ported here yet.
+Trace-driven SLO serving (``repro_torch.traffic``: arrivals from a JSON
+trace or a seeded Poisson process, per-class deadlines/priorities/
+policies, optional autoscaling and accuracy-aware degradation to a cheaper
+variant, health alerts and debug bundles):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet20 \
+        --trace results/trace.json --slo-classes \
+        "interactive:25:0:strict,standard:50:1:degrade" \
+        --autoscale --replicas 1 --degrade-arch resnet8 \
+        --alerts --bundle-dir results/bundles --metrics-out results/m.txt
+
+Weights are random from seed 0 (the degrade variant's from ``--seed +
+1``), the request images from ``--seed``.  ``--device cpu`` runs the
+kernels' plain versions on the CPU (a pool of ``--replicas`` CPU
+replicas).  The LM workload of the reference is not ported here yet.
 """
 from __future__ import annotations
 
@@ -24,7 +35,6 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 RESNET_ARCHS = ("resnet8", "resnet20")
 
@@ -38,16 +48,16 @@ def serve_resnet_sharded(args, cfg, qp, buckets):
     """Replica-pool serving: one compiled replica per device, deadline-based
     coalescing, least-loaded dispatch."""
     from repro_torch.serve.engine import ImageRequest, ShardedResNetEngine
+    from repro_torch.traffic.wiring import pool_devices
 
     if args.ab:
         raise SystemExit(
             "--ab shadow backends are not supported with --replicas; run "
             "the A/B probe on the single-device engine (drop --replicas)")
-    devices = None if args.device == "cuda" else \
-        [args.device] * args.replicas
     eng = ShardedResNetEngine(
         cfg, qp, batch=args.batch, backend=args.backend,
-        replicas=args.replicas, devices=devices, batch_sizes=buckets,
+        replicas=args.replicas,
+        devices=pool_devices(args.device, args.replicas), batch_sizes=buckets,
         slack_ms=args.slack_ms, tune=args.tune or None)
     _print_tuning(eng.tuning)
     eng.pool.warmup()                 # serve-only timings below
@@ -101,17 +111,121 @@ def _serve_resnet_single(args, cfg, qp, buckets):
     return eng
 
 
-def serve_resnet(args):
-    from repro_torch.models import resnet as R
+def _make_launch_health(args, classes=None):
+    """HealthMonitor on the active obs session when --alerts/--bundle-dir/
+    --health-actuate is set (observe-only unless --health-actuate)."""
+    if not (args.alerts or args.bundle_dir or args.health_actuate):
+        return None
+    from repro_torch.traffic.wiring import make_health
 
-    cfg = {"resnet8": R.RESNET8, "resnet20": R.RESNET20}[args.arch]
-    qp = R.quantize_params(R.fold_params(R.init_params(
-        cfg, torch.Generator().manual_seed(0))), cfg)
+    return make_health(classes, bundle_dir=args.bundle_dir, arch=args.arch,
+                       backend=args.backend, batch=args.batch,
+                       seed=args.seed)
+
+
+def serve_resnet_traffic(args, cfg, qp, buckets):
+    """Trace-driven SLO serving via ``repro_torch.traffic``: the live runner
+    over ``ShardedResNetEngine`` replicas, with per-class deadline
+    accounting, optional autoscaling, and overload degradation to
+    ``--degrade-arch``."""
+    from repro_torch.serve.engine import ShardedResNetEngine
+    from repro_torch.traffic import (
+        Autoscaler, AutoscaleConfig, LiveTrafficRunner, OverloadRouter,
+        PoissonProcess, TraceReplay, parse_classes)
+    from repro_torch.traffic.wiring import (pool_devices, pool_size,
+                                            print_report, quantized)
+
+    classes = parse_classes(args.slo_classes)
+    if args.trace:
+        arrivals = TraceReplay.from_file(args.trace).generate(
+            n=args.requests or None)
+    else:
+        arrivals = PoissonProcess(
+            args.arrival_rate, seed=args.seed,
+            class_mix={c.name: 1.0 for c in classes}).generate(
+                n=args.requests)
+    replicas = pool_size(args.device, args.replicas)
+    variants = {args.arch: ShardedResNetEngine(
+        cfg, qp, batch=args.batch, backend=args.backend, replicas=replicas,
+        devices=pool_devices(args.device, replicas), batch_sizes=buckets,
+        slack_ms=args.slack_ms, tune=args.tune or None)}
+    if args.degrade_arch:
+        dcfg, dqp = quantized(args.degrade_arch, args.seed + 1)
+        variants[args.degrade_arch] = ShardedResNetEngine(
+            dcfg, dqp, batch=args.batch,
+            backend=args.backend, replicas=1,
+            devices=pool_devices(args.device, 1), slack_ms=args.slack_ms)
+    for eng in variants.values():
+        eng.pool.warmup()
+    health = _make_launch_health(args, classes)
+    actuating = health if args.health_actuate else None
+    autoscaler = None
+    if args.autoscale:
+        autoscaler = Autoscaler(
+            AutoscaleConfig(min_replicas=1, max_replicas=replicas),
+            clock=variants[args.arch].clock, health=actuating)
+        variants[args.arch].set_active_replicas(autoscaler.active)
+    router = OverloadRouter(classes, primary=args.arch,
+                            degraded=args.degrade_arch or None,
+                            health=actuating)
+    rng = np.random.default_rng(args.seed)
+    images = rng.random((64, cfg.img, cfg.img, 3)).astype(np.float32)
+    runner = LiveTrafficRunner(variants, classes, router,
+                               autoscaler=autoscaler, health=health)
+    report = runner.run(arrivals, images)
+    print(f"served trace of {len(arrivals)} arrivals through "
+          f"{list(variants)} (replicas={replicas}, "
+          f"autoscale={'on' if autoscaler else 'off'})")
+    print_report(report)
+    return report
+
+
+def serve_resnet(args):
+    """Serve ``--arch``; returns the engine, or the traffic report on the
+    SLO path (``--trace``, ``--slo-classes`` or ``--autoscale``)."""
+    from repro_torch.traffic.wiring import quantized
+
+    cfg, qp = quantized(args.arch, 0)
     buckets = tuple(int(b) for b in args.buckets.split(",")) \
         if args.buckets else (args.batch,)
-    if args.replicas:
-        return serve_resnet_sharded(args, cfg, qp, buckets)
-    return _serve_resnet_single(args, cfg, qp, buckets)
+    ob = None
+    if args.trace_out or args.metrics_out or args.alerts \
+            or args.bundle_dir or args.health_actuate:
+        from repro_torch import obs as _o
+        ob = _o.instrument()     # engines run on the same monotonic domain
+    try:
+        if args.trace or args.slo_classes or args.autoscale:
+            return serve_resnet_traffic(args, cfg, qp, buckets)
+        # single/sharded paths have no event loop: the monitor (if asked
+        # for) is ticked once after the run, in the finally block below
+        _make_launch_health(args)
+        if args.replicas:
+            return serve_resnet_sharded(args, cfg, qp, buckets)
+        return _serve_resnet_single(args, cfg, qp, buckets)
+    finally:
+        if ob is not None:
+            _finish_obs(args, ob)
+
+
+def _finish_obs(args, ob) -> None:
+    """Export the session's trace/metrics and the alert log, then
+    uninstall it."""
+    from repro_torch.traffic.wiring import finish_obs
+
+    if ob.health is not None and ob.health.ticks == 0:
+        # non-traffic paths have no event loop: one final tick evaluates
+        # the rules (the A/B bitwise sentinel in particular) over the
+        # finished run
+        ob.health.tick(ob.now())
+    written = finish_obs(ob, trace_out=args.trace_out,
+                         metrics_out=args.metrics_out,
+                         bundle_dir=args.bundle_dir)
+    if ob.health is not None:
+        h = ob.health.summary()
+        print(f"health: {h['alerts']} alerts {h['by_rule']}, "
+              f"{len(h['bundles'])} bundles")
+    for kind, path in sorted(written.items()):
+        print(f"wrote {kind} to {path}")
 
 
 def main(argv=None):
@@ -148,6 +262,39 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain versions)")
+    ap.add_argument("--trace", default="",
+                    help="serve a repro_torch.traffic JSON trace file "
+                         "(engages the SLO-class serving path)")
+    ap.add_argument("--slo-classes", default="",
+                    help="SLO class spec name:deadline_ms:priority[:policy]"
+                         ",... or a JSON file (engages the SLO-class "
+                         "serving path)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="autoscale the active replica set from queue "
+                         "depth + utilization (ceiling = --replicas)")
+    ap.add_argument("--degrade-arch", default="", choices=("",) +
+                    RESNET_ARCHS,
+                    help="cheaper variant that degrade-policy SLO classes "
+                         "fall back to under overload")
+    ap.add_argument("--arrival-rate", type=float, default=200.0,
+                    help="Poisson arrival rate (req/s) when serving SLO "
+                         "classes without a --trace file")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace_event JSON of the serving "
+                         "run (repro_torch.obs; load in Perfetto)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write Prometheus-style metrics text "
+                         "(repro_torch.obs); the alert log lands next to "
+                         "it when alerting is on")
+    ap.add_argument("--alerts", action="store_true",
+                    help="run the repro_torch.obs.health alert engine "
+                         "(passive)")
+    ap.add_argument("--bundle-dir", default="",
+                    help="dump debug bundles here on alert or "
+                         "missed-deadline drain (implies --alerts)")
+    ap.add_argument("--health-actuate", action="store_true",
+                    help="let active alerts drive the autoscaler and "
+                         "overload router (implies --alerts)")
     args = ap.parse_args(argv)
     return serve_resnet(args)
 

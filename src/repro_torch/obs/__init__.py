@@ -9,18 +9,21 @@ The port's copy of ``repro.obs``, one switch over these pieces:
 * :mod:`repro_torch.obs.profile` — per-task kernel device time paired with
   the modeled HBM/VMEM bytes of ``core.dataflow`` (imports torch and the
   compile stack, so it loads on first use).
-* :mod:`repro_torch.obs.bundle` — the debug-bundle format, its reader and
-  the offline ``dump`` of ``python -m repro_torch.obs``.
+* :mod:`repro_torch.obs.health` — deterministic SLO burn-rate/anomaly
+  alert rules evaluated over the live registry, plus the control-loop
+  signals the autoscaler/router can subscribe to.
+* :mod:`repro_torch.obs.recorder` / :mod:`repro_torch.obs.bundle` —
+  flight-recorder rings of recent spans + metric deltas, frozen into
+  self-contained debug bundles on alert, drain-with-missed-deadlines, or
+  demand (the offline ``dump`` of ``python -m repro_torch.obs``).
 
 ``python -m repro_torch.obs`` prints a report of exported artifacts.
 
 Nothing records unless :func:`instrument` has installed a session — every
-call site in ``compile`` and ``serve`` checks ``obs.active()`` first, so
-the disabled cost is one global read.
+call site in ``compile``, ``serve`` and ``traffic`` checks
+``obs.active()`` first, so the disabled cost is one global read.
 
-Not ported yet: ``health`` (alert rules) and ``recorder`` (the flight
-recorder), with ``bundle.write_bundle`` that they feed, ROADMAP item A7;
-the LM leg of ``profile``, item A8.3.
+Not ported yet: the LM leg of ``profile``, ROADMAP item A8.3.
 """
 from repro_torch.obs.metrics import (                  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, DEFAULT_BUCKETS)
@@ -29,8 +32,13 @@ from repro_torch.obs.trace import (                    # noqa: F401
 from repro_torch.obs.runtime import (                  # noqa: F401
     Observability, active, install, instrument, disable, instrumented,
     export)
+from repro_torch.obs.health import (                   # noqa: F401
+    Alert, Rule, BurnRateRule, QueueGrowthRule, LatencyBandRule,
+    RetraceStormRule, BitExactSentinel, default_rules, HealthMonitor,
+    alert_log_path)
+from repro_torch.obs.recorder import FlightRecorder    # noqa: F401
 from repro_torch.obs.bundle import (                   # noqa: F401
-    read_bundle, assemble_bundle)
+    write_bundle, read_bundle, assemble_bundle)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "DEFAULT_BUCKETS",
@@ -38,7 +46,10 @@ __all__ = [
     "strip_volatile_events",
     "Observability", "active", "install", "instrument", "disable",
     "instrumented", "export",
-    "read_bundle", "assemble_bundle",
+    "Alert", "Rule", "BurnRateRule", "QueueGrowthRule", "LatencyBandRule",
+    "RetraceStormRule", "BitExactSentinel", "default_rules",
+    "HealthMonitor", "alert_log_path",
+    "FlightRecorder", "write_bundle", "read_bundle", "assemble_bundle",
     # lazy (imports torch): profile_tasks, TaskProfile, REFERENCE_HBM_GBPS
 ]
 

@@ -1,9 +1,8 @@
 """Debug bundles: one self-contained post-mortem artifact per incident.
 
-The port's copy of ``repro.obs.bundle``: the format, its reader and the
-offline ``dump``.  Writing a bundle from a live session (``write_bundle``,
-fed by the flight recorder and the alert rules) waits for those, ROADMAP
-item A7.
+The port's copy of ``repro.obs.bundle``: the format, its writer
+(:func:`write_bundle`, fed by the flight recorder and the health
+monitor), its reader and the offline ``dump``.
 
 A bundle is a directory (named ``bundle_{seq:03d}_{reason}`` —
 deterministic, no wall-clock in the name) holding everything needed to
@@ -29,7 +28,8 @@ import os
 import re
 from typing import List, Optional
 
-__all__ = ["read_bundle", "assemble_bundle", "BUNDLE_SCHEMA"]
+__all__ = ["write_bundle", "read_bundle", "assemble_bundle",
+           "BUNDLE_SCHEMA"]
 
 BUNDLE_SCHEMA = 1
 
@@ -48,6 +48,45 @@ def _write_json(path: str, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=2, sort_keys=True)
         f.write("\n")
+
+
+def write_bundle(dir_path: str, ob, reason: str, now: float, seq: int = 0,
+                 recorder=None, alerts: Optional[List] = None,
+                 census: Optional[dict] = None) -> str:
+    """Freeze the current session state into ``dir_path/bundle_NNN_slug``
+    and return that bundle directory's path."""
+    alerts = alerts or []
+    name = f"bundle_{seq:03d}_{_slug(reason)}"
+    bdir = os.path.join(dir_path, name)
+    os.makedirs(bdir, exist_ok=True)
+
+    chrome = recorder.chrome() if recorder is not None else ob.trace.chrome()
+    _write_json(os.path.join(bdir, _TRACE), chrome)
+
+    with open(os.path.join(bdir, _METRICS), "w") as f:
+        f.write(ob.metrics.render_text())
+
+    with open(os.path.join(bdir, _ALERTS), "w") as f:
+        for a in alerts:
+            f.write(a.to_json() + "\n")
+
+    delta_lines = recorder.delta_lines() if recorder is not None else []
+    with open(os.path.join(bdir, _DELTAS), "w") as f:
+        for line in delta_lines:
+            f.write(json.dumps(line, sort_keys=True) + "\n")
+
+    manifest = dict(
+        schema=BUNDLE_SCHEMA,
+        reason=reason,
+        t=now,
+        seq=seq,
+        alerts=len(alerts),
+        census=census or {},
+        recorder=recorder.summary() if recorder is not None else None,
+        files=[_TRACE, _METRICS, _ALERTS, _DELTAS],
+    )
+    _write_json(os.path.join(bdir, _MANIFEST), manifest)
+    return bdir
 
 
 def read_alert_lines(path: str) -> List[dict]:

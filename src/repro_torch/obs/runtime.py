@@ -41,6 +41,7 @@ class Observability:
         self.metrics = MetricsRegistry()
         self.trace = Trace(clock=clock)
         self.profiles: List = []          # TaskProfile rows (obs.profile)
+        self.health = None                # HealthMonitor, when alerting is on
 
     def now(self) -> float:
         return self.clock.now() if self.clock is not None \

@@ -101,6 +101,9 @@ class Trace:
     def __init__(self, clock=None):
         self.clock = clock
         self.events: List[TraceEvent] = []
+        # event subscribers (the flight recorder's ring): called with each
+        # TraceEvent as it is recorded.  Empty list = one falsy check.
+        self.listeners: List = []
 
     def now(self) -> float:
         return self.clock.now() if self.clock is not None \
@@ -123,6 +126,9 @@ class Trace:
                        ts=float(t0), dur=max(float(t1) - float(t0), 0.0),
                        args=dict(args) if args else None)
         self.events.append(e)
+        if self.listeners:
+            for fn in self.listeners:
+                fn(e)
         return e
 
     def instant(self, name: str, cat: str = "", track: str = "main",
@@ -131,6 +137,9 @@ class Trace:
                        ts=float(t) if t is not None else self.now(),
                        args=dict(args) if args else None)
         self.events.append(e)
+        if self.listeners:
+            for fn in self.listeners:
+                fn(e)
         return e
 
     # -- export -------------------------------------------------------------

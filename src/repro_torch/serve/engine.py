@@ -209,6 +209,12 @@ class ShardedResNetEngine:
     ``clock`` is injectable (``sched.FakeClock``) so scheduling behavior is
     simulable; ``max_pending`` bounds admission (``submit`` raises
     ``sched.Backpressure`` when full; ``submit_async`` awaits instead).
+
+    ``dispatch_listeners`` holds callables ``fn(dispatch, logits)``, called
+    for each micro-batch once its replica has been handed it: the
+    ``sched.Dispatch`` (its requests, their payloads) and the logits on the
+    replica's device, enqueued and not yet waited for.  A checker records
+    what each dispatch computed through it; the list is empty by default.
     """
 
     def __init__(self, cfg, qparams, batch: int = 8, backend: str = "cuda",
@@ -239,6 +245,7 @@ class ShardedResNetEngine:
         self.clock = self.sched.clock
         self.served = 0
         self._in_flight: List[tuple] = []     # (Dispatch, logits, event)
+        self.dispatch_listeners: List = []
 
     # -- admission ----------------------------------------------------------
 
@@ -300,6 +307,8 @@ class ShardedResNetEngine:
                 self.sched.complete(d, failed=True)
                 raise
             self._in_flight.append((d, out, event))
+            for fn in self.dispatch_listeners:
+                fn(d, out)
             n += 1
         return n
 

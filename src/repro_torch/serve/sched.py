@@ -570,10 +570,9 @@ class Scheduler:
             ob.metrics.counter(
                 "sched_drained_dispatches_total",
                 "dispatches flushed by drain()").inc(n)
-            health = getattr(ob, "health", None)
-            if missed and health is not None:
+            if missed and ob.health is not None:
                 # drain finished late: freeze a post-mortem debug bundle
-                health.on_drain(missed, dispatches=n)
+                ob.health.on_drain(missed, dispatches=n)
         return DrainResult(n, missed)
 
     def summary(self) -> dict:

@@ -746,6 +746,25 @@ def test_lm_tasks_on_cuda_match_torch_int(dev, name):
             assert int(step) <= 1, t.node
 
 
+def test_lm_tuning_dict_reaches_the_kernels_on_the_card(dev):
+    """A tuned LM task's config is handed to its kernel: the wrappers have
+    no LM knobs yet, so a non-default tile config is refused on the first
+    forward (the wrapper's ``ValueError``) instead of serving the default
+    tiles while ``CompiledModel.tuning`` names the tuning."""
+    cfg = lm_config(get_smoke_config("gemma-2b"), seq_len=64)
+    params = init_lm_params(cfg, seed=5, device=dev)
+    tune = {"layer0/wq": KernelConfig(bm=64, bn=64, bk=64)}
+    cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
+                       device=dev, tune=tune)
+    assert cm.tuning == tune
+    toks = np.zeros((1, 64), np.int32)
+    with pytest.raises(ValueError, match="kernel tuning is not available"):
+        cm(toks)
+    untuned = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
+                            device=dev)
+    assert torch.isfinite(untuned(toks)).all()
+
+
 # ---------------------------------------------------------------------------
 # CompiledModel: one CUDA graph per bucket
 # ---------------------------------------------------------------------------

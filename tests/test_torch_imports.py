@@ -27,8 +27,8 @@ sys.exit(1 if bad else 0)
 """
 
 # the submodules of each slice, so that a new one cannot be missed by the
-# walk (the serving-at-scale and tuning slice, and the training and
-# quantization slice, among them)
+# walk (the serving-at-scale and tuning slice, the training and
+# quantization slice, and the traffic and health slice, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
@@ -39,7 +39,13 @@ EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.train.loop", "repro_torch.quantize.observers",
             "repro_torch.quantize.calibrate", "repro_torch.quantize.qat",
             "repro_torch.quantize.export", "repro_torch.quantize.evaluate",
-            "repro_torch.quantize.__main__", "repro_torch.launch.train"}
+            "repro_torch.quantize.__main__", "repro_torch.launch.train",
+            "repro_torch.obs.health", "repro_torch.obs.recorder",
+            "repro_torch.obs.bundle", "repro_torch.traffic.loadgen",
+            "repro_torch.traffic.slo", "repro_torch.traffic.autoscale",
+            "repro_torch.traffic.degrade", "repro_torch.traffic.sim",
+            "repro_torch.traffic.live", "repro_torch.traffic.__main__",
+            "repro_torch.traffic.wiring"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -397,6 +397,30 @@ def test_compile_model_serves_token_buckets(setup):
         cm(np.zeros((1, SEQ), np.float32))
 
 
+@pytest.mark.parametrize("name,key", [("gemma-2b", "layer0/wq"),
+                                      ("gemma-2b", "layer0/attn"),
+                                      ("falcon-mamba-7b", "layer0/scan")])
+def test_cuda_lm_impls_hand_their_task_config_to_the_kernel(name, key):
+    """A tuned LM task's config reaches its kernel wrapper: the ``cuda``
+    impls pass ``config=t.config``, so a config the wrappers cannot apply
+    is refused on the first forward instead of served with the default
+    tiles.  ``torch-int`` reads no config and serves the same tuning."""
+    from repro_torch.tune.config import KernelConfig
+
+    cfg = lm_config(get_smoke_config(name), seq_len=8)
+    params = init_lm_params(cfg, seed=0, device="cpu")
+    tune = {key: KernelConfig(bm=64, bn=64, bk=64)}
+    cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
+                       device="cpu", tune=tune)
+    assert cm.tuning == tune
+    toks = np.zeros((1, 8), np.int32)
+    with pytest.raises(ValueError, match="config="):
+        cm(toks)
+    plain = compile_model(cfg, params, backend="torch-int", batch_sizes=(1,),
+                          device="cpu", tune=tune)
+    assert plain(toks).shape == (1, cfg.vocab_size)
+
+
 def test_params_move_between_devices_as_one():
     cfg = lm_config(get_smoke_config("falcon-mamba-7b"), seq_len=SEQ)
     p = init_lm_params(cfg, seed=2)

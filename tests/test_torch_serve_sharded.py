@@ -244,6 +244,31 @@ def test_two_replica_pool_spreads_load_and_stays_bitwise(qp8):
     assert eng.model.trace_counts == {2: 1}
 
 
+def test_dispatch_listeners_see_each_micro_batch_once(qp8):
+    """Every listener is told of every dispatch: each request lies in
+    exactly one, its logits are its row of that dispatch's output, and the
+    output is the model's on the dispatch's images."""
+    xs = images(7, seed=3)
+    eng = ShardedResNetEngine(R.RESNET8, qp8, batch=3, backend="cuda",
+                              devices=["cpu", "cpu"], batch_sizes=(1, 3),
+                              slack_ms=0.5)
+    seen, counted = [], []
+    eng.dispatch_listeners += [lambda d, out: seen.append((d, out)),
+                               lambda d, out: counted.append(len(d))]
+    reqs = [ImageRequest(rid=i, image=x) for i, x in enumerate(xs)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    rids = [r.payload.rid for d, _ in seen for r in d.requests]
+    assert sorted(rids) == list(range(7))
+    assert counted == [len(d) for d, _ in seen]
+    for d, out in seen:
+        x = np.stack([r.payload.image for r in d.requests])
+        np.testing.assert_array_equal(out.numpy(), eng.model(x).numpy())
+        for j, r in enumerate(d.requests):
+            np.testing.assert_array_equal(r.payload.logits, out[j].numpy())
+
+
 def test_sharded_engine_matches_jax_sharded_engine_lax_int(np_qp8, qp8):
     """The port's sharded engine against the JAX package's on lax-int with
     the same bridged weights, ResNet8 at buckets (1, 2), after the same
@@ -325,4 +350,7 @@ def test_launch_serve_cli_on_the_cpu(capsys):
         launch_serve.main(["--arch", "resnet8", "--replicas", "1",
                            "--device", "cpu", "--ab", "torch-int"])
     with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", "resnet8", "--trace", "t.json"])
+        launch_serve.main(["--arch", "resnet8", "--degrade-arch", "resnet9"])
+    with pytest.raises(FileNotFoundError):
+        launch_serve.main(["--arch", "resnet8", "--trace", "missing.json",
+                           "--device", "cpu"])

@@ -198,11 +198,39 @@ Phases, one JSON line each:
                 replay and placement checks of phase 4; tokens/s and ms
                 of the served call, the graph and the eager forward, idle
                 shares; a profiler pass over one served call each.
+  7b. lm_tune — the LM kernels' knobs at published width: (a) every
+                config of ``tune.space``'s LM spaces at each distinct task
+                shape (gemma-2b's and falcon-mamba-7b's 8 projection
+                shapes at M = 2048 in the main path's call form, gemma-2b's
+                attention, falcon-mamba-7b's scan at bucket 4), the rule's
+                output held once against the plain version and each
+                config's against the rule's (matmul bitwise, attention
+                2e-5, scan 1e-5), each timed by graph replay: the rule's
+                time, the best config and its time, the bound; the scan
+                instances' shared memory as the compiler laid it out
+                against ``scan_smem_bytes``; (b) both LMs served through
+                ``ResNetEngine`` on ``cuda`` under
+                ``tune.space.lm_tuned_variant``, one bucket-4 run traced:
+                ``launches_by_config`` = the tuning's knobs once a run, the
+                template instances in the profiler's kernel names
+                (``matmul_int8_wgmma<bn>``, ``selective_scan_kernel<C,
+                L>``) the tuning's, logits within ``logit_tolerance`` of
+                ``torch-int`` under the same tuning with equal argmax;
+                (c) an illegal config refused by name by each wrapper,
+                nothing launched; (d) ``obs.profile.profile_tasks`` of both
+                LMs at bucket 4 (one row per task, keyed by
+                ``tuning_key``), device ms a forward per kernel beside
+                PERF.md section 6; (e) ``python -m repro_torch.compile
+                --json`` as a subprocess on the card, exit 0.  The untuned
+                serve of phase 7 checks ``launches_by_config`` against the
+                rules' tiles.
   8. the ``{"kernels": [...], "serve": {...}, "train": {...},
-     "traffic": {...}}`` line (rows 1-3 carry their tuned knob and time
-     beside the rule's and their launches in the train phase's evaluation
-     and in the traffic phase; ``serve`` the sharded and tuned
-     summaries), then
+     "traffic": {...}, "lm_tune": {...}}`` line (rows 1-3 carry their
+     tuned knob and time beside the rule's and their launches in the
+     train phase's evaluation and in the traffic phase; rows 4-6 their
+     knobs, the sweep's rule and best per shape, the tuned serve's
+     launches by config and the LM profile's ms a forward; ``serve`` the
+     sharded and tuned summaries), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -247,8 +275,9 @@ from repro_torch.core.quant import (dequantize,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.synthetic import SyntheticCifar  # noqa: E402
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
-from repro_torch.kernels.common import (read_launches,  # noqa: E402
-                                        write_launches)
+from repro_torch.kernels.common import (knob_key,  # noqa: E402
+                                        read_launches, write_launches,
+                                        zeroed_launches)
 # device time of one call: ``reps`` calls captured into one CUDA graph,
 # the median of five replays over ``reps`` (host launch overhead excluded)
 from repro_torch.kernels.common import \
@@ -263,7 +292,9 @@ from repro_torch.kernels.conv2d_int8.ops import (  # noqa: E402
 from repro_torch.kernels.conv2d_int8.ref import \
     conv2d_int8_plain  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    attn_tiles, flash_attention_op)
+    attn_knobs, attn_tiles, flash_attention_op)
+from repro_torch.kernels.flash_attention.ops import \
+    BK as FLASH_BK  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
     blocks_per_sm as flash_blocks_per_sm  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
@@ -271,7 +302,7 @@ from repro_torch.kernels.flash_attention.ops import \
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_plain  # noqa: E402
 from repro_torch.kernels.matmul_int8.ops import (  # noqa: E402
-    matmul_int8_op, matmul_path, matmul_tiles, pack_weight)
+    matmul_int8_op, matmul_knobs, matmul_path, matmul_tiles, pack_weight)
 from repro_torch.kernels.matmul_int8.ops import \
     smem_bytes as mm_smem_bytes  # noqa: E402
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref  # noqa: E402
@@ -283,7 +314,9 @@ from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
     ResblockLaunch, resblock_fused_op, smem_bytes)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
 from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
-    scan_threads, selective_scan_op)
+    scan_knobs, scan_smem_bytes, scan_threads, selective_scan_op)
+from repro_torch.kernels.selective_scan.ops import \
+    kernel_smem_bytes as scan_kernel_smem_bytes  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
@@ -1572,8 +1605,7 @@ def train_phase(seed, dev):
     float_qat = evaluate_float(cfg, params_qbn, images, labels,
                                batch=TRAIN_BATCH, device=dev)
     before = read_launches()
-    write_launches({op: (0, {p: 0 for p in by}) for op, (_, by)
-                    in before.items()})
+    write_launches(zeroed_launches())
     evals = {}
     for name, kw in (("cuda", dict(backend="cuda")),
                      ("cuda-stream", dict(backend="cuda-stream")),
@@ -1583,7 +1615,7 @@ def train_phase(seed, dev):
                                         batch=TRAIN_BATCH, device=dev, **kw)
     ptq = evaluate_compiled(cfg, qp_ptq, images, labels, backend="cuda",
                             batch=TRAIN_BATCH, device=dev)
-    ran = {op.__name__: n for op, (n, _) in read_launches().items()}
+    ran = {op.__name__: n for op, (n, *_) in read_launches().items()}
     write_launches(before)
     top1 = {k: v["top1"] for k, v in evals.items()}
     check(len(set(top1.values())) == 1,
@@ -2964,7 +2996,7 @@ def lm_task_check(cfg, params, tokens):
                                             int8_differ_share=0.0))
         if t.kind == "matmul":
             mp, x2d, acc0, _ = BK._lm_matmul_prologue(t, ctx)
-            got = matmul_int8_op(x2d, packed[t.node], acc0)
+            got = matmul_int8_op(x2d, packed[t.node], acc0, config=t.config)
             ref = matmul_int8_ref(x2d, mp.wq, acc0)
             check(torch.equal(got, ref),
                   f"{cfg.name} {t.node}: int32 accumulator differs")
@@ -2974,9 +3006,11 @@ def lm_task_check(cfg, params, tokens):
                 share, s.get("unsaturated_share", {}).get(t.role, 1.0))
         elif t.kind == "attention":
             q, k, v = BK._lm_attn_qkv(t, ctx)
-            bq, bk = attn_tiles(q.shape[1], k.shape[1])
+            bq, bk = attn_tiles(q.shape[1], k.shape[1],
+                                q.shape[2] // k.shape[2], config=t.config)
             excess, dmax = close_err(
-                flash_attention_op(q, k, v, causal=t.causal),
+                flash_attention_op(q, k, v, causal=t.causal,
+                                   config=t.config),
                 flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
                                       bk=bk), FLASH_TOL)
             check(excess <= 0, f"{cfg.name} {t.node}: attention deviates "
@@ -2984,7 +3018,8 @@ def lm_task_check(cfg, params, tokens):
             s["max_abs_err"] = max(s["max_abs_err"], dmax)
         else:
             ops = BK._lm_scan_operands(t, ctx)
-            excess, dmax = close_err(selective_scan_op(*ops)[0],
+            excess, dmax = close_err(selective_scan_op(
+                *ops, config=t.config)[0],
                                      selective_scan_ref(*ops)[0], SCAN_TOL)
             check(excess <= 0, f"{cfg.name} {t.node}: scan deviates {dmax} "
                                f"from plain")
@@ -3031,6 +3066,38 @@ def flip_propagation(cfg, params, tokens):
     return float((step > 0).float().mean()), int(step.max())
 
 
+def plan_launches(cfg, plan, bucket_runs):
+    """What ``bucket_runs`` runs of ``plan`` on ``cuda`` launch, each task
+    at the knobs its config resolves to (the rule where it has none):
+    ``({kernel: {launches_by_config key: launches}}, {kernel: {template
+    instance: launches}})``, the instances of ``matmul_int8_wgmma<bn>``
+    and ``selective_scan_kernel<C, L>`` as ``traced_instances`` names
+    them."""
+    kernel_of = dict(matmul="matmul_int8", attention="flash_attention",
+                     scan="selective_scan")
+    role = {"attention": "attn", "scan": "scan"}
+    by_config = {k: {} for k in kernel_of.values()}
+    instances = {k: {} for k in INSTANCE_PATTERNS}
+
+    def add(d, key, n):
+        d[key] = d.get(key, 0) + n
+
+    for bucket, runs in bucket_runs.items():
+        for t in plan.tasks if runs else ():
+            key = f"layer{t.layer}/{getattr(t, 'role', role.get(t.kind))}"
+            knobs = space.lm_task_knobs(cfg, bucket, key, t.config)
+            path = matmul_path(bucket * cfg.seq_len, t.dout, t.din) \
+                if t.kind == "matmul" else None
+            add(by_config[kernel_of[t.kind]],
+                knob_label(t.kind, knobs, path), runs)
+            if path == "wgmma":
+                add(instances["matmul_int8"], str(knobs[0]), runs)
+            elif t.kind == "scan":
+                add(instances["selective_scan"], f"{knobs[0]},{knobs[1]}",
+                    runs)
+    return by_config, instances
+
+
 def lm_serve_phase(name, seed, dev):
     """Serve ``LM_REQUESTS`` token requests of ``name`` at full width
     through ResNetEngine on ``cuda`` with a torch-int shadow; check the
@@ -3055,11 +3122,15 @@ def lm_serve_phase(name, seed, dev):
         op.launches = 0
     matmul_int8_op.launches_by_path = dict.fromkeys(
         matmul_int8_op.launches_by_path, 0)
+    for op in LM_TUNE_OPS.values():
+        op.launches_by_config = {}
     t0 = time.perf_counter()
     ticks, ran, ran_by_path = traced_launches(eng.run)
     wall = time.perf_counter() - t0
     launches = {k: op.launches for k, op in LM_KERNEL_OPS.items()}
     by_path = dict(matmul_int8_op.launches_by_path)
+    by_config = {k: dict(op.launches_by_config)
+                 for k, op in LM_TUNE_OPS.items()}
     bucket_runs = dict(eng.model.run_counts)
 
     runs = sum(bucket_runs.values())
@@ -3075,6 +3146,11 @@ def lm_serve_phase(name, seed, dev):
           f"projection must take the wgmma path")
     used = [b for b, k in bucket_runs.items() if k]
     check(used == built, f"{name}: buckets {used} used, {built} built")
+    rule, _ = plan_launches(cfg, plan_lm(lowering.optimized_graph(cfg)),
+                            bucket_runs)
+    check(by_config == rule,
+          f"{name}: the untuned run launched by config {by_config}, the "
+          f"rules' tiles are {rule}")
     check_traced(ran, launches, per_run, runs, f"{name} cuda")
     check(ran_by_path.get("matmul_int8", {}).get("mma_sync", 0) == 0,
           f"{name}: the profiler saw matmul launches {ran_by_path} off the "
@@ -3135,7 +3211,8 @@ def lm_serve_phase(name, seed, dev):
          d_model=cfg.d_model, requests=LM_REQUESTS, ticks=ticks,
          bucket_runs=bucket_runs, trace_counts=trace_counts,
          launches=launches,
-         matmul_launches_by_path=by_path, launches_per_run=per_run,
+         matmul_launches_by_path=by_path, launches_by_config=by_config,
+         launches_per_run=per_run,
          traced_launches=ran, init_s=init_s, traced_serve_wall_s=wall,
          tasks=tasks, hidden_differ_share=differ / n_el,
          hidden_max_step=max_step, one_step_flip_differ_share=flip_share,
@@ -3145,6 +3222,377 @@ def lm_serve_phase(name, seed, dev):
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          argmax_equal=f"{argmax_equal}/{LM_REQUESTS}", **summary)
     return eng, dict(launches, matmul_int8_by_path=by_path), summary
+
+
+# ---------------------------------------------------------------------------
+# lm_tune: the LM kernels' knobs (tune.space's LM spaces) at full width
+# ---------------------------------------------------------------------------
+
+LM_TUNE_OPS = dict(matmul_int8=matmul_int8_op,
+                   flash_attention=flash_attention_op,
+                   selective_scan=selective_scan_op)
+# the template instances of the two kernels whose instance is a knob, by
+# the name the profiler gives their launches
+INSTANCE_PATTERNS = dict(
+    matmul_int8=re.compile(r"\bmatmul_int8_wgmma<(\d+)>"),
+    selective_scan=re.compile(r"\bselective_scan_kernel<(\d+), ?(\d+)>"))
+# PERF.md section 6, rows 4-6 (NVIDIA H100 80GB HBM3, 700.00 W): the
+# rules' device ms a bucket-4 forward as that table records them (matmul
+# in the main path's call form)
+PERF_ROWS = {"matmul_int8": {"gemma-2b": 5.17, "falcon-mamba-7b": 29.23},
+             "flash_attention": {"gemma-2b": 0.1626 * 18},
+             "selective_scan": {"falcon-mamba-7b": 0.2400 * 64}}
+
+
+def knob_label(kind, knobs, path="wgmma"):
+    """The ``launches_by_config`` key a launch at ``knobs`` is counted
+    under (``kernels.common.knob_key``)."""
+    if kind == "matmul":
+        return knob_key(bn=knobs[0], split=knobs[1]) if path == "wgmma" \
+            else path
+    if kind == "attention":
+        return knob_key(bm=knobs[1], bk=FLASH_BK)
+    return knob_key(cout_block=knobs[0], lanes=knobs[1])
+
+
+def sweep(what, configs, run, rule, hold):
+    """Every config of a space: ``run(config)`` held against the rule's
+    output by ``hold(got, rule, config)`` (raises on a mismatch), then
+    timed by graph replay.  Returns ``{describe: ms}``."""
+    times = {}
+    for c in configs:
+        got = run(c)
+        torch.cuda.synchronize()
+        hold(got, rule, c)
+        times[c.describe()] = device_ms(lambda: run(c), LM_REPS)
+    check(len(times) == len(configs), f"{what}: configs repeat")
+    return times
+
+
+def sweep_record(times, rule_ms, rule_label, bound_ms, bound_by):
+    best = min(times, key=times.get)
+    return dict(rule=rule_label, rule_ms=rule_ms, best=best,
+                best_ms=times[best], best_vs_rule=times[best] / rule_ms,
+                bound_ms=bound_ms, bound_by=bound_by, configs=len(times),
+                times=times)
+
+
+def lm_tune_sweep(rng, dev):
+    """(a) Every config of every distinct full-width LM task shape: the 8
+    projection shapes of gemma-2b and falcon-mamba-7b at M = 2048 (main
+    path's form: packed B, broadcast bias), gemma-2b's attention and
+    falcon-mamba-7b's scan at bucket 4.  The rule's output is held once
+    against the plain version, each config's against the rule's (matmul
+    bitwise, attention 2e-5, scan 1e-5); each timed by graph replay.
+    Returns ``{kernel: {shape: record}}``."""
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape,
+                                             dtype=np.int8)).to(dev)
+
+    def i32(*shape):
+        return torch.from_numpy(rng.integers(
+            -ACC_INIT_RANGE, ACC_INIT_RANGE, shape).astype(np.int32)).to(dev)
+
+    out = dict(matmul_int8={}, flash_attention={}, selective_scan={})
+    M = LM_BUCKET * LM_SEQ
+    for name in LM_MODELS:
+        for roles, K, N, count in lm_matmul_shapes(lm_cfg(name)):
+            what = f"lm_tune matmul_int8 {name} {roles} M={M} K={K} N={N}"
+            a, b = i8(M, K), i8(K, N)
+            w, bias = pack_weight(b), i32(1, N).expand(M, N)
+            rule = matmul_int8_op(a, w, bias)
+            check(torch.equal(rule, matmul_int8_ref(a, b, bias)),
+                  f"{what}: the rule differs from plain")
+
+            def hold(got, ref, c):
+                check(torch.equal(got, ref), f"{what} {c.describe()}: "
+                                             f"differs from the rule")
+
+            times = sweep(what, space.matmul_space(M, K, N),
+                          lambda c: matmul_int8_op(a, w, bias, config=c),
+                          rule, hold)
+            rule_ms = device_ms(lambda: matmul_int8_op(a, w, bias), LM_REPS)
+            b_ms, b_by = bound(nbytes(a, b, rule) + 4 * N, 2 * M * K * N)
+            rec = dict(model=name, roles=roles, M=M, K=K, N=N,
+                       launches_per_layer=count,
+                       **sweep_record(times, rule_ms, knob_label(
+                           "matmul", matmul_knobs(M, N, K)), b_ms, b_by))
+            emit("lm_tune", kernel="matmul_int8", **rec)
+            out["matmul_int8"][f"{name} {roles}"] = rec
+
+    cfg = lm_cfg("gemma-2b")
+    group = cfg.num_heads // cfg.num_kv_heads
+    q, k, v = flash_case(rng, dev, LM_SEQ, LM_SEQ)
+    rule = flash_attention_op(q, k, v)
+    bq, bk = attn_tiles(LM_SEQ, LM_SEQ, group)
+    excess, dmax = close_err(rule, flash_attention_plain(q, k, v, bq=bq,
+                                                         bk=bk), FLASH_TOL)
+    check(excess <= 0, f"lm_tune flash_attention: the rule deviates {dmax} "
+                       f"from plain")
+
+    def hold_flash(got, ref, c):
+        excess, dmax = close_err(got, ref, FLASH_TOL)
+        check(excess <= 0, f"lm_tune flash_attention {c.describe()}: "
+                           f"deviates {dmax} from the rule")
+
+    times = sweep("lm_tune flash_attention",
+                  space.attention_space(LM_SEQ, LM_SEQ, cfg.head_dim, group),
+                  lambda c: flash_attention_op(q, k, v, config=c), rule,
+                  hold_flash)
+    moved, ops = flash_bytes_ops(q, k, True)
+    rec = dict(model="gemma-2b", shape=list(q.shape), kv_heads=k.shape[2],
+               **sweep_record(times, device_ms(
+                   lambda: flash_attention_op(q, k, v), LM_REPS),
+                   knob_label("attention", attn_knobs(group)),
+                   *bound(moved, ops, F32_FLOPS_PER_S)))
+    emit("lm_tune", kernel="flash_attention", **rec)
+    out["flash_attention"]["gemma-2b attn"] = rec
+
+    cfg = lm_cfg("falcon-mamba-7b")
+    ops_ = scan_case(rng, dev, LM_BUCKET, LM_SEQ, cfg.d_inner, cfg.ssm_state)
+    rule = selective_scan_op(*ops_)
+    ref = selective_scan_ref(*ops_)
+    for part, got, want in zip(("y", "h_last"), rule, ref):
+        excess, dmax = close_err(got, want, SCAN_TOL)
+        check(excess <= 0, f"lm_tune selective_scan: the rule's {part} "
+                           f"deviates {dmax} from plain")
+
+    def hold_scan(got, ref, c):
+        for part, g, r in zip(("y", "h_last"), got, ref):
+            excess, dmax = close_err(g, r, SCAN_TOL)
+            check(excess <= 0, f"lm_tune selective_scan {c.describe()}: "
+                               f"{part} deviates {dmax} from the rule")
+
+    times = sweep("lm_tune selective_scan",
+                  space.scan_space(LM_SEQ, cfg.d_inner, cfg.ssm_state),
+                  lambda c: selective_scan_op(*ops_, config=c), rule,
+                  hold_scan)
+    B, S, di = ops_[0].shape
+    N = ops_[2].shape[1]
+    rec = dict(model="falcon-mamba-7b", shape=[B, S, di, N],
+               **sweep_record(times, device_ms(
+                   lambda: selective_scan_op(*ops_), LM_REPS),
+                   knob_label("scan", scan_knobs()),
+                   *bound(nbytes(*ops_, *rule), B * S * di * (1 + 7 * N),
+                          F32_FLOPS_PER_S)))
+    rec["smem_bytes"] = {c.describe(): scan_kernel_smem_bytes(
+        c.cout_block, c.lanes) for c in space.scan_space(S, di, N)}
+    check(all(rec["smem_bytes"][c.describe()] ==
+              scan_smem_bytes(c.cout_block, c.lanes)
+              for c in space.scan_space(S, di, N)),
+          f"lm_tune selective_scan: the compiler's shared memory "
+          f"{rec['smem_bytes']} differs from scan_smem_bytes")
+    emit("lm_tune", kernel="selective_scan", **rec)
+    out["selective_scan"]["falcon-mamba-7b scan"] = rec
+    return out
+
+
+def sweep_summary(records):
+    """The kernels line's summary of a sweep: per shape the rule's and the
+    best config's ms."""
+    return {shape: {k: r[k] for k in ("rule", "rule_ms", "best", "best_ms",
+                                      "bound_ms", "configs")}
+            for shape, r in records.items()}
+
+
+def traced_instances(fn):
+    """Run ``fn()`` under ``torch.profiler``: ``(fn(), {kernel: {instance:
+    launches}})`` for the kernels whose template instance is a knob
+    (``matmul_int8_wgmma<bn>``, ``selective_scan_kernel<C, L>``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seen = {k: {} for k in INSTANCE_PATTERNS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for kernel, pat in INSTANCE_PATTERNS.items():
+            m = pat.search(e.key)
+            if m:
+                inst = ",".join(m.groups())
+                seen[kernel][inst] = seen[kernel].get(inst, 0) + e.count
+    return out, seen
+
+
+def lm_tuned_serve(name, params, seed, dev):
+    """(b) ``name`` served at full width through ``ResNetEngine`` on
+    ``cuda`` under ``tune.space.lm_tuned_variant`` (a non-default, legal
+    config for every task whose space has one): one bucket-4 run, traced.
+    The wrappers' ``launches_by_config`` equal the tuning's knobs once a
+    bucket run, the template instances in the profiler's kernel names are
+    the tuning's matmul widths and scan instances, and the logits are within
+    ``logit_tolerance`` of ``torch-int`` under the same tuning, with equal
+    argmax."""
+    cfg = lm_cfg(name)
+    tune = space.lm_tuned_variant(cfg, LM_BUCKET)
+    rng = np.random.default_rng(seed + 1)
+    toks = rng.integers(0, cfg.vocab_size, (LM_BUCKET, LM_SEQ)).astype(
+        np.int32)
+    eng = ResNetEngine(cfg, params, batch=LM_BUCKET, backend="cuda",
+                       batch_sizes=(LM_BUCKET,), tune=tune)
+    check(eng.model.tuning == tune, f"{name}: the engine lost its tuning")
+    reqs = [ImageRequest(rid=i, image=t) for i, t in enumerate(toks)]
+    for r in reqs:
+        eng.submit(r)
+    build_served_buckets(eng, LM_BUCKET)
+    saved = read_launches()
+    write_launches(zeroed_launches())
+    try:
+        ticks, seen = traced_instances(eng.run)
+        by_config = {k: dict(op.launches_by_config)
+                     for k, op in LM_TUNE_OPS.items()}
+    finally:
+        write_launches(saved)
+    runs = sum(eng.model.run_counts.values())
+    check(runs == 1 and eng.served == LM_BUCKET,
+          f"{name}: {runs} bucket runs for {eng.served} served")
+
+    plan = plan_lm(eng.model.graph, eng.model.params)
+    role = {"attention": "attn", "scan": "scan"}
+    for t in plan.tasks:
+        key = f"layer{t.layer}/{getattr(t, 'role', role.get(t.kind))}"
+        check(t.config == tune.get(key), f"{name} {key}: the plan carries "
+                                         f"{t.config}, the tuning "
+                                         f"{tune.get(key)}")
+    want, want_inst = plan_launches(cfg, plan, {LM_BUCKET: runs})
+    check(by_config == want, f"{name}: launches by config {by_config}, "
+                             f"want the tuning's {want}")
+    # the instances by name; their counts are the counters' (a long
+    # CUPTI trace may drop a few records: 253 of 256 in one run)
+    check({k: set(v) for k, v in seen.items()} ==
+          {k: set(v) for k, v in want_inst.items()},
+          f"{name}: the profiler saw template instances {seen}, want "
+          f"{want_inst}")
+
+    x = torch.as_tensor(toks, device=dev)
+    m = eng.model
+    h = m.backend.features(m.graph, cfg, m.params)(x)
+    h_ref = get_backend("torch-int").features(m.graph, cfg, m.params)(x)
+    spec = hidden_out_spec(m.params)
+    tol = logit_tolerance(h, h_ref, spec, m.params.unembed).cpu()
+    logits = torch.from_numpy(np.stack([r.logits for r in reqs]))
+    ref = (dequantize(h_ref, spec)[:, -1, :] @ m.params.unembed).cpu()
+    excess = float(((logits.double() - ref.double()).abs() - tol).max())
+    check(bool(torch.isfinite(logits).all()), f"{name}: tuned logits not "
+                                              f"finite")
+    check(excess <= 0, f"{name}: tuned logits exceed logit_tolerance of "
+                       f"torch-int by {excess}")
+    argmax = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    check(argmax == LM_BUCKET, f"{name}: tuned argmax agrees on {argmax}"
+                               f"/{LM_BUCKET}")
+    graph_tuned = replay_ms(m.executable(LM_BUCKET), 3)
+    rec = dict(model=name, layers=cfg.num_layers, tuned_tasks=len(tune),
+               tuning={k: c.describe() for k, c in list(tune.items())[:8]},
+               launches_by_config=by_config, instances=seen,
+               instances_want=want_inst,
+               logit_excess_over_tolerance=excess,
+               max_abs_logit_dev=float((logits - ref).abs().max()),
+               hidden_differ_share=float((h != h_ref).float().mean()),
+               argmax_equal=f"{argmax}/{LM_BUCKET}",
+               tuned_graph_ms=graph_tuned)
+    emit("lm_tune_serve", **rec)
+    del eng
+    return rec
+
+
+def lm_refusals(dev):
+    """(c) An illegal config is refused by name on the card by each LM
+    wrapper, before anything launches."""
+    z8 = torch.zeros((256, 256), dtype=torch.int8, device=dev)
+    q = torch.zeros((1, 64, 8, 64), device=dev)
+    kv = torch.zeros((1, 64, 1, 64), device=dev)
+    f = torch.zeros((1, 32, 64), device=dev)
+    A = torch.zeros((64, 16), device=dev)
+    s = torch.zeros((1, 32, 16), device=dev)
+    h0 = torch.zeros((1, 64, 16), device=dev)
+    cases = [
+        ("matmul_int8", lambda: matmul_int8_op(
+            z8, z8, config=KernelConfig(bn=48)), "bn=48"),
+        ("matmul_int8", lambda: matmul_int8_op(
+            z8, z8, config=KernelConfig(split=4)), "split=4"),
+        ("flash_attention", lambda: flash_attention_op(
+            q, kv, kv, config=KernelConfig(bk=32)), "bk=32"),
+        ("flash_attention", lambda: flash_attention_op(
+            q, kv, kv, config=KernelConfig(bm=65)), "bm=65"),
+        ("selective_scan", lambda: selective_scan_op(
+            f, f, A, s, s, h0, config=KernelConfig(cout_block=64, lanes=8)),
+         "lanes=8"),
+        ("selective_scan", lambda: selective_scan_op(
+            f, f, A, s, s, h0, config=KernelConfig(bn=64)), "bn=64"),
+    ]
+    refused = []
+    for kernel, fn, name in cases:
+        n = LM_TUNE_OPS[kernel].launches
+        try:
+            fn()
+        except ValueError as e:
+            check(name in str(e), f"{kernel}: refused without naming "
+                                  f"{name}: {e}")
+            check(LM_TUNE_OPS[kernel].launches == n,
+                  f"{kernel}: launched a refused config")
+            refused.append(f"{kernel} {name}")
+            continue
+        raise AssertionError(f"{kernel}: {name} was not refused")
+    emit("lm_tune_refusals", refused=refused)
+    return refused
+
+
+def lm_profile(name, params, dev):
+    """(d) ``obs.profile.profile_tasks`` of ``name`` at bucket 4: one row
+    per plan task keyed by ``tuning_key``, each kind's device us summed
+    over a forward, beside PERF.md section 6 rows 4-6."""
+    cfg = lm_cfg(name)
+    rows = profile_tasks(cfg, params, backend="cuda", batch=LM_BUCKET,
+                         reps=2, device=dev)
+    keys = [lowering.tuning_key(n) for n in
+            lowering.optimized_graph(cfg).nodes]
+    check([r.task for r in rows] == [k for k in keys if k],
+          f"{name}: profile rows are not the plan's tuning keys")
+    kernel_of = dict(matmul="matmul_int8", attention="flash_attention",
+                     scan="selective_scan")
+    sums = {}
+    for r in rows:
+        check(r.wall_us > 0 and r.hbm_bytes > 0 and r.vmem_bytes > 0,
+              f"{name} {r.task}: empty profile row")
+        k = kernel_of[r.kind]
+        sums[k] = sums.get(k, 0.0) + r.wall_us * 1e-3
+    rec = dict(model=name, rows=len(rows), ms_per_forward=sums,
+               perf_md_ms=({k: PERF_ROWS[k][name] for k in sums
+                            if name in PERF_ROWS[k]}),
+               vs_roofline_median={
+                   k: float(np.median([r.vs_roofline for r in rows
+                                       if kernel_of[r.kind] == k]))
+                   for k in sums})
+    emit("lm_profile", **rec)
+    return rec
+
+
+def compile_cli(out_dir):
+    """(e) ``python -m repro_torch.compile --json`` as a subprocess on the
+    card: exit 0, every model ok."""
+    path = os.path.join(out_dir, "compile-smoke.json")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent /
+                                          "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.compile",
+                          "--json", path], env=env, capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0, f"python -m repro_torch.compile exited "
+                               f"{res.returncode}: {res.stdout[-2000:]} "
+                               f"{res.stderr[-2000:]}")
+    with open(path) as f:
+        record = json.load(f)
+    check(record["ok"] and record["device"].startswith("cuda"),
+          f"compile CLI record {record}")
+    rec = dict(wall_s=time.perf_counter() - t0, device=record["device"],
+               models={m["model"]: dict(ok=m["ok"], bit_exact=m["bit_exact"],
+                                        max_abs_dev=m["max_abs_dev"])
+                       for m in record["models"]})
+    emit("compile_cli", **rec)
+    return rec
 
 
 def main(argv=None):
@@ -3207,13 +3655,35 @@ def main(argv=None):
     flash = lm_flash_phase(rng, dev)
     scan = lm_scan_phase(rng, dev)
     lm_serve, lm_launches = {}, {}
+    lm_tune = dict(serve={}, profile={}, seconds=0.0)
     for name in LM_MODELS:
         eng, lm_launches[name], lm_serve[name] = lm_serve_phase(
             name, args.seed, dev)
         profile_phase(eng, dev, "cuda", torch.zeros(
             (LM_BUCKET, LM_SEQ), dtype=torch.int32, device=dev), 1)
+        params = eng.model.params
         del eng
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        lm_tune["serve"][name] = lm_tuned_serve(name, params, args.seed,
+                                                dev)
+        torch.cuda.empty_cache()
+        lm_tune["profile"][name] = lm_profile(name, params, dev)
+        lm_tune["seconds"] += time.perf_counter() - t1
+        del params
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    lm_tune["sweep"] = lm_tune_sweep(rng, dev)
+    lm_tune["refused"] = lm_refusals(dev)
+    cli_dir = tempfile.mkdtemp(prefix="repro-compile-")
+    try:
+        lm_tune["compile_cli"] = compile_cli(cli_dir)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    lm_tune["seconds"] += time.perf_counter() - t1
+    emit("lm_tune_phase", seconds=lm_tune["seconds"],
+         refused=len(lm_tune["refused"]))
+    torch.cuda.empty_cache()
 
     conv_launches = sum(d["conv2d_int8"] for d in (
         launches, launches_s, launches8, launches8s, *lm_launches.values()))
@@ -3262,7 +3732,14 @@ def main(argv=None):
              launches_by_path={p: sum(v["matmul_int8_by_path"][p]
                                       for v in lm_launches.values())
                                for p in ("wgmma", "mma_sync")},
-             bitwise=True,
+             bitwise=True, knobs="(bn, split)",
+             sweep=sweep_summary(lm_tune["sweep"]["matmul_int8"]),
+             tuned_launches_by_config={
+                 k: v["launches_by_config"]["matmul_int8"]
+                 for k, v in lm_tune["serve"].items()},
+             profile_ms_per_forward={
+                 k: v["ms_per_forward"]["matmul_int8"]
+                 for k, v in lm_tune["profile"].items()},
              per="the 108 launches of one gemma-2b and the 384 of one "
                  "falcon-mamba-7b forward at bucket 4 (S = 512)", **mm),
         dict(name="flash_attention", route="cuda",
@@ -3270,14 +3747,24 @@ def main(argv=None):
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:62",
              launches=lm_launches["gemma-2b"]["flash_attention"],
-             bitwise=False, tolerance=FLASH_TOL,
+             bitwise=False, tolerance=FLASH_TOL, knobs="bm",
+             sweep=sweep_summary(lm_tune["sweep"]["flash_attention"]),
+             tuned_launches_by_config=lm_tune["serve"]["gemma-2b"][
+                 "launches_by_config"]["flash_attention"],
+             profile_ms_per_forward=lm_tune["profile"]["gemma-2b"][
+                 "ms_per_forward"]["flash_attention"],
              per="one launch at gemma-2b's bucket-4 shape, causal", **flash),
         dict(name="selective_scan", route="cuda",
              source=src + "selective_scan.cu",
              replaces="src/repro/kernels/selective_scan/"
                       "selective_scan.py:47",
              launches=lm_launches["falcon-mamba-7b"]["selective_scan"],
-             bitwise=False, tolerance=SCAN_TOL,
+             bitwise=False, tolerance=SCAN_TOL, knobs="(cout_block, lanes)",
+             sweep=sweep_summary(lm_tune["sweep"]["selective_scan"]),
+             tuned_launches_by_config=lm_tune["serve"]["falcon-mamba-7b"][
+                 "launches_by_config"]["selective_scan"],
+             profile_ms_per_forward=lm_tune["profile"]["falcon-mamba-7b"][
+                 "ms_per_forward"]["selective_scan"],
              per="one launch at falcon-mamba-7b's bucket-4 shape",
              library_reason="no PyTorch call computes the selective scan",
              **scan),
@@ -3312,6 +3799,15 @@ def main(argv=None):
             "served_us_tuned", "served_us_default", "timings_us")}
                   for b, v in tuned.items()},
         **lm_serve}, "train": train, "traffic": traffic_line(traffic),
+        "lm_tune": {"seconds": lm_tune["seconds"],
+                    "refused": lm_tune["refused"],
+                    "compile_cli": lm_tune["compile_cli"],
+                    "tuned_serve": {k: {f: v[f] for f in (
+                        "tuned_tasks", "logit_excess_over_tolerance",
+                        "argmax_equal", "tuned_graph_ms")}
+                        for k, v in lm_tune["serve"].items()},
+                    "profile": {k: v["ms_per_forward"]
+                                for k, v in lm_tune["profile"].items()}},
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

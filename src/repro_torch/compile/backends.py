@@ -241,9 +241,13 @@ def _cuda_matmul(t, ctx):
 
 @register_task_impl("torch-int", "matmul")
 def _torch_matmul(t, ctx):
+    from repro_torch.kernels.matmul_int8.ops import matmul_knobs
     from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
 
     mp, x2d, acc0, shape = _lm_matmul_prologue(t, ctx)
+    # the kernel's knobs do not change an exact product, but a tuning the
+    # kernel would refuse is refused here too
+    matmul_knobs(x2d.shape[0], t.dout, t.din, t.config)
     _lm_matmul_epilogue(matmul_int8_ref(x2d, mp.wq, acc0), t, mp, shape, ctx)
 
 
@@ -280,7 +284,10 @@ def _torch_attention(t, ctx):
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     q, k, v = _lm_attn_qkv(t, ctx)
-    bq, bk = attn_tiles(q.shape[1], k.shape[1], q.shape[2] // k.shape[2])
+    # the kernel's own tile choice under the task's config, as the
+    # reference's lax-int walks attn_tiles(Sq, Sk, t.config)
+    bq, bk = attn_tiles(q.shape[1], k.shape[1], q.shape[2] // k.shape[2],
+                        config=t.config)
     _lm_attn_finish(flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
                                           bk=bk), t, ctx)
 
@@ -323,8 +330,10 @@ def _cuda_scan(t, ctx):
 
 @register_task_impl("torch-int", "scan")
 def _torch_scan(t, ctx):
+    from repro_torch.kernels.selective_scan.ops import scan_knobs
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
+    scan_knobs(t.config)     # the kernel's (channels, lanes), legal or not
     y, _ = selective_scan_ref(*_lm_scan_operands(t, ctx))
     _lm_scan_finish(y, t, ctx)
 

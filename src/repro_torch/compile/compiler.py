@@ -412,7 +412,7 @@ def _resolve_tuning(cfg, params, backend_name, batch_sizes, tune, device):
             raise ValueError(
                 f"tune={tune!r}: the search modes cover conv configs only; "
                 f"pass an explicit task->KernelConfig dict for LM config "
-                f"{cfg.name!r}")
+                f"{cfg.name!r} (spaces: tune.space.lm_model_space)")
         from repro_torch import tune as T   # lazy: repro_torch.tune uses us
         return T.search(cfg, params, backend=backend_name,
                         batch=max(batch_sizes),

@@ -94,6 +94,19 @@ class QBlockParams:
     def has_ds(self) -> bool:
         return self.ds is not None
 
+    def shifts(self, a_exp: int) -> dict:
+        """Fixed-grid variant of :meth:`shifts_for`: every activation on one
+        global grid at exponent ``a_exp`` (``models.resnet.A_SPEC``'s
+        layout).  Refuses calibrated per-tensor params, whose conv input
+        grids differ from ``a_exp``: the fixed formula would requantize
+        them wrongly without a word."""
+        for c in (self.conv0, self.conv1):
+            if c.x_spec.exp != a_exp:
+                raise ValueError(
+                    f"shifts({a_exp}) on per-tensor params (conv input grid "
+                    f"exp {c.x_spec.exp}); use shifts_for()")
+        return self.shifts_for(a_exp)
+
     def shifts_for(self, out_exp: int) -> dict:
         """The block's shifts, derived from the specs the params carry.
         ``out_exp`` is the exponent of the block output grid:

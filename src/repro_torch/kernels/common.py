@@ -48,6 +48,34 @@ def sm_ids_ptr(sm_ids, blocks: int, device):
     return sm_ids.data_ptr()
 
 
+def config_knobs(kernel: str, config, knobs) -> dict:
+    """The knobs ``config`` (a ``tune.config.KernelConfig`` or None) sets
+    away from their defaults, as ``{name: value}``.  A knob set that is not
+    among ``knobs``, the ones ``kernel`` has, is refused by name: a config
+    is never applied in part."""
+    if config is None:
+        return {}
+    d = config.to_dict()
+    for name, v in d.items():
+        if name not in knobs:
+            raise ValueError(
+                f"{kernel}: config knob {name}={v}: the kernel has no such "
+                f"knob (its knobs: {', '.join(knobs)})")
+    return d
+
+
+def knob_key(**knobs) -> str:
+    """The ``launches_by_config`` key of a launch: its resolved knobs as
+    ``name=value`` pairs in name order (``KernelConfig.describe``'s
+    form)."""
+    return ",".join(f"{k}={v}" for k, v in sorted(knobs.items()))
+
+
+def count_config(op, key: str) -> None:
+    """Count one launch of ``op`` under its resolved knobs ``key``."""
+    op.launches_by_config[key] = op.launches_by_config.get(key, 0) + 1
+
+
 def check_weight(name: str, t: torch.Tensor, shape) -> None:
     """A filter operand: int8 of exactly ``shape``."""
     if t.dtype != torch.int8 or tuple(t.shape) != tuple(shape):
@@ -99,7 +127,8 @@ def conv_i32(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
 
 # ---------------------------------------------------------------------------
 # Launch counters.  Each kernel wrapper counts its launches in ``launches``
-# (and, where it has several paths, in ``launches_by_path``), in Python, at
+# (and, where it has several paths, in ``launches_by_path``; the three LM
+# wrappers also by resolved knobs in ``launches_by_config``), in Python, at
 # the call that launches.  A CUDA graph replays launches without running
 # that Python, so ``compile.CompiledModel`` records what one capture
 # counted and adds it at every replay (``add_launches``), and leaves the
@@ -123,34 +152,53 @@ def counted_ops() -> tuple:
 
 
 def read_launches() -> dict:
-    """``{op: (launches, launches_by_path)}`` of every counted wrapper."""
-    return {op: (op.launches, dict(getattr(op, "launches_by_path", {})))
+    """``{op: (launches, launches_by_path, launches_by_config)}`` of every
+    counted wrapper (an empty dict where a wrapper keeps no such split)."""
+    return {op: (op.launches, dict(getattr(op, "launches_by_path", {})),
+                 dict(getattr(op, "launches_by_config", {})))
             for op in counted_ops()}
+
+
+def zeroed_launches() -> dict:
+    """:func:`read_launches`' form with every count 0 (for
+    :func:`write_launches`, before a run that is counted alone)."""
+    return {op: (0, dict.fromkeys(by_path, 0), {})
+            for op, (_, by_path, _) in read_launches().items()}
 
 
 def write_launches(counts: dict) -> None:
     """Set every counter to what :func:`read_launches` returned."""
-    for op, (n, by_path) in counts.items():
+    for op, (n, by_path, by_config) in counts.items():
         op.launches = n
         if hasattr(op, "launches_by_path"):
             op.launches_by_path = dict(by_path)
+        if hasattr(op, "launches_by_config"):
+            op.launches_by_config = dict(by_config)
 
 
 def launch_delta(before: dict, after: dict) -> dict:
     """What the counters counted between two :func:`read_launches`."""
-    return {op: (after[op][0] - n,
-                 {p: after[op][1][p] - k for p, k in by_path.items()})
-            for op, (n, by_path) in before.items()}
+    out = {}
+    for op, (n, by_path, by_config) in before.items():
+        new = after[op][2]
+        out[op] = (after[op][0] - n,
+                   {p: after[op][1][p] - k for p, k in by_path.items()},
+                   {c: k - by_config.get(c, 0) for c, k in new.items()
+                    if k != by_config.get(c, 0)})
+    return out
 
 
 def add_launches(delta: dict) -> None:
     """Add a :func:`launch_delta` to the counters: one replay of a captured
     graph."""
-    for op, (n, by_path) in delta.items():
+    for op, (n, by_path, by_config) in delta.items():
         if n:
             op.launches += n
             for p, k in by_path.items():
                 op.launches_by_path[p] += k
+            for c, k in by_config.items():
+                op.launches_by_config[c] = \
+                    op.launches_by_config.get(c, 0) + k
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,17 @@ tensor launches the kernel, or the call raises.  The kernel reads every
 operand in place: kv head ``h // (H // KV)`` serves query head ``h``, so
 grouped K/V are never repeated in memory, and one thread block takes the
 query heads of a kv group together (``block_rows``).
-``flash_attention_op.launches`` counts kernel launches.
+``flash_attention_op.launches`` counts kernel launches,
+``flash_attention_op.launches_by_config`` the same by resolved knobs
+(``"bk=64,bm=<positions>"``).
+
+Knobs (``config``, a ``tune.config.KernelConfig``): ``bm``, the query
+positions one thread block takes (the launch's ``pos``, 1 .. 64; the
+block then takes ``min(group, 64 // bm)`` heads of the kv group), and
+``bk``, only 0 or 64 (the K/V tile).  0 is the rule (``block_rows``).
+:func:`attn_knobs` is the one legality check, and :func:`attn_tiles` the
+one home of the tile choice for the kernel, its plain version and the
+``torch-int`` backend.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import config_knobs, count_config, knob_key
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -51,20 +62,41 @@ def block_rows(group: int):
     return heads, BQ // heads
 
 
-def attn_tiles(Sq: int, Sk: int, group: int = 1):
-    """The (bq, bk) tile pair one attention call runs with, for one query
-    head: the positions of a thread block (``block_rows``) and the keys of
-    a K/V tile, capped at the sequence lengths.  One home for the choice,
-    so the kernel and its plain version walk the same tiles."""
-    return min(block_rows(group)[1], Sq), min(BK, Sk)
+KNOBS = ("bm", "bk")
 
 
-def _check(q, k, v, causal, config):
-    if config is not None:
+def attn_knobs(group: int, config=None):
+    """``(heads, positions)`` of one thread block under ``config`` when
+    ``group`` query heads share a kv head: ``bm`` positions (0: the rule,
+    :func:`block_rows`) and ``min(group, BQ // bm)`` heads.  The one
+    legality check of the knobs: raises ``ValueError`` naming a knob the
+    kernel does not have, a ``bm`` outside 1 .. ``BQ`` or a ``bk`` other
+    than ``BK``."""
+    knobs = config_knobs("flash_attention", config, KNOBS)
+    if "bk" in knobs and knobs["bk"] != BK:
         raise ValueError(
-            f"config={config!r}: the CUDA kernel's tiles are fixed "
-            f"({BQ}x{BK}); kernel tuning is not available in repro_torch "
-            f"yet, pass config=None")
+            f"flash_attention: bk={knobs['bk']}: the kernel's K/V tile is "
+            f"{BK} keys; bk may be only 0 or {BK}")
+    if "bm" not in knobs:
+        return block_rows(group)
+    pos = knobs["bm"]
+    if not 1 <= pos <= BQ:
+        raise ValueError(
+            f"flash_attention: bm={pos}: the query positions a thread block "
+            f"takes must be in 1..{BQ}")
+    return min(group, BQ // pos), pos
+
+
+def attn_tiles(Sq: int, Sk: int, group: int = 1, config=None):
+    """The (bq, bk) tile pair one attention call runs with under
+    ``config``, for one query head: the positions of a thread block
+    (:func:`attn_knobs`) and the keys of a K/V tile, capped at the
+    sequence lengths.  One home for the choice, so the kernel, its plain
+    version and ``torch-int`` walk the same tiles."""
+    return min(attn_knobs(group, config)[1], Sq), min(BK, Sk)
+
+
+def _check(q, k, v, causal):
     if q.dtype not in _DTYPES or q.dim() != 4:
         raise ValueError(f"q must be (B,Sq,H,hd) float32/bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
@@ -90,12 +122,14 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, config=None) -> torch.Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) float32 or bfloat16 ->
     (B,Sq,H,hd) of q's type, computed in float32.  ``Sq < Sk`` means
-    decode with a prefilled cache (the q rows are the kv suffix)."""
-    _check(q, k, v, causal, config)
+    decode with a prefilled cache (the q rows are the kv suffix).
+    ``config``: the knobs (:func:`attn_knobs`)."""
+    _check(q, k, v, causal)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    gh, pos = attn_knobs(H // KV, config)
     if q.device.type == "cpu":
-        bq, bk = attn_tiles(Sq, Sk, H // KV)
+        bq, bk = attn_tiles(Sq, Sk, H // KV, config)
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_op: unsupported device {q.device}")
@@ -111,7 +145,6 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    gh, pos = block_rows(H // KV)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -121,7 +154,23 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attention launch")
     flash_attention_op.launches += 1
+    count_config(flash_attention_op, knob_key(bm=pos, bk=BK))
     return out
+
+
+def padded_hd(hd: int) -> int:
+    """The head dim the kernel is instantiated at for ``hd``."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
+def block_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one thread block at head dim ``hd``
+    (``Tile<HD>::kFloats`` in ``csrc/flash_attention.cu``: the q tile, the
+    K and V tiles, the transposed p tile and the row rescales), without
+    the library; :func:`smem_bytes` asks the library for the same."""
+    p = padded_hd(hd)
+    ld, ldp = p + 4, BQ + 4
+    return 4 * (BQ * ld + BK * ld + BK * p + BK * ldp + 2 * BQ)
 
 
 def smem_bytes(hd: int) -> int:
@@ -142,3 +191,4 @@ def blocks_per_sm(hd: int, dtype=torch.float32) -> int:
 
 
 flash_attention_op.launches = 0
+flash_attention_op.launches_by_config = {}

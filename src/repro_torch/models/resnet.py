@@ -341,3 +341,22 @@ def cuda_forward(qparams, cfg: ResNetConfig, images, device=None):
     one ``resblock_fused`` launch per residual block."""
     from repro_torch.compile import lower_forward
     return lower_forward(cfg, qparams, "cuda", device)(images)
+
+
+def block_shifts(qb) -> dict:
+    """Fixed-grid pow2 shifts of one quantized block (a ``quantize_params``
+    block dict), in the kernels' semantics: ``shift0`` / ``shift1``
+    requantize conv0's / conv1's product domain (s_x + s_w) back to
+    ``A_SPEC`` (positive = rounding right shift); ``skip_shift`` aligns the
+    skip stream into conv1's product domain (>= 0 left shift, < 0 rounding
+    right shift), the arithmetic of ``int_forward``.  For per-tensor
+    params use ``QBlockParams.shifts_for``."""
+    e0 = qb["conv0"]["x_spec"].exp + qb["conv0"]["w_spec"].exp
+    e1 = qb["conv1"]["x_spec"].exp + qb["conv1"]["w_spec"].exp
+    out = dict(shift0=A_SPEC.exp - e0, shift1=A_SPEC.exp - e1)
+    if "ds" in qb:
+        eds = qb["ds"]["x_spec"].exp + qb["ds"]["w_spec"].exp
+        out["skip_shift"] = eds - e1
+    else:
+        out["skip_shift"] = A_SPEC.exp - e1
+    return out

@@ -1,6 +1,6 @@
 """Per-task kernel profiling: measured device time vs modeled HBM/VMEM bytes.
 
-The port's counterpart of ``repro.obs.profile`` for the conv configs.  The
+The port's counterpart of ``repro.obs.profile``.  The
 paper's evaluation is a per-layer accounting (buffer bytes, DSP/BRAM,
 latency per conv task — Tables 3-4); here each lowered task of the
 ``cuda`` or ``cuda-stream`` backend — the ``conv_stem`` launch, every
@@ -21,9 +21,14 @@ carries:
   ``REFERENCE_HBM_GBPS``: 1.0 is roofline-perfect, larger is slower.  On
   the CPU the ratio only ranks tasks; it is no device number.
 
-LM configs are not profiled yet (ROADMAP item A8.3, the LM profile): the
-reference's LM leg reads TPU tile knobs (``bm``/``bq``/``bd``) that the
-port's kernels do not have.
+For an LM config each matmul, attention and scan task of ``plan_lm`` is
+timed as the ``cuda`` impl calls its kernel (packed weight, the bias row
+broadcast or the full skip-folded init; seeded operands at serving
+shapes), keyed by ``lowering.tuning_key``, and paired with the LM byte
+formulas of ``core.dataflow`` at the port's own tiles: a matmul at its
+(128, ``bn``, 128) block tile, an attention at (``bm`` positions, 64
+keys), a scan at its channel block; ``vmem_bytes`` is then the thread
+block's shared memory.
 """
 from __future__ import annotations
 
@@ -144,20 +149,26 @@ def profile_tasks(cfg, qparams, backend: str = "cuda", batch: int = 4,
     without the stem runs ``resblock_fused``, a stem left unfused
     ``conv_stem``, as in the backend).  Each task runs the prepared launch
     of the lowered forward on seeded uint8 activations with the real
-    quantized weights, so it executes the production arithmetic.  When
+    quantized weights, so it executes the production arithmetic.  An LM
+    config gets one row per matmul / attention / scan task of its plan,
+    on either backend (both launch the same per-task kernels for an LM),
+    keyed by ``lowering.tuning_key`` (:func:`_profile_lm_tasks`).  When
     ``ob`` is given, every profile is attached to its trace/metrics (see
     :func:`_attach`)."""
     if backend not in ("cuda", "cuda-stream"):
         raise ValueError(
             f"profile_tasks supports the kernel backends "
             f"('cuda', 'cuda-stream'), not {backend!r}")
-    if lowering._is_lm_cfg(cfg):
-        raise ValueError(
-            f"profile_tasks covers conv configs only; the LM profile of "
-            f"{cfg.name!r} is ROADMAP item A8.3")
-
     dev = resolve_device(device)
     params = ensure_typed(qparams).to(dev)
+    time_us = _device_us if dev.type == "cuda" else _host_us
+    if lowering._is_lm_cfg(cfg):
+        out = _profile_lm_tasks(cfg, params, batch, reps, seed, dev, time_us)
+        if ob is not None:
+            for tp in out:
+                _attach(ob, cfg.name, tp)
+        return out
+
     be = get_backend(backend)
     g = lowering.optimized_graph(cfg)
     steps = list(be.conv_features(g, cfg, params).steps)
@@ -170,7 +181,6 @@ def profile_tasks(cfg, qparams, backend: str = "cuda", batch: int = 4,
     stem_layer = dataflow.resnet_layers(cfg.blocks_per_stage, cfg.base_width,
                                         cfg.img)[0]
     rng = np.random.default_rng(seed)
-    time_us = _device_us if dev.type == "cuda" else _host_us
 
     def u8(h, w, c):
         return torch.from_numpy(rng.integers(
@@ -230,4 +240,92 @@ def profile_tasks(cfg, qparams, backend: str = "cuda", batch: int = 4,
     if ob is not None:
         for tp in out:
             _attach(ob, cfg.name, tp)
+    return out
+
+
+def _profile_lm_tasks(cfg, params, batch: int, reps: int, seed: int, dev,
+                      time_us) -> List[TaskProfile]:
+    """The LM leg of :func:`profile_tasks`: time each matmul / attention /
+    scan task of the plan as the ``cuda`` impl launches it, with seeded
+    operands at serving shapes, paired with the ``core.dataflow`` LM byte
+    formulas at the tiles the kernel runs (:func:`tune.space.
+    lm_task_knobs`).  Row ``task`` keys equal ``lowering.tuning_key``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.matmul_int8 import ops as mm_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.tune.space import lm_task_knobs
+
+    plan = lowering.plan_lm(lowering.optimized_graph(cfg), params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = cfg.seq_len
+    M = batch * S
+    drawn = {}
+
+    def draw(dtype, *shape):
+        """Seeded operands drawn on ``dev``, once a type and shape: the
+        layers of an LM repeat a few shapes, and drawing 64 layers'
+        operands on the host takes longer than timing them."""
+        key = (dtype, shape)
+        if key not in drawn:
+            if dtype == torch.float32:
+                drawn[key] = torch.randn(shape, generator=gen, device=dev)
+            else:
+                hi = 128 if dtype == torch.int8 else 1 << 20
+                drawn[key] = torch.randint(-hi, hi, shape, generator=gen,
+                                           device=dev, dtype=dtype)
+        return drawn[key]
+
+    role_of = {"attention": "attn", "scan": "scan"}
+    out: List[TaskProfile] = []
+    for t in plan.tasks:
+        key = f"layer{t.layer}/{getattr(t, 'role', role_of.get(t.kind))}"
+        knobs = lm_task_knobs(cfg, batch, key, t.config)
+        if t.kind == "matmul":
+            mp = params.matmul(t.layer, t.role)
+            x = draw(torch.int8, M, t.din)
+            w = mm_ops.pack_weight(mp.wq)
+            skip = t.skip is not None
+            acc0 = draw(torch.int32, M, t.dout) if skip else \
+                mp.bq[None, :].to(torch.int32).expand(M, t.dout)
+            if mm_ops.matmul_path(M, t.dout, t.din) == "wgmma":
+                tiles = (mm_ops.TILE_M, knobs[0], mm_ops.TILE_K)
+                smem = mm_ops.smem_bytes(knobs[0])
+            else:
+                tiles, smem = mm_ops.SYNC_TILE, mm_ops.SYNC_SMEM
+            out.append(TaskProfile(
+                task=key, kind="matmul", batch=batch, batch_tile=tiles[0],
+                wall_us=time_us(lambda: mm_ops.matmul_int8_op(
+                    x, w, acc0, config=t.config), reps),
+                hbm_bytes=dataflow.matmul_task_hbm_bytes(
+                    M, t.din, t.dout, *tiles, acc_init=skip),
+                vmem_bytes=smem))
+        elif t.kind == "attention":
+            q = draw(torch.float32, batch, S, t.heads, t.head_dim)
+            k = draw(torch.float32, batch, S, t.kv_heads, t.head_dim)
+            v = k.flip(1)
+            bq, bk = flash_ops.attn_tiles(S, S, t.heads // t.kv_heads,
+                                          config=t.config)
+            out.append(TaskProfile(
+                task=key, kind="attention", batch=batch, batch_tile=bq,
+                wall_us=time_us(lambda: flash_ops.flash_attention_op(
+                    q, k, v, causal=t.causal, config=t.config), reps),
+                hbm_bytes=dataflow.attention_task_hbm_bytes(
+                    batch * t.heads, S, S, t.head_dim, bq, bk),
+                vmem_bytes=flash_ops.block_smem_bytes(t.head_dim)))
+        elif t.kind == "scan":
+            u = draw(torch.float32, batch, S, t.d_inner)
+            dt = torch.abs(u.flip(1)) * 0.1
+            Bc = draw(torch.float32, batch, S, t.ssm_state)
+            Cc = Bc.flip(1)
+            A = params.layers[t.layer].A
+            h0 = torch.zeros((batch, t.d_inner, t.ssm_state),
+                             dtype=torch.float32, device=dev)
+            channels, lanes = knobs
+            out.append(TaskProfile(
+                task=key, kind="scan", batch=batch, batch_tile=channels,
+                wall_us=time_us(lambda: scan_ops.selective_scan_op(
+                    u, dt, A, Bc, Cc, h0, config=t.config), reps),
+                hbm_bytes=dataflow.scan_task_hbm_bytes(
+                    batch, S, t.d_inner, t.ssm_state, channels),
+                vmem_bytes=scan_ops.scan_smem_bytes(channels, lanes)))
     return out

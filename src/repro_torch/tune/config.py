@@ -21,13 +21,35 @@ Knobs (0 always means "the kernel's own rule"):
   * ``batch_tile``  — images per unit of work.  One thread block (one
                       cluster) of ``block_chain`` takes ``batch_tile``
                       images; default 1.
-  * ``cout_block``  — output channels per unit of work (the reference's
-                      TPU knob; no port kernel on the ResNet path reads
-                      it).
-  * ``bm/bn/bk``    — matmul tile sizes.
+  * ``cout_block``  — output channels per unit of work: the channels one
+                      thread block of ``selective_scan`` takes (16, 32 or
+                      64; the reference's ``bd``, so ``{"cout_block":
+                      16}`` means the same in both packages).  0: 32.  No
+                      port kernel on the ResNet path reads it.
+  * ``lanes``       — threads one channel of ``selective_scan`` runs on
+                      (2, 4 or 8; its 16 states split among them).  0: 4.
+                      ``(cout_block, lanes)`` must be an instantiated pair
+                      (``kernels.selective_scan.ops.scan_knobs``).
+  * ``bm/bn/bk``    — tile sizes.  ``matmul_int8`` (``wgmma`` path):
+                      ``bn`` the tile width, one of 16 .. 256 up to the
+                      narrowest that covers N; ``bm`` and ``bk`` only 0 or
+                      128 (the fixed 128 x 128 block tile).
+                      ``flash_attention``: ``bm`` the query positions one
+                      thread block takes (1 .. 64; it takes ``min(group,
+                      64 // bm)`` heads of a kv group with them), ``bk``
+                      only 0 or 64 (the K/V tile).  0: the kernels' rules
+                      (``matmul_tiles``, ``block_rows``).
+  * ``split``       — also ``matmul_int8``'s split-K: a power of two
+                      dividing ``ceil(K / 128)`` that leaves at least two
+                      K tiles a split.  0: the rule (``matmul_tiles``).
 
-``normalize`` snaps every knob to a legal value at the call's shape, so a
-config tuned at one bucket stays legal at every other.
+Each LM kernel wrapper has one legality function (``matmul_knobs``,
+``attn_knobs``, ``scan_knobs``), which the wrapper, ``tune.space`` and the
+tests all call: a knob the kernel does not have, or an illegal value, is
+refused with a ``ValueError`` naming it, never clamped.
+
+``normalize`` snaps the conv knobs to a legal value at the call's shape,
+so a config tuned at one bucket stays legal at every other.
 """
 from __future__ import annotations
 
@@ -55,7 +77,9 @@ class KernelConfig:
     bn: int = 0
     bk: int = 0
     band_rows: int = 0           # output rows a thread block (0 = rule)
-    split: int = 0               # block_chain thread blocks an image (0 = rule)
+    split: int = 0               # block_chain thread blocks an image, or
+                                 # matmul_int8's split-K (0 = rule)
+    lanes: int = 0               # selective_scan lanes a channel (0 = rule)
 
     def normalize(self, n: int, cout: int, oh: Optional[int] = None,
                   splits: Optional[Sequence[int]] = None) -> "KernelConfig":

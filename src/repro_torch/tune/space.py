@@ -33,6 +33,15 @@ The eq. 12-14 balance pruning (``core.ilp.balanced_och_par``) of the
 reference prunes ``cout_block``, the TPU's channel blocking; no Hopper knob
 of these kernels blocks channels, so there is nothing for it to prune.
 
+The LM kernels' knobs (``matmul_space``, ``attention_space``,
+``scan_space``, ``lm_model_space``): ``matmul_int8``'s tile width ``bn``
+and split-K ``split``, ``flash_attention``'s query positions a thread
+block ``bm``, ``selective_scan``'s ``(cout_block, lanes)``.  Each config
+they return passes the wrapper's own legality check (``matmul_knobs``,
+``attn_knobs``, ``scan_knobs``).  There is no LM search (nor in the
+reference): a tuning dict is chosen by hand, or timed config by config
+(``chip_smoke.py``'s ``lm_tune`` phase).
+
 The chain planner lives here too: :func:`chain_space` (legal batch tiles of
 a chain at the rule's split) and :func:`chain_cut_points` (the greedy
 longest legal runs), the reference's rule at the H100's budget.
@@ -45,7 +54,10 @@ import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import dataflow
-from repro_torch.tune.config import KernelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.matmul_int8 import ops as mm_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.tune.config import DEFAULT, KernelConfig
 
 # Dynamic shared memory one thread block may opt into on an H100 (227 KB;
 # ``repro::kMaxSmemBytes`` in ``kernels/csrc/common.cuh``).
@@ -314,6 +326,133 @@ def model_space(cfg, batch: int, backend: str = "cuda",
             spaces[key] = chain_tilings([shapes[i] for i in run], batch,
                                         stem_och, smem_budget, capacity)
     return spaces
+
+
+# ---------------------------------------------------------------------------
+# The LM kernels' spaces
+# ---------------------------------------------------------------------------
+
+# query positions a thread block of flash_attention takes, widest first
+ATTN_POSITIONS = (64, 32, 16, 8, 4, 2, 1)
+
+
+def matmul_space(M: int, K: int, N: int,
+                 acc_init: bool = False) -> List[KernelConfig]:
+    """Legal ``(bn, split)`` of ``matmul_int8``'s wgmma path for an (M, K)
+    @ (K, N) product: every tile width up to the narrowest that covers N
+    (widest first) times every legal split-K (:func:`~repro_torch.kernels.
+    matmul_int8.ops.k_splits`).  Empty on a shape that takes the
+    ``mma_sync`` path, which has no knobs.  Stands in for the reference's
+    (bm, bn, bk) MXU tilings: the 128 x 128 block tile is fixed here."""
+    del acc_init          # the init is read whatever the tiles
+    if mm_ops.matmul_path(M, N, K) != "wgmma":
+        return []
+    out = [KernelConfig(bn=bn, split=split)
+           for bn in reversed(mm_ops.tile_widths(N))
+           for split in mm_ops.k_splits(K)]
+    for c in out:
+        mm_ops.matmul_knobs(M, N, K, c)       # legal by the wrapper's check
+    return out
+
+
+def attention_space(Sq: int, Sk: int, head_dim: int,
+                    group: int = 1) -> List[KernelConfig]:
+    """Legal ``bm`` of ``flash_attention`` (the query positions one thread
+    block takes; it takes ``min(group, 64 // bm)`` heads of a kv group),
+    widest first, for ``group`` query heads a kv head.  Empty where the
+    kernel does not take ``head_dim`` (a multiple of 16, at most 256).
+    Stands in for the reference's (bq, bk) pairs: the K/V tile is fixed
+    at 64 keys here."""
+    del Sq, Sk            # a ragged last tile is masked, any bm is legal
+    if head_dim % 16 or head_dim > flash_ops.MAX_HEAD_DIM:
+        return []
+    out = [KernelConfig(bm=p) for p in ATTN_POSITIONS]
+    for c in out:
+        flash_ops.attn_knobs(group, c)
+    return out
+
+
+def scan_space(seq_len: int, d_inner: int,
+               ssm_state: int) -> List[KernelConfig]:
+    """Legal ``(cout_block, lanes)`` of ``selective_scan``: every pair the
+    kernel is instantiated at (``ops.SHAPES``), for a state of at most 16.
+    ``cout_block`` is the reference's ``bd`` knob, so a reference-style
+    ``{"cout_block": 16}`` means the same here."""
+    del seq_len, d_inner  # the grid masks a ragged channel block
+    if ssm_state > scan_ops.MAX_STATE:
+        return []
+    out = [KernelConfig(cout_block=c, lanes=l) for c, l in scan_ops.SHAPES]
+    for c in out:
+        scan_ops.scan_knobs(c)
+    return out
+
+
+def lm_task_dims(cfg) -> Dict[str, Tuple[int, int]]:
+    """``{role: (din, dout)}`` of one layer's projections of an LM config
+    (``compile.lm_params.QLMConfig``)."""
+    if cfg.family == "dense":
+        qkv = cfg.num_heads * cfg.head_dim
+        kv = cfg.num_kv_heads * cfg.head_dim
+        return dict(wq=(cfg.d_model, qkv), wk=(cfg.d_model, kv),
+                    wv=(cfg.d_model, kv), wo=(qkv, cfg.d_model),
+                    up=(cfg.d_model, cfg.d_ff),
+                    down=(cfg.d_ff, cfg.d_model))
+    return dict(wu=(cfg.d_model, cfg.d_inner), wz=(cfg.d_model, cfg.d_inner),
+                wdt=(cfg.d_model, cfg.d_inner),
+                wb=(cfg.d_model, cfg.ssm_state),
+                wc=(cfg.d_model, cfg.ssm_state),
+                wo=(cfg.d_inner, cfg.d_model))
+
+
+def lm_model_space(cfg, batch: int) -> Dict[str, List[KernelConfig]]:
+    """Per-task legal configs for an LM config at one batch bucket.  Keys
+    match ``lowering.tuning_key`` (``layer{i}/{role}`` for every matmul,
+    attention and scan task of the optimized graph), the reference's key
+    set.  Matmul M is the flattened token count (``batch * seq_len``)."""
+    M = batch * cfg.seq_len
+    spaces: Dict[str, List[KernelConfig]] = {}
+    for i in range(cfg.num_layers):
+        if cfg.family == "dense":
+            spaces[f"layer{i}/attn"] = attention_space(
+                cfg.seq_len, cfg.seq_len, cfg.head_dim,
+                cfg.num_heads // cfg.num_kv_heads)
+        else:
+            spaces[f"layer{i}/scan"] = scan_space(
+                cfg.seq_len, cfg.d_inner, cfg.ssm_state)
+        for role, (din, dout) in lm_task_dims(cfg).items():
+            spaces[f"layer{i}/{role}"] = matmul_space(
+                M, din, dout, acc_init=role in ("wo", "down"))
+    return spaces
+
+
+def lm_task_knobs(cfg, batch: int, key: str, config=None) -> tuple:
+    """The knobs the kernel of LM task ``key`` resolves ``config`` to at
+    bucket ``batch``: ``(bn, split)``, ``(heads, positions)`` or
+    ``(channels, lanes)``, by the wrappers' own checks."""
+    role = key.split("/", 1)[1]
+    if role == "attn":
+        return flash_ops.attn_knobs(cfg.num_heads // cfg.num_kv_heads,
+                                    config)
+    if role == "scan":
+        return scan_ops.scan_knobs(config)
+    din, dout = lm_task_dims(cfg)[role]
+    return mm_ops.matmul_knobs(batch * cfg.seq_len, dout, din, config)
+
+
+def lm_tuned_variant(cfg, batch: int) -> Dict[str, KernelConfig]:
+    """A deliberately non-default, legal LM tuning: for each task of
+    :func:`lm_model_space`, the first config of its space whose knobs
+    resolve to other values than the kernel's rule (tasks whose space has
+    none are left out).  The port's counterpart of the reference's
+    ``tests/test_conformance.py:lm_tuned_variant``, on the H100's knobs."""
+    out = {}
+    for key, space in lm_model_space(cfg, batch).items():
+        rule = lm_task_knobs(cfg, batch, key, DEFAULT)
+        c = next((c for c in space
+                  if lm_task_knobs(cfg, batch, key, c) != rule), None)
+        if c is not None:
+            out[key] = c
+    return out
 
 
 def space_size(spaces: Dict[str, List[KernelConfig]]) -> int:

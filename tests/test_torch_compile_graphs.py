@@ -180,14 +180,19 @@ def test_launch_counter_helpers_replay_a_capture():
     assert len(ops) == 7 and all(hasattr(op, "launches") for op in ops)
     saved = common.read_launches()
     try:
-        stem, chain = ops[0], ops[2]
+        stem, chain, mm = ops[0], ops[2], ops[3]
         before = common.read_launches()
         stem.launches += 1
         stem.launches_by_path["banded"] += 1
         chain.launches += 2
+        mm.launches += 1
+        mm.launches_by_path["wgmma"] += 1
+        common.count_config(mm, "bn=64,split=2")
         delta = common.launch_delta(before, common.read_launches())
-        assert delta[stem] == (1, {"banded": 1, "general": 0})
-        assert delta[chain] == (2, {})
+        assert delta[stem] == (1, {"banded": 1, "general": 0}, {})
+        assert delta[chain] == (2, {}, {})
+        assert delta[mm] == (1, {"wgmma": 1, "mma_sync": 0},
+                             {"bn=64,split=2": 1})
         common.write_launches(before)
         assert common.read_launches() == before
         for _ in range(3):
@@ -196,6 +201,11 @@ def test_launch_counter_helpers_replay_a_capture():
         assert after[stem][0] == before[stem][0] + 3
         assert after[stem][1]["banded"] == before[stem][1]["banded"] + 3
         assert after[chain][0] == before[chain][0] + 6
-        assert all(after[op] == before[op] for op in ops[3:] + ops[1:2])
+        assert after[mm][2]["bn=64,split=2"] == \
+            before[mm][2].get("bn=64,split=2", 0) + 3
+        assert all(after[op] == before[op] for op in ops[4:] + ops[1:2])
+        zero = common.zeroed_launches()
+        assert all(n == 0 and not any(by.values()) and cfgs == {}
+                   for n, by, cfgs in zero.values())
     finally:
         common.write_launches(saved)

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from repro_torch.compile import (compile_model, get_task_impl,
-                                 init_lm_params, lm_config, lower_features,
-                                 lower_forward, lowering, plan_lm)
+                                 hidden_out_spec, init_lm_params, lm_config,
+                                 lower_features, lower_forward, lowering,
+                                 plan_lm)
 from repro_torch.compile.compiler import GraphExecutable
 from repro_torch.compile import backends as BK
 from repro_torch.configs import get_config, get_smoke_config
@@ -27,10 +28,12 @@ from repro_torch.kernels.conv2d_int8 import ops as conv_ops
 from repro_torch.kernels.conv2d_int8.ops import (conv2d_int8_op, conv_path,
                                                  out_hw)
 from repro_torch.kernels.conv2d_int8.ref import conv2d_int8_plain
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import (attn_tiles,
                                                      flash_attention_op)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_plain)
+from repro_torch.kernels.matmul_int8 import ops as matmul_ops
 from repro_torch.kernels.matmul_int8.ops import (matmul_int8_op,
                                                  matmul_path, pack_weight)
 from repro_torch.kernels.matmul_int8.ref import matmul_int8_ref
@@ -40,6 +43,7 @@ from repro_torch.kernels.megakernel.ref import block_chain_ref
 from repro_torch.kernels.resblock_fused import ops as block_ops
 from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import resnet as R
@@ -747,22 +751,134 @@ def test_lm_tasks_on_cuda_match_torch_int(dev, name):
 
 
 def test_lm_tuning_dict_reaches_the_kernels_on_the_card(dev):
-    """A tuned LM task's config is handed to its kernel: the wrappers have
-    no LM knobs yet, so a non-default tile config is refused on the first
-    forward (the wrapper's ``ValueError``) instead of serving the default
-    tiles while ``CompiledModel.tuning`` names the tuning."""
-    cfg = lm_config(get_smoke_config("gemma-2b"), seq_len=64)
-    params = init_lm_params(cfg, seed=5, device=dev)
-    tune = {"layer0/wq": KernelConfig(bm=64, bn=64, bk=64)}
-    cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
-                       device=dev, tune=tune)
-    assert cm.tuning == tune
-    toks = np.zeros((1, 64), np.int32)
-    with pytest.raises(ValueError, match="kernel tuning is not available"):
-        cm(toks)
-    untuned = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
-                            device=dev)
-    assert torch.isfinite(untuned(toks)).all()
+    """A tuned LM task's config is handed to its kernel: a legal,
+    non-default tuning (``tune.space.lm_tuned_variant``) serves, within
+    ``logit_tolerance`` of ``torch-int`` under the same tuning, and the
+    wrappers' ``launches_by_config`` show every tuned task's knobs, once a
+    bucket run; an illegal one is refused by name on the first forward."""
+    from repro_torch.compile.lm_params import logit_tolerance
+
+    for name in ("gemma-2b", "falcon-mamba-7b"):
+        cfg = lm_config(get_smoke_config(name), seq_len=64)
+        params = init_lm_params(cfg, seed=5, device=dev)
+        tune = space.lm_tuned_variant(cfg, 1)
+        cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
+                           device=dev, tune=tune)
+        assert cm.tuning == tune
+        toks = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, 64)).astype(np.int32)
+        ops = (matmul_int8_op, flash_attention_op, selective_scan_op)
+        before = [dict(op.launches_by_config) for op in ops]
+        out = cm(toks)
+        assert torch.isfinite(out).all()
+        ran = {}
+        for op, b in zip(ops, before):
+            for key, n in op.launches_by_config.items():
+                if n != b.get(key, 0):
+                    ran[key] = ran.get(key, 0) + n - b.get(key, 0)
+        plan = plan_lm(lowering.annotate_tuning(
+            lowering.optimized_graph(cfg), tune), params)
+        role = {"attention": "attn", "scan": "scan"}
+        want = {}
+        for t in plan.tasks:
+            key = f"layer{t.layer}/{getattr(t, 'role', role.get(t.kind))}"
+            k = space.lm_task_knobs(cfg, 1, key, t.config)
+            label = ("cout_block={},lanes={}" if t.kind == "scan" else
+                     "bk=64,bm={1}" if t.kind == "attention" else
+                     "bn={},split={}").format(*k)
+            if t.kind == "matmul" and matmul_path(64, t.dout, t.din) != \
+                    "wgmma":
+                label = "mma_sync"
+            want[label] = want.get(label, 0) + 1
+        assert ran == want
+        ref = compile_model(cfg, params, backend="torch-int",
+                            batch_sizes=(1,), device=dev, tune=tune)
+        feats = [m.backend.features(m.graph, cfg, m.params)(
+            torch.as_tensor(toks, device=dev)) for m in (cm, ref)]
+        tol = logit_tolerance(*feats, hidden_out_spec(params),
+                              params.unembed)
+        assert bool(((out.double() - ref(toks).double()).abs() <=
+                     tol).all())
+        bad = {next(iter(tune)): KernelConfig(bm=64, bn=64, bk=64)}
+        with pytest.raises(ValueError, match="64"):
+            compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
+                          device=dev, tune=bad)(toks)
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 2048, 256), (512, 4096, 16),
+                                   (300, 1024, 96)])
+def test_matmul_int8_every_config_of_its_space_bitwise(dev, M, K, N):
+    """Every (bn, split) of ``tune.space.matmul_space`` bitwise with the
+    plain version, counted under its knobs; an illegal one is refused by
+    name before anything launches."""
+    rng = np.random.default_rng(M + K + N)
+    a = _t(rng, dev, -128, 128, (M, K), np.int8)
+    b = _t(rng, dev, -128, 128, (K, N), np.int8)
+    w = pack_weight(b)
+    bias = _t(rng, dev, -2 ** 20, 2 ** 20, (1, N), np.int32).expand(M, N)
+    ref = matmul_int8_ref(a, b, bias)
+    configs = space.matmul_space(M, K, N)
+    assert len(configs) > 1
+    for c in configs:
+        key = "bn={},split={}".format(*matmul_ops.matmul_knobs(M, N, K, c))
+        n = matmul_int8_op.launches_by_config.get(key, 0)
+        got = matmul_int8_op(a, w, bias, config=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+        assert matmul_int8_op.launches_by_config[key] == n + 1
+    total = matmul_int8_op.launches
+    with pytest.raises(ValueError, match="bn=48"):
+        matmul_int8_op(a, w, bias, config=KernelConfig(bn=48))
+    assert matmul_int8_op.launches == total
+
+
+def test_flash_attention_every_config_of_its_space(dev):
+    """Every ``bm`` of ``tune.space.attention_space`` within 2e-5 of the
+    plain version on the tiles ``attn_tiles`` gives under it (gemma-2b's
+    MQA group of 8 and a group of 2), counted under its knobs; the kernel
+    reports the shared memory ``block_smem_bytes`` computes."""
+    rng = np.random.default_rng(21)
+    for H, KV, hd in ((8, 1, 64), (4, 2, 128)):
+        q = _normal(rng, dev, (2, 100, H, hd))
+        k = _normal(rng, dev, (2, 130, KV, hd))
+        v = _normal(rng, dev, (2, 130, KV, hd))
+        for c in space.attention_space(100, 130, hd, H // KV):
+            got = flash_attention_op(q, k, v, config=c)
+            torch.cuda.synchronize()
+            bq, bk = attn_tiles(100, 130, H // KV, config=c)
+            ref = flash_attention_plain(q, k, v, bq=bq, bk=bk)
+            torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    for hd in (48, 64, 128, 256):
+        assert flash_ops.smem_bytes(hd) == flash_ops.block_smem_bytes(hd)
+    with pytest.raises(ValueError, match="bk=32"):
+        flash_attention_op(q, k, v, config=KernelConfig(bk=32))
+
+
+@pytest.mark.parametrize("B,S,di,N", [(2, 100, 200, 16), (1, 40, 50, 7)])
+def test_selective_scan_every_instance_of_its_space(dev, B, S, di, N):
+    """Every (cout_block, lanes) instance within 1e-5 of the plain
+    version, counted under its knobs; the compiler's static shared memory
+    of each instance equals ``scan_smem_bytes``."""
+    rng = np.random.default_rng(S + di + 1)
+    u = _normal(rng, dev, (B, S, di))
+    dt = BK.softplus(_normal(rng, dev, (B, S, di)))
+    A = -torch.exp(_normal(rng, dev, (di, N)) * 0.5)
+    Bc, Cc = _normal(rng, dev, (B, S, N)), _normal(rng, dev, (B, S, N))
+    h0 = _normal(rng, dev, (B, di, N))
+    y_ref, h_ref = selective_scan_ref(u, dt, A, Bc, Cc, h0)
+    for c in space.scan_space(S, di, N):
+        key = f"cout_block={c.cout_block},lanes={c.lanes}"
+        n = selective_scan_op.launches_by_config.get(key, 0)
+        y, h = selective_scan_op(u, dt, A, Bc, Cc, h0, config=c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+        assert selective_scan_op.launches_by_config[key] == n + 1
+        assert scan_ops.kernel_smem_bytes(c.cout_block, c.lanes) == \
+            scan_ops.scan_smem_bytes(c.cout_block, c.lanes)
+    with pytest.raises(ValueError, match="lanes=8"):
+        selective_scan_op(u, dt, A, Bc, Cc, h0,
+                          config=KernelConfig(cout_block=64, lanes=8))
 
 
 # ---------------------------------------------------------------------------
@@ -888,7 +1004,7 @@ def test_capture_graph_leaves_the_counters_and_times_the_replay(dev):
     graph, out, delta = common.capture_graph(lambda: fwd(x), calls=2)
     assert common.read_launches() == before
     assert delta[resblock_fused_op][0] == 2 * 3
-    assert delta[conv_stem_op] == (2, {"banded": 2, "general": 0})
+    assert delta[conv_stem_op] == (2, {"banded": 2, "general": 0}, {})
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, fwd(x))

@@ -28,7 +28,8 @@ sys.exit(1 if bad else 0)
 
 # the submodules of each slice, so that a new one cannot be missed by the
 # walk (the serving-at-scale and tuning slice, the training and
-# quantization slice, and the traffic and health slice, among them)
+# quantization slice, the traffic and health slice and the compile-smoke
+# CLI, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
@@ -45,7 +46,7 @@ EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.traffic.slo", "repro_torch.traffic.autoscale",
             "repro_torch.traffic.degrade", "repro_torch.traffic.sim",
             "repro_torch.traffic.live", "repro_torch.traffic.__main__",
-            "repro_torch.traffic.wiring"}
+            "repro_torch.traffic.wiring", "repro_torch.compile.__main__"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -400,25 +400,51 @@ def test_compile_model_serves_token_buckets(setup):
 @pytest.mark.parametrize("name,key", [("gemma-2b", "layer0/wq"),
                                       ("gemma-2b", "layer0/attn"),
                                       ("falcon-mamba-7b", "layer0/scan")])
-def test_cuda_lm_impls_hand_their_task_config_to_the_kernel(name, key):
+def test_cuda_lm_impls_hand_their_task_config_to_the_kernel(name, key,
+                                                            monkeypatch):
     """A tuned LM task's config reaches its kernel wrapper: the ``cuda``
-    impls pass ``config=t.config``, so a config the wrappers cannot apply
-    is refused on the first forward instead of served with the default
-    tiles.  ``torch-int`` reads no config and serves the same tuning."""
+    impls pass ``config=t.config``, so a config the kernel cannot apply is
+    refused by name on the first forward instead of served with the
+    default tiles, and a legal one is served.  ``torch-int`` reads the
+    same config: it refuses the illegal one, and its attention walks the
+    config's tiles (``attn_tiles``, as the reference's lax-int)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.tune.config import KernelConfig
 
     cfg = lm_config(get_smoke_config(name), seq_len=8)
     params = init_lm_params(cfg, seed=0, device="cpu")
-    tune = {key: KernelConfig(bm=64, bn=64, bk=64)}
-    cm = compile_model(cfg, params, backend="cuda", batch_sizes=(1,),
-                       device="cpu", tune=tune)
-    assert cm.tuning == tune
     toks = np.zeros((1, 8), np.int32)
-    with pytest.raises(ValueError, match="config="):
-        cm(toks)
-    plain = compile_model(cfg, params, backend="torch-int", batch_sizes=(1,),
-                          device="cpu", tune=tune)
-    assert plain(toks).shape == (1, cfg.vocab_size)
+    illegal = {key: KernelConfig(bm=64, bn=64, bk=64)}
+    refused = {"layer0/wq": "bm=64", "layer0/attn": "bn=64",
+               "layer0/scan": "bm=64"}[key]
+    for backend in ("cuda", "torch-int"):
+        cm = compile_model(cfg, params, backend=backend, batch_sizes=(1,),
+                           device="cpu", tune=illegal)
+        assert cm.tuning == illegal
+        with pytest.raises(ValueError, match=refused):
+            cm(toks)
+    legal = {"layer0/wq": KernelConfig(bn=16, split=1),
+             "layer0/attn": KernelConfig(bm=2),
+             "layer0/scan": KernelConfig(cout_block=16, lanes=2)}[key]
+    walked = []
+    plain = fref.flash_attention_plain
+    def spy(*a, **kw):
+        walked.append(kw["bq"])
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(fref, "flash_attention_plain", spy)
+    monkeypatch.setattr(fops, "flash_attention_plain", spy)
+    out = {b: compile_model(cfg, params, backend=b, batch_sizes=(1,),
+                            device="cpu", tune={key: legal})(toks)
+           for b in ("cuda", "torch-int")}
+    assert out["cuda"].shape == (1, cfg.vocab_size)
+    assert torch.equal(out["cuda"], out["torch-int"])
+    if key == "layer0/attn":
+        # both backends walk bq = bm = 2 on layer 0, and the rule's
+        # positions for the smoke config's kv group on layer 1
+        rule = fops.attn_tiles(8, 8, cfg.num_heads // cfg.num_kv_heads)[0]
+        assert rule != 2 and walked == [2, rule] * 2
 
 
 def test_params_move_between_devices_as_one():

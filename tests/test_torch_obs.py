@@ -13,7 +13,8 @@ from test_torch_slice import images, np_qparams
 
 from repro.core import dataflow as jdf
 from repro.models import resnet as JR
-from repro_torch.compile import compile_model, lm_config, params_from_numpy
+from repro_torch.compile import (compile_model, lm_config, lowering,
+                                 optimized_graph, params_from_numpy, plan_lm)
 from repro_torch.configs import get_smoke_config
 from repro_torch.compile.lm_params import init_lm_params
 from repro_torch.core import dataflow as df
@@ -505,9 +506,68 @@ def test_profile_tasks_pairs_time_with_the_jax_byte_model(qp8, backend,
 
 
 def test_profile_tasks_refuses_other_backends_and_lm_configs(qp8):
+    """A non-kernel backend is refused, for a conv config and an LM config
+    alike; an LM config on a kernel backend is profiled (its leg landed),
+    one row per task of its plan."""
     with pytest.raises(ValueError, match="kernel backends"):
         profile_tasks(R.RESNET8, qp8, backend="torch-int", device="cpu")
     cfg = lm_config(get_smoke_config("gemma-2b"), seq_len=16)
-    with pytest.raises(ValueError, match="A8.3"):
-        profile_tasks(cfg, init_lm_params(cfg, seed=0, device="cpu"),
-                      device="cpu")
+    params = init_lm_params(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="kernel backends"):
+        profile_tasks(cfg, params, backend="torch-int", device="cpu")
+    rows = profile_tasks(cfg, params, reps=1, device="cpu")
+    assert len(rows) == len(plan_lm(optimized_graph(cfg), params).tasks)
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda-stream"])
+def test_profile_tasks_lm_rows_pair_time_with_the_jax_byte_model(name,
+                                                                 backend):
+    """The LM leg: one row per matmul / attention / scan task of the plan,
+    keyed by ``tuning_key`` (the reference's rows' keys), each paired with
+    the JAX package's ``core.dataflow`` LM byte formula at the tiles the
+    port's kernel runs (a matmul at (128, bn, 128), or the mma_sync path's
+    (128, 128, 64); an attention at (bm positions, 64 keys); a scan at its
+    channel block), ``vmem_bytes`` the thread block's shared memory."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.matmul_int8 import ops as mops
+    from repro_torch.kernels.selective_scan import ops as sops
+
+    cfg = lm_config(get_smoke_config(name), seq_len=16)
+    params = init_lm_params(cfg, seed=1, device="cpu")
+    batch = 2
+    ob = prt.instrument()
+    plan = plan_lm(optimized_graph(cfg), params)
+    rows = profile_tasks(cfg, params, backend=backend, batch=batch, reps=1,
+                         ob=ob, device="cpu")
+    keys = [lowering.tuning_key(n) for n in optimized_graph(cfg).nodes]
+    assert [r.task for r in rows] == [k for k in keys if k]
+    assert [r.kind for r in rows] == [t.kind for t in plan.tasks]
+    M = batch * cfg.seq_len
+    for r, t in zip(rows, plan.tasks):
+        assert r.batch == batch and r.wall_us > 0 and r.hbm_bytes > 0
+        if t.kind == "matmul":
+            if mops.matmul_path(M, t.dout, t.din) == "wgmma":
+                bn = mops.matmul_tiles(M, t.dout, t.din)[1]
+                tiles, smem = (128, bn, 128), mops.smem_bytes(bn)
+            else:
+                tiles, smem = (128, 128, 64), mops.SYNC_SMEM
+            want = (jdf.matmul_task_hbm_bytes(
+                M, t.din, t.dout, *tiles, acc_init=t.skip is not None), smem)
+            assert r.batch_tile == 128
+        elif t.kind == "attention":
+            bq, bk = fops.attn_tiles(cfg.seq_len, cfg.seq_len,
+                                     t.heads // t.kv_heads)
+            want = (jdf.attention_task_hbm_bytes(
+                batch * t.heads, cfg.seq_len, cfg.seq_len, t.head_dim, bq,
+                bk), fops.block_smem_bytes(t.head_dim))
+            assert r.batch_tile == bq
+        else:
+            want = (jdf.scan_task_hbm_bytes(batch, cfg.seq_len, t.d_inner,
+                                            t.ssm_state, 32),
+                    sops.scan_smem_bytes(32, 4))
+            assert r.batch_tile == 32
+        assert (r.hbm_bytes, r.vmem_bytes) == want, r.task
+    assert ob.metrics.total("kernel_profiles_total") == len(rows)
+    assert {e.name for e in ob.trace.events if e.cat == "kernel"} == \
+        {f"{cfg.name}/{r.task}" for r in rows}

@@ -1,14 +1,17 @@
 """``repro_torch.core.quant`` and ``models.resnet`` quantization against the
 JAX package, bitwise, on inputs made by numpy from a seed (mirrors the cases
 of tests/test_quant.py and tests/test_quant_props.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from _hypothesis_compat import given, settings, st
 
+from repro.compile import params as JC
 from repro.core import quant as JQ
 from repro.models import resnet as JR
+from repro_torch.compile import params_from_numpy
 from repro_torch.core import quant as Q
 from repro_torch.core.quant import QSpec
 from repro_torch.models import resnet as R
@@ -224,3 +227,62 @@ def test_calibrate_exp_past_torch_quantile_limit_matches_jax():
     assert abs(got - want) <= np.spacing(np.float32(want))
     assert Q.calibrate_exp(_t(x), spec, 99.9) == \
         JQ.calibrate_exp(jnp.asarray(x), jspec, 99.9)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-grid shift helpers
+# ---------------------------------------------------------------------------
+
+
+def _np_tree(d):
+    if isinstance(d, dict):
+        return {k: _np_tree(v) for k, v in d.items()}
+    if isinstance(d, list):
+        return [_np_tree(v) for v in d]
+    return np.asarray(d) if hasattr(d, "shape") else d
+
+
+@pytest.mark.parametrize("arch", ["resnet8", "resnet20"])
+def test_block_shifts_equal_the_reference(arch):
+    """``QBlockParams.shifts(A_SPEC.exp)`` and ``block_shifts`` equal the
+    reference's on the same quantized params (tests/test_compile.py's
+    ``test_block_shifts_match_models_resnet``, test_pallas_forward.py's
+    exponent arithmetic)."""
+    jcfg = {"resnet8": JR.RESNET8, "resnet20": JR.RESNET20}[arch]
+    jqp = JR.quantize_params(JR.fold_params(JR.init_params(
+        jcfg, jax.random.PRNGKey(5))), jcfg)
+    tp = params_from_numpy(_np_tree(jqp))
+    jtp = JC.QResNetParams.from_dict(jqp)
+    assert R.A_SPEC.exp == JR.A_SPEC.exp
+    for qb, blk, jblk in zip(jqp["blocks"], tp.blocks, jtp.blocks):
+        want = JR.block_shifts(qb)
+        assert jblk.shifts(JR.A_SPEC.exp) == want
+        assert blk.shifts(R.A_SPEC.exp) == want
+        assert R.block_shifts(qb) == want
+        e1 = qb["conv1"]["x_spec"].exp + qb["conv1"]["w_spec"].exp
+        assert want["shift1"] == R.A_SPEC.exp - e1
+
+
+def test_shifts_refuse_per_tensor_params():
+    import dataclasses
+    jcfg = JR.RESNET8
+    jqp = JR.quantize_params(JR.fold_params(JR.init_params(
+        jcfg, jax.random.PRNGKey(6))), jcfg)
+    tp = params_from_numpy(_np_tree(jqp))
+    blk = tp.blocks[0]
+    moved = dataclasses.replace(blk, conv1=dataclasses.replace(
+        blk.conv1, x_spec=dataclasses.replace(blk.conv1.x_spec,
+                                              exp=R.A_SPEC.exp - 1)))
+    jblk = JC.QResNetParams.from_dict(jqp).blocks[0]
+    jmoved = dataclasses.replace(jblk, conv1=dataclasses.replace(
+        jblk.conv1, x_spec=dataclasses.replace(jblk.conv1.x_spec,
+                                               exp=JR.A_SPEC.exp - 1)))
+    msgs = []
+    for b, exp in ((jmoved, JR.A_SPEC.exp), (moved, R.A_SPEC.exp)):
+        with pytest.raises(ValueError, match="per-tensor") as exc:
+            b.shifts(exp)
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1]
+    # shifts_for takes them
+    assert moved.shifts_for(R.A_SPEC.exp)["shift0"] == \
+        moved.conv1.x_spec.exp - moved.conv0.product_exp

@@ -224,13 +224,40 @@ Phases, one JSON line each:
                 --json`` as a subprocess on the card, exit 0.  The untuned
                 serve of phase 7 checks ``launches_by_config`` against the
                 rules' tiles.
-  8. the ``{"kernels": [...], "serve": {...}, "train": {...},
-     "traffic": {...}, "lm_tune": {...}}`` line (rows 1-3 carry their
+  8. lm_float — the float LMs of all ten architectures (``models.model``,
+                plain PyTorch: no kernel of the port runs, and the
+                counters, zeroed before the phase, must read 0 after it),
+                weights and inputs random from ``--seed`` on the card, at
+                published width and depth except mixtral-8x22b (2 layers),
+                nemotron-4-340b (1 layer) and deepseek-v3-671b (2 layers,
+                the first dense; MTP 1): (1) a bf16 prefill of 4 x 512
+                tokens each (whisper's frames and internvl2's patches
+                drawn too): finite logits, CUDA-event ms of the eager call,
+                tokens/s, peak memory, the idle share of one prefill
+                under ``torch.profiler``;
+                (2) float32 copies (MoE capacity factor 8, internvl2
+                without patches, whisper's cross-attention cache from its
+                encoder) decode a 16-token prompt token by token and
+                reproduce the prefill logits within 2e-3; (3)
+                ``serve.Engine`` at published width in bf16 for gemma-2b,
+                falcon-mamba-7b and zamba2-7b: 8 requests, 4 slots,
+                ``max_len`` 256, ``max_new`` 32, ``serve_lm``'s prompts:
+                tokens/s, ticks, one decode step's ms, the idle share over
+                5 ticks under ``torch.profiler``, and ``Engine(slots=1)``
+                equal to a manual ``decode_step`` loop; (4) every smoke
+                config in float32 on the card and on the CPU on the same
+                weights: prefill and two decode steps (logits and cache
+                leaves) within 1e-4; (5) ``python -m
+                repro_torch.launch.serve --arch gemma-2b --requests 4
+                --max-new 8`` as a subprocess, exit 0.
+  9. the ``{"kernels": [...], "serve": {...}, "train": {...},
+     "traffic": {...}, "lm_tune": {...}, "lm_float": {...}}`` line (rows
+     1-3 carry their
      tuned knob and time beside the rule's and their launches in the
      train phase's evaluation and in the traffic phase; rows 4-6 their
      knobs, the sweep's rule and best per shape, the tuned serve's
      launches by config and the LM profile's ms a forward; ``serve`` the
-     sharded and tuned summaries), then
+     sharded and tuned summaries; ``lm_float`` the float phase's), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -266,7 +293,8 @@ from repro_torch.compile import lowering  # noqa: E402
 from repro_torch.compile.backends import softplus  # noqa: E402
 from repro_torch.compile.compiler import GraphExecutable  # noqa: E402
 from repro_torch.compile.lm_params import logit_tolerance  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.core import dataflow as df  # noqa: E402
 from repro_torch.core import tree  # noqa: E402
 from repro_torch.core.quant import (dequantize,  # noqa: E402
@@ -319,7 +347,9 @@ from repro_torch.kernels.selective_scan.ops import \
     kernel_smem_bytes as scan_kernel_smem_bytes  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import \
     selective_scan_ref  # noqa: E402
+from repro_torch.models import model as float_lm  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
+from repro_torch.models import transformer as float_transformer  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
                              alert_log_path, default_rules, read_bundle)
@@ -329,8 +359,8 @@ from repro_torch.obs.__main__ import (load_alerts,  # noqa: E402
 from repro_torch.obs.metrics import parse_text  # noqa: E402
 from repro_torch.obs.profile import REFERENCE_HBM_GBPS  # noqa: E402
 from repro_torch.obs.profile import profile_tasks  # noqa: E402
-from repro_torch.serve import (ImageRequest, ResNetEngine,  # noqa: E402
-                               ShardedResNetEngine)
+from repro_torch.serve import (Engine, ImageRequest,  # noqa: E402
+                               Request, ResNetEngine, ShardedResNetEngine)
 from repro_torch.quantize import (CalibrationResult,  # noqa: E402
                                   QuantRecipe, calibration_batches,
                                   evaluate_compiled, evaluate_engine,
@@ -3595,6 +3625,327 @@ def compile_cli(out_dir):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The float LMs and their server (lm_float)
+# ---------------------------------------------------------------------------
+
+LMF_BATCH, LMF_SEQ = 4, 512        # the bf16 prefill's shape
+LMF_DEC_BATCH, LMF_DEC_PROMPT = 2, 16   # float32 decode vs prefill
+LMF_DEC_TOL = 2e-3   # tests/test_archs.py's rtol = atol for that property
+LMF_CPU_TOL = 1e-4   # card vs CPU, float32 smoke, TF32 off (abs and rel)
+LMF_REPS = 3         # timed prefills after one warm-up
+# depths cut where one card cannot hold the published model
+LMF_CUTS = {"mixtral-8x22b": dict(num_layers=2),
+            "nemotron-4-340b": dict(num_layers=1),
+            "deepseek-v3-671b": dict(num_layers=2, first_dense_layers=1)}
+LMF_ENGINE = ("gemma-2b", "falcon-mamba-7b", "zamba2-7b")
+LMF_ENGINE_RUN = dict(requests=8, slots=4, max_len=256, max_new=32)
+
+
+def lmf_inputs(cfg, batch, seq, seed, dev):
+    """Tokens and the stub frontends' embeddings (whisper's frames,
+    internvl2's patches), drawn on the card from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=dev, dtype=torch.int32)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn((batch, cfg.encoder_len, cfg.d_model),
+                                      generator=g, device=dev).to(
+                                          cfg.compute_dtype)
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn((batch, cfg.num_patches, cfg.d_model),
+                                       generator=g, device=dev).to(
+                                           cfg.compute_dtype)
+    return tokens, extra
+
+
+def lmf_prefill(name, cfg, params, seed, dev):
+    """(1) One bf16 prefill of LMF_BATCH x LMF_SEQ tokens: finite logits of
+    the right shape, the CUDA-event time of one eager call (host launch
+    gaps included; the median of LMF_REPS after a warm-up), tokens/s, and
+    one more call under the profiler (device busy ms, idle share)."""
+    tokens, extra = lmf_inputs(cfg, LMF_BATCH, LMF_SEQ, seed, dev)
+    with torch.no_grad():
+        logits = float_lm.prefill(params, cfg, tokens, extra)
+        torch.cuda.synchronize()
+        check(tuple(logits.shape) == (LMF_BATCH, 1, cfg.vocab_size)
+              and logits.dtype == cfg.compute_dtype,
+              f"{name}: prefill logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{name}: prefill logits not finite")
+        times = []
+        for _ in range(LMF_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            float_lm.prefill(params, cfg, tokens, extra)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        prof = lmf_profile(lambda: float_lm.prefill(params, cfg, tokens,
+                                                    extra), 1)
+    ms = float(np.median(times))
+    return dict(ms=ms, ms_all=times,
+                tokens_per_s=LMF_BATCH * LMF_SEQ / (ms * 1e-3),
+                logit_absmax=float(logits.float().abs().max()),
+                profile=prof)
+
+
+def lmf_decode_vs_prefill(name, cfg, params, seed, dev):
+    """(2) Decoding a LMF_DEC_PROMPT-token prompt token by token reproduces
+    the prefill logits at the last position (float32, tests/test_archs.py's
+    property and tolerance); whisper's cross-attention cache from the
+    encoder over the same frames."""
+    tokens, extra = lmf_inputs(cfg, LMF_DEC_BATCH, LMF_DEC_PROMPT, seed + 1,
+                               dev)
+    with torch.no_grad():
+        ref = float_lm.prefill(params, cfg, tokens, extra)
+        cache = float_lm.init_cache(cfg, LMF_DEC_BATCH, 2 * LMF_DEC_PROMPT,
+                                    dev)
+        if cfg.family == "audio":
+            cache.update(float_transformer.encoder_cache(params, cfg,
+                                                         extra["frames"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LMF_DEC_PROMPT):
+            logits, cache = float_lm.decode_step(
+                params, cfg, tokens[:, t:t + 1],
+                torch.full((LMF_DEC_BATCH,), t, dtype=torch.int32,
+                           device=dev), cache)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LMF_DEC_PROMPT
+    err = float((logits - ref).abs().max())
+    check(torch.allclose(logits, ref, rtol=LMF_DEC_TOL, atol=LMF_DEC_TOL),
+          f"{name}: decode vs prefill max abs err {err}")
+    return dict(max_abs_err=err, tolerance=LMF_DEC_TOL,
+                host_ms_per_decode_step=step_ms)
+
+
+def lmf_profile(fn, calls):
+    """``calls`` runs of ``fn`` under ``torch.profiler``: wall ms a call
+    (host clock, ended by a synchronisation), the device's busy ms (its
+    kernels and copies, one stream), the idle share 1 - busy / wall,
+    launches a call and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
+    check(busy_s > 0, "the profiler saw no device time")
+    return dict(calls=calls, wall_ms=wall_s * 1e3 / calls,
+                device_ms=busy_s * 1e3 / calls,
+                idle_share=1.0 - busy_s / wall_s,
+                launches=sum(e.count for e in dev_events) / calls,
+                top=top_kernels(prof, 4))
+
+
+def lmf_requests(n, max_new):
+    """``serve_lm``'s prompts."""
+    return [Request(rid=i, prompt=[1 + i % 7, 2, 3 + i % 5], max_new=max_new)
+            for i in range(n)]
+
+
+def lmf_engine(name, cfg, params, dev):
+    """(3) ``Engine`` at published width in bf16: LMF_ENGINE_RUN's requests
+    (after a warm-up run of one), tokens/s on the host clock, ticks and
+    decode steps; one batch-4 ``decode_step`` on the engine's cache timed
+    with CUDA events; 5 ticks of a busy engine under the profiler; and
+    ``Engine(slots=1)`` equal to a manual ``decode_step`` loop."""
+    run = LMF_ENGINE_RUN
+    warm = Engine(cfg, params, slots=run["slots"], max_len=run["max_len"],
+                  device=dev)
+    for r in lmf_requests(1, 2):
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = Engine(cfg, params, slots=run["slots"], max_len=run["max_len"],
+                 device=dev)
+    reqs = lmf_requests(run["requests"], run["max_new"])
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    check(all(r.done for r in reqs) and
+          tokens == run["requests"] * run["max_new"],
+          f"{name}: engine served {tokens} tokens")
+    # one decode step of the engine's shape on its cache, device-timed
+    tok = torch.zeros((run["slots"], 1), dtype=torch.int32, device=dev)
+    pos = torch.full((run["slots"],), 100, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        step_ms = call_ms(lambda: float_lm.decode_step(
+            params, cfg, tok, pos, eng.cache), 10)
+    # the idle share over a few ticks of a busy engine
+    prof_eng = Engine(cfg, params, slots=run["slots"],
+                      max_len=run["max_len"], device=dev)
+    for r in lmf_requests(run["slots"], run["max_new"]):
+        prof_eng.submit(r)
+    prof_eng.tick()
+    prof = lmf_profile(prof_eng.tick, 5)
+    del prof_eng
+    # slots=1 greedy against a manual decode loop (tests/test_substrate.py)
+    one = Engine(cfg, params, slots=1, max_len=64, device=dev)
+    req = Request(rid=0, prompt=[4, 8], max_new=3)
+    one.submit(req)
+    one.run()
+    cache = float_lm.init_cache(cfg, 1, 64, dev)
+
+    def step(tok1, t):
+        nonlocal cache
+        with torch.no_grad():
+            logits, cache = float_lm.decode_step(
+                params, cfg, torch.tensor([[tok1]], device=dev),
+                torch.tensor([t], device=dev), cache)
+        return int(torch.argmax(logits[0, 0]))
+
+    step(4, 0)
+    outs = [step(8, 1)]
+    for t in (2, 3):
+        outs.append(step(outs[-1], t))
+    check(req.out == outs,
+          f"{name}: Engine(slots=1) {req.out} != manual decode {outs}")
+    return dict(requests=run["requests"], slots=run["slots"],
+                max_len=run["max_len"], max_new=run["max_new"],
+                tokens=tokens, ticks=ticks, decode_steps=eng.steps,
+                wall_s=wall, tokens_per_s=tokens / wall,
+                decode_step_ms=step_ms, profile=prof,
+                greedy_equals_manual=True)
+
+
+def lmf_cpu_vs_card(seed, dev):
+    """(4) Every smoke config in float32 on the card and on the CPU, on the
+    same weights (drawn on the CPU, carried across by the bridge) and
+    inputs: prefill logits and two decode steps (logits and every cache
+    leaf) within LMF_CPU_TOL."""
+    out = {}
+    for name in ARCH_IDS:
+        cfg = get_smoke_config(name)
+        p_cpu = float_lm.init_params(cfg, seed, "cpu")
+        p_dev = float_lm.params_from_numpy(float_lm.params_to_numpy(p_cpu),
+                                           cfg, dev)
+        tokens, extra = lmf_inputs(cfg, 2, 16, seed, "cpu")
+        worst = 0.0
+        runs = {}
+        for where, p in (("cpu", p_cpu), ("card", p_dev)):
+            d = torch.device("cpu") if where == "cpu" else dev
+            with torch.no_grad():
+                got = [float_lm.prefill(p, cfg, tokens.to(d),
+                                        {k: v.to(d) for k, v in
+                                         extra.items()})]
+                cache = float_lm.init_cache(cfg, 2, 32, d)
+                for t, at in enumerate(([3, 9], [4, 10])):
+                    logits, cache = float_lm.decode_step(
+                        p, cfg, tokens[:, t:t + 1].to(d),
+                        torch.tensor(at, device=d), cache)
+                    got += [logits] + [cache[k] for k in sorted(cache)]
+            runs[where] = [g.cpu() for g in got]
+        for a, b in zip(runs["cpu"], runs["card"]):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+            check(torch.allclose(a.float(), b.float(), rtol=LMF_CPU_TOL,
+                                 atol=LMF_CPU_TOL),
+                  f"{name}: card vs CPU differ by "
+                  f"{float((a.float() - b.float()).abs().max())}")
+        out[name] = worst
+    return dict(max_abs_err=out, tolerance=LMF_CPU_TOL)
+
+
+def lmf_cli():
+    """(5) ``python -m repro_torch.launch.serve --arch gemma-2b --requests 4
+    --max-new 8`` as a subprocess on the card: exit 0, 32 tokens."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent /
+                                          "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "gemma-2b", "--requests", "4",
+                          "--max-new", "8"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0 and "served 4 requests, 32 tokens" in
+          res.stdout and "on cuda" in res.stdout,
+          f"launch.serve --arch gemma-2b exited {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    line = next(ln for ln in res.stdout.splitlines() if ln.startswith("served"))
+    rec = dict(wall_s=time.perf_counter() - t0, line=line)
+    emit("lm_float_cli", **rec)
+    return rec
+
+
+def lm_float_phase(seed, dev):
+    """The float LMs of all ten architectures on the card (see the module
+    docstring, phase 8); returns the summary for the kernels line."""
+    t0 = time.perf_counter()
+    saved = read_launches()
+    write_launches(zeroed_launches())
+    prefill, decode, engine = {}, {}, {}
+    for name in ARCH_IDS:
+        cut = LMF_CUTS.get(name, {})
+        cfg = get_config(name).with_(**cut)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        params = float_lm.init_params(cfg, seed, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        prefill[name] = dict(cut=cut, params=float_lm.param_count(cfg),
+                             init_s=init_s,
+                             **lmf_prefill(name, cfg, params, seed, dev))
+        if name in LMF_ENGINE:
+            engine[name] = lmf_engine(name, cfg, params, dev)
+            emit("lm_float_engine", model=name, **engine[name])
+        prefill[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit("lm_float_prefill", model=name, dtype=cfg.dtype,
+             batch=LMF_BATCH, seq=LMF_SEQ, **prefill[name])
+        del params
+        torch.cuda.empty_cache()
+        cfg32 = cfg.with_(dtype="float32", param_dtype="float32")
+        if cfg32.family == "moe":
+            # prefill routes more tokens than decode, so capacity drops
+            # would differ (tests/test_archs.py lifts the capacity too)
+            cfg32 = cfg32.with_(moe_capacity_factor=8.0)
+        if cfg32.family == "vlm":
+            # decode takes no patches: the token-only prefill
+            cfg32 = cfg32.with_(num_patches=0)
+        params = float_lm.init_params(cfg32, seed, dev)
+        decode[name] = lmf_decode_vs_prefill(name, cfg32, params, seed, dev)
+        emit("lm_float_decode", model=name, batch=LMF_DEC_BATCH,
+             prompt=LMF_DEC_PROMPT, cut=cut, **decode[name])
+        del params
+        torch.cuda.empty_cache()
+    cpu = lmf_cpu_vs_card(seed, dev)
+    emit("lm_float_cpu_vs_card", **cpu)
+    cli = lmf_cli()
+    launched = {op.__name__: n for op, (n, _, _) in read_launches().items()}
+    check(not any(launched.values()),
+          f"the float LMs launched the port's kernels: {launched}")
+    write_launches(saved)
+    seconds = time.perf_counter() - t0
+    emit("lm_float_phase", seconds=seconds, port_kernel_launches=launched)
+    return dict(
+        seconds=seconds, cuts=LMF_CUTS,
+        prefill={k: {f: v[f] for f in ("ms", "tokens_per_s", "peak_gb")}
+                 | {"idle_share": v["profile"]["idle_share"]}
+                 for k, v in prefill.items()},
+        decode_vs_prefill_max_abs_err={k: v["max_abs_err"]
+                                       for k, v in decode.items()},
+        engine={k: {f: v[f] for f in ("tokens_per_s", "ticks",
+                                      "decode_step_ms")}
+                | {"idle_share": v["profile"]["idle_share"]}
+                for k, v in engine.items()},
+        cpu_vs_card_max_abs_err=max(cpu["max_abs_err"].values()),
+        cli=cli["line"], port_kernel_launches=sum(launched.values()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3683,6 +4034,8 @@ def main(argv=None):
     lm_tune["seconds"] += time.perf_counter() - t1
     emit("lm_tune_phase", seconds=lm_tune["seconds"],
          refused=len(lm_tune["refused"]))
+    torch.cuda.empty_cache()
+    lm_float = lm_float_phase(args.seed, dev)
     torch.cuda.empty_cache()
 
     conv_launches = sum(d["conv2d_int8"] for d in (
@@ -3808,6 +4161,7 @@ def main(argv=None):
                         for k, v in lm_tune["serve"].items()},
                     "profile": {k: v["ms_per_forward"]
                                 for k, v in lm_tune["profile"].items()}},
+        "lm_float": lm_float,
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,7 @@ from repro_torch.compile import lowering
 from repro_torch.compile.params import (
     QConvParams, QResNetParams, activation_out_specs)
 from repro_torch.kernels.common import conv_i32
+from repro_torch.models.layers import softplus
 from repro_torch.models.resnet import A_SPEC
 from repro_torch.models.resnet import _conv as _float_conv
 
@@ -290,12 +291,6 @@ def _torch_attention(t, ctx):
                         config=t.config)
     _lm_attn_finish(flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
                                           bk=bk), t, ctx)
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (torch's
-    ``F.softplus`` returns ``x`` itself above 20)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

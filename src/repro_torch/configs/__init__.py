@@ -1,5 +1,7 @@
-"""Model configurations the port can lower (own copies of
-``repro.configs``, gemma-2b and falcon-mamba-7b):
-``get_config(name)`` / ``get_smoke_config(name)``."""
+"""Model configurations: the port's own copies of ``repro.configs``, the
+ten architectures at their published shapes and their smoke sizes:
+``get_config(name)`` / ``get_smoke_config(name)``, ``ARCH_IDS``,
+``SHAPES``, ``input_specs``."""
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, get_smoke_config)
+    ARCH_IDS, SHAPES, ModelConfig, ShapeSpec, TensorSpec, cache_specs,
+    get_config, get_smoke_config, input_specs)

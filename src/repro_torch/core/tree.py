@@ -32,19 +32,26 @@ def _children(node) -> List[Tuple[str, Any]]:
 def flatten_with_path(tree) -> List[Tuple[str, Any]]:
     """``[(path, leaf), ...]`` in traversal order."""
     out = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((SEP.join(prefix), node))
-            return
-        for k, c in kids:
-            walk(c, prefix + [k])
-
-    walk(tree, [])
+    _flatten(tree, [], out)
     return out
+
+
+# The walks below are module-level functions, not closures that call
+# themselves: a nested recursive function is a reference cycle (it holds
+# its own cell), so whatever its frame reaches, the leaves included, would
+# outlive the call until the cyclic collector runs.  On the card that
+# keeps a model's weights allocated after the caller has dropped them.
+
+
+def _flatten(node, prefix, out) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((SEP.join(prefix), node))
+        return
+    for k, c in kids:
+        _flatten(c, prefix + [k], out)
 
 
 def leaves(tree) -> list:
@@ -55,24 +62,24 @@ def unflatten(tree, new_leaves) -> Any:
     """A tree of ``tree``'s structure with ``new_leaves`` (in traversal
     order) at its leaves."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            # keep the caller's key order; leaves are consumed sorted
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        if isinstance(node, BlockQuantized):
-            return BlockQuantized(q=build(node.q), exp=build(node.exp))
-        return next(it)
-
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        # keep the caller's key order; leaves are consumed sorted
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    if isinstance(node, BlockQuantized):
+        return BlockQuantized(q=_build(node.q, it), exp=_build(node.exp, it))
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:
@@ -80,18 +87,18 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     are trees that have ``tree``'s structure down to its leaves (a leaf of
     ``tree`` may face a whole subtree of another, e.g. a
     ``BlockQuantized`` moment, which ``fn`` then receives whole)."""
-    def walk(node, others):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k], [o[k] for o in others]) for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c, [o[i] for o in others])
-                              for i, c in enumerate(node))
-        if isinstance(node, BlockQuantized):
-            return BlockQuantized(
-                q=walk(node.q, [o.q for o in others]),
-                exp=walk(node.exp, [o.exp for o in others]))
-        return fn(node, *others)
+    return _map(fn, tree, list(rest))
 
-    return walk(tree, list(rest))
+
+def _map(fn, node, others):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _map(fn, node[k], [o[k] for o in others]) for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(fn, c, [o[i] for o in others])
+                          for i, c in enumerate(node))
+    if isinstance(node, BlockQuantized):
+        return BlockQuantized(q=_map(fn, node.q, [o.q for o in others]),
+                              exp=_map(fn, node.exp, [o.exp for o in others]))
+    return fn(node, *others)

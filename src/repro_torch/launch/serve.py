@@ -1,8 +1,15 @@
-"""Serving launcher: compiled ResNet image serving on the GPU.
+"""Serving launcher: LM continuous batching or compiled ResNet image
+serving, on the GPU (the port of ``repro.launch.serve``).
 
-The port's copy of the ResNet part of ``repro.launch.serve``.  The
-optimized graph is lowered once per batch bucket and served by
-``ResNetEngine``, one CUDA graph a bucket:
+LM workload (the float LMs through the continuous-batching ``Engine``,
+every architecture of ``configs.ARCH_IDS``; ``--smoke`` serves the smoke
+config, ``--device cpu`` serves on the CPU):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --smoke --requests 8 --max-new 16
+
+Image-classification workload: the optimized graph is lowered once per
+batch bucket and served by ``ResNetEngine``, one CUDA graph a bucket:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet8 \
         --backend cuda --requests 64 --batch 8 --buckets 1,8
@@ -27,7 +34,8 @@ variant, health alerts and debug bundles):
 Weights are random from seed 0 (the degrade variant's from ``--seed +
 1``), the request images from ``--seed``.  ``--device cpu`` runs the
 kernels' plain versions on the CPU (a pool of ``--replicas`` CPU
-replicas).  The LM workload of the reference is not ported here yet.
+replicas).  The LM prompts are the reference's: request ``i`` is ``[1 + i
+% 7, 2, 3 + i % 5]``.
 """
 from __future__ import annotations
 
@@ -36,7 +44,42 @@ import time
 
 import numpy as np
 
+from repro_torch.configs.base import ARCH_IDS
+
 RESNET_ARCHS = ("resnet8", "resnet20")
+
+
+def serve_lm(args):
+    """Serve ``--requests`` prompts through ``Engine``; returns the
+    requests, ticks, tokens and seconds."""
+    import torch
+
+    from repro_torch.compile.compiler import resolve_device
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, Request
+
+    dev = resolve_device(args.device)
+    cfg = (cbase.get_smoke_config(args.arch) if args.smoke
+           else cbase.get_config(args.arch))
+    params = M.init_params(cfg, 0, dev)
+    eng = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
+                 device=dev)
+    reqs = [Request(rid=i, prompt=[1 + i % 7, 2, 3 + i % 5],
+                    max_new=args.max_new) for i in range(args.requests)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    ticks = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {tokens} tokens in {ticks} ticks, "
+          f"{dt:.2f}s ({tokens/dt:.1f} tok/s) on {dev}")
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: {r.out[:10]}")
+    return dict(requests=reqs, ticks=ticks, tokens=tokens, seconds=dt)
 
 
 def _print_tuning(tuning) -> None:
@@ -230,7 +273,16 @@ def _finish_obs(args, ob) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True, choices=RESNET_ARCHS)
+    ap.add_argument("--arch", required=True,
+                    choices=RESNET_ARCHS + tuple(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="lm: serve the architecture's smoke config")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="lm: concurrent sequences (continuous batching)")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="lm: tokens generated per request")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="lm: cache length per slot")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=8,
                     help="max images per tick")
@@ -261,7 +313,8 @@ def main(argv=None):
                          "forces a fresh two-stage search")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
-                         "runs the kernels' plain versions)")
+                         "runs the kernels' plain versions, or the LM on "
+                         "the CPU)")
     ap.add_argument("--trace", default="",
                     help="serve a repro_torch.traffic JSON trace file "
                          "(engages the SLO-class serving path)")
@@ -296,7 +349,9 @@ def main(argv=None):
                     help="let active alerts drive the autoscaler and "
                          "overload router (implies --alerts)")
     args = ap.parse_args(argv)
-    return serve_resnet(args)
+    if args.arch in RESNET_ARCHS:
+        return serve_resnet(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

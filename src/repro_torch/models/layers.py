@@ -1,0 +1,811 @@
+"""Model building blocks of the float LMs (plain functions on tensors).
+
+The port of ``repro.models.layers``: every function under the same name,
+computing the same thing in the same dtypes (each cast of the reference
+is kept where it is, so a bf16 forward rounds where the reference's
+does).  The reference computes all of this in plain ``jnp`` outside any
+Pallas kernel, and so does the port: its products are ``torch.matmul``
+and ``torch.einsum``; the port's hand-written kernels serve only the int8
+LM compile path.
+
+* ``dense()`` is the single matmul entry point: it applies the pow2-INT8
+  QAT fake-quantization (``_fq8``) when ``cfg.quant == "qat"``, reads
+  int8w weights (``core.quant.BlockQuantized``) through ``getw``, and takes
+  an ``acc_init`` operand, the paper's add-fold: the residual stream
+  enters the next matmul's accumulator instead of a standalone Add.
+* attention and the loss are chunked, so long sequences run with bounded
+  activation memory.
+
+Random initializers draw from a ``Draw``: a ``torch.Generator`` and the
+device it draws on (``meta`` draws nothing, for shapes only).  The draws
+differ from the JAX package's ``jax.random`` ones; the recipe (normal
+times ``1/sqrt(fan_in)``, cast to the parameter dtype) is the same.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant as Q
+from repro_torch.core import tree as T
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+class Draw:
+    """Seeded draws on one device: ``gen`` a ``torch.Generator`` on
+    ``device`` (``None`` on ``meta``, which allocates nothing)."""
+
+    def __init__(self, gen: Optional[torch.Generator], device):
+        self.gen, self.device = gen, torch.device(device)
+
+    def normal(self, shape, dtype, scale) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.device)
+        return x.mul_(scale).to(dtype)
+
+
+def _init(draw: Draw, shape, dtype, scale=None):
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    return draw.normal(tuple(shape), dtype, float(s))
+
+
+def dense_init(draw: Draw, d_in, d_out, dtype, scale=None):
+    return _init(draw, (d_in, d_out), dtype, scale)
+
+
+def stack_init(fn, draw: Draw, n: int) -> dict:
+    """``n`` draws of ``fn(draw)`` stacked along a new leading axis (the
+    reference's ``jax.vmap`` over split keys).  The stack is allocated
+    once and filled a layer at a time, so the peak is the stack plus one
+    layer."""
+    first = fn(draw)
+    if n == 1:
+        return T.tree_map(lambda t: t.unsqueeze(0), first)
+    out = T.tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    T.tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        T.tree_map(lambda o, t: o[i].copy_(t), out, fn(draw))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pow2 fake quant (dynamic per-tensor exponent, STE) — paper eq. 1-3 in QAT
+# ---------------------------------------------------------------------------
+
+
+def _fq8(x):
+    """Power-of-two-scale int8 fake quantization with dynamic range."""
+    amax = torch.clamp_min(x.detach().abs().max(), 1e-8)
+    e = torch.ceil(torch.log2(amax / 127.0))
+    scale = torch.exp2(e).to(x.dtype)
+    spec_like = x / scale
+    q = Q.ste_round_clip(spec_like.to(torch.float32), -128.0, 127.0)
+    return q.to(x.dtype) * scale
+
+
+def getw(w, dtype=None):
+    """Materialize a weight: int8w-quantized weights (pow2-block int8,
+    ``core.quant.BlockQuantized``) are dequantized here, at their use."""
+    if isinstance(w, Q.BlockQuantized):
+        w = Q.block_dequantize(w)
+    if dtype is not None:
+        w = w.to(dtype)
+    return w
+
+
+def slice_expert(w, e):
+    """Per-expert slice that preserves int8w storage until use."""
+    if isinstance(w, Q.BlockQuantized):
+        return Q.BlockQuantized(w.q[e], w.exp[e])
+    return w[e]
+
+
+def dense(x, w, b=None, *, cfg=None, acc_init=None):
+    """x @ w (+ b) (+ acc_init).
+
+    ``acc_init`` is the paper's add-fold (Fig. 13): the skip stream enters as
+    the accumulator initializer of this matmul."""
+    w = getw(w, x.dtype)
+    if cfg is not None and cfg.quant == "qat":
+        x = _fq8(x)
+        w = _fq8(w)
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
+    if acc_init is not None:
+        y = y + acc_init
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms / activations / rope
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (n * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+def norm(x, params, cfg):
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    return rmsnorm(x, params["scale"])
+
+
+def norm_init(cfg, d, device):
+    if cfg.norm_type == "layernorm":
+        return dict(scale=torch.ones((d,), dtype=torch.float32, device=device),
+                    bias=torch.zeros((d,), dtype=torch.float32, device=device))
+    return dict(scale=torch.zeros((d,), dtype=torch.float32, device=device))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, ``x * sigmoid(x)``, rounded once to ``x``'s dtype
+    as XLA's fused form rounds it (in bf16, ``x * torch.sigmoid(x)``
+    would round the sigmoid first)."""
+    return F.silu(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (torch's
+    ``F.softplus`` returns ``x`` itself above 20: within float32 tolerance
+    of this, but not the reference's formula)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def act_fn(kind):
+    if kind == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    if kind == "silu":
+        return silu
+    if kind == "geglu":
+        # jax.nn.gelu defaults to the tanh approximation; torch's default
+        # is the exact erf form
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def rope(x, pos, theta):
+    """x: (..., S, H, hd); pos: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    # a Python scalar base: no host-to-device copy (which would wait for
+    # the card) on every call
+    freqs = 1.0 / torch.pow(float(theta), exps)
+    ang = pos.to(torch.float32)[..., None, None] * freqs  # (..., S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA/MQA, optional sliding window, chunked over queries)
+# ---------------------------------------------------------------------------
+
+
+def _attn_scores_mask(qpos, kpos, causal, window):
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= qpos[:, None] - kpos[None, :] < window
+    return m
+
+
+def _grouped_attn(q, k, v, mask, softcap=0.0):
+    """Softmax attention in float32.  q (B,Sq,H,hd), k/v (B,Sk,KV,hd); query
+    head ``h`` reads KV head ``h // G`` (the reshape of the reference);
+    ``mask`` broadcasts against the (B,KV,G,Sq,Sk) scores."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.to(torch.float32) * (1.0 / np.sqrt(hd))
+    qg = qf.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(torch.float32))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def _attn_block(q, k, v, qpos, kpos, causal, window, softcap=0.0):
+    """q (B,Sq,H,hd) k/v (B,Sk,KV,hd) -> (B,Sq,H,hd).  GQA by reshape."""
+    mask = _attn_scores_mask(qpos, kpos, causal, window)
+    return _grouped_attn(q, k, v, mask[None, None, None], softcap)
+
+
+def attention(q, k, v, *, causal=True, window=0, q_offset=None, chunk=0,
+              softcap=0.0):
+    """Chunked (over queries) masked attention: memory is O(chunk * Sk) per
+    step instead of O(Sq * Sk).  Masked positions are still computed."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qpos0 = torch.arange(Sq, device=q.device)
+    if q_offset is not None:
+        qpos0 = q_offset + qpos0
+    kpos = torch.arange(Sk, device=q.device)
+    if chunk <= 0 or Sq <= chunk or Sq % chunk != 0:
+        # unchunked fallback (also for non-divisible lengths, e.g. whisper's
+        # 1500-frame encoder)
+        return _attn_block(q, k, v, qpos0, kpos, causal, window, softcap)
+    outs = [_attn_block(q[:, i:i + chunk], k, v, qpos0[i:i + chunk], kpos,
+                        causal, window, softcap)
+            for i in range(0, Sq, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def gqa_init(draw: Draw, cfg, d, dtype):
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return dict(
+        wq=dense_init(draw, d, H * hd, dtype),
+        wk=dense_init(draw, d, KV * hd, dtype),
+        wv=dense_init(draw, d, KV * hd, dtype),
+        wo=dense_init(draw, H * hd, d, dtype),
+    )
+
+
+def update_at(c, u, start):
+    """Per batch row ``b``: ``c[b, start[b]:start[b] + S] = u[b]`` on a copy
+    of ``c`` (``jax.lax.dynamic_update_slice_in_dim`` along axis 1 under
+    ``vmap``).  As there, the start is clamped so that the whole update
+    lands in range: a write at ``start >= S_c`` goes to the last slots."""
+    B, S_c = c.shape[:2]
+    S = u.shape[1]
+    start = torch.clamp(start.to(torch.long), 0, S_c - S)
+    rows = start[:, None] + torch.arange(S, device=c.device)
+    out = c.clone()
+    out[torch.arange(B, device=c.device)[:, None], rows] = u
+    return out
+
+
+def positions(pos, S, device):
+    """Absolute positions (B, S) of ``S`` new tokens at ``pos`` (B,), or
+    (1, S) from 0 without a ``pos``."""
+    ar = torch.arange(S, device=device)
+    return ar[None, :] if pos is None else pos[:, None] + ar[None, :]
+
+
+def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
+              acc_init=None):
+    """GQA attention over x.  If ``cache=(k,v)`` is given (decode), append at
+    ``pos`` and attend over the cache.  ``xattn_kv`` replaces self K/V with
+    encoder states (whisper cross-attention).  Returns (out, new_cache)."""
+    B, S, d = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, p["wq"], cfg=cfg).reshape(B, S, H, hd)
+    if xattn_kv is not None:
+        kx = xattn_kv["k"]
+        vx = xattn_kv["v"]
+        o = attention(q, kx.to(q.dtype), vx.to(q.dtype), causal=False,
+                      chunk=cfg.attn_chunk)
+        return dense(o.reshape(B, S, H * hd), p["wo"], cfg=cfg,
+                     acc_init=acc_init), None
+    k = dense(x, p["wk"], cfg=cfg).reshape(B, S, KV, hd)
+    v = dense(x, p["wv"], cfg=cfg).reshape(B, S, KV, hd)
+    if cfg.use_rope:
+        qpos = positions(pos, S, x.device)
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
+    new_cache = None
+    window = cfg.sliding_window
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        S_kv = ck.shape[1]
+        if window and window < S_kv:
+            S_kv = window
+        # ring-buffer update for SWA; linear append otherwise
+        slot = (pos % S_kv) if window else pos
+        ck = update_at(ck, _maybe_quant_kv(k, cfg), slot)
+        cv = update_at(cv, _maybe_quant_kv(v, cfg), slot)
+        new_cache = dict(k=ck, v=cv)
+        kf = _maybe_dequant_kv(ck, cfg).to(q.dtype)
+        vf = _maybe_dequant_kv(cv, cfg).to(q.dtype)
+        ar = torch.arange(S_kv, device=x.device)[None]
+        # positions of cache slots (ring for SWA)
+        if window:
+            kpos = (pos[:, None] // S_kv) * S_kv + ar
+            kpos = torch.where(ar <= (pos % S_kv)[:, None], kpos, kpos - S_kv)
+            valid = kpos >= 0
+        else:
+            valid = ar.expand(B, S_kv) <= pos[:, None]
+        o = _decode_attn(q, kf, vf, valid, cfg)
+    else:
+        o = attention(q, k, v, causal=causal, window=window,
+                      chunk=cfg.attn_chunk, softcap=cfg.logit_softcap)
+    out = dense(o.reshape(B, S, H * hd), p["wo"], cfg=cfg, acc_init=acc_init)
+    return out, new_cache
+
+
+def _decode_attn(q, k, v, valid, cfg):
+    """Single-query attention against a (possibly ring) cache with per-batch
+    validity mask (B, Skv).  q: (B,1,H,hd), k/v: (B,Skv,KV,hd)."""
+    return _grouped_attn(q, k, v, valid[:, None, None, None, :],
+                         cfg.logit_softcap)
+
+
+KV_SPEC = Q.QSpec(8, True, -3)
+
+
+def _maybe_quant_kv(x, cfg):
+    if cfg.kv_cache_dtype != "int8":
+        return x.to(cfg.compute_dtype)
+    # paper pow2-int8 on the KV cache: static exponent -3 covers post-norm
+    # attention K/V ranges; exactness is not required for the cache.
+    return Q.quantize(x.to(torch.float32), KV_SPEC)
+
+
+def _maybe_dequant_kv(x, cfg):
+    if cfg.kv_cache_dtype != "int8":
+        return x
+    return Q.dequantize(x, KV_SPEC)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3) — low-rank Q/KV with compressed-latent cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(draw: Draw, cfg, d, dtype):
+    H = cfg.num_heads
+    dev = draw.device
+    return dict(
+        wq_a=dense_init(draw, d, cfg.q_lora_rank, dtype),
+        q_norm=norm_init(cfg, cfg.q_lora_rank, dev),
+        wq_b=dense_init(draw, cfg.q_lora_rank,
+                        H * (cfg.qk_nope_dim + cfg.qk_rope_dim), dtype),
+        wkv_a=dense_init(draw, d, cfg.kv_lora_rank + cfg.qk_rope_dim, dtype),
+        kv_norm=norm_init(cfg, cfg.kv_lora_rank, dev),
+        wkv_b=dense_init(draw, cfg.kv_lora_rank,
+                         H * (cfg.qk_nope_dim + cfg.v_head_dim), dtype),
+        wo=dense_init(draw, H * cfg.v_head_dim, d, dtype),
+    )
+
+
+def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None):
+    B, S, d = x.shape
+    H = cfg.num_heads
+    dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                      cfg.kv_lora_rank)
+    f32 = torch.float32
+    q = dense(norm(dense(x, p["wq_a"], cfg=cfg), p["q_norm"], cfg), p["wq_b"],
+              cfg=cfg).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = dense(x, p["wkv_a"], cfg=cfg)
+    ckv, k_rope = kv_a[..., :dc], kv_a[..., dc:]
+    ckv = norm(ckv, p["kv_norm"], cfg)
+    qpos = positions(pos, S, x.device)
+    q_rope = rope(q_rope, qpos, cfg.rope_theta)
+    k_rope = rope(k_rope[:, :, None, :], qpos, cfg.rope_theta)[:, :, 0]
+
+    wkv_b = getw(p["wkv_b"], x.dtype).reshape(dc, H, dn + dv)
+    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
+
+    if cache is None:
+        # prefill/train: expand to per-head K/V (standard form)
+        k_nope = torch.einsum("bsc,chn->bshn", ckv, wk_b)
+        v = torch.einsum("bsc,chv->bshv", ckv, wv_b)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = attention(qq, k, v, causal=True, chunk=cfg.attn_chunk)
+        out = dense(o.reshape(B, S, H * dv), p["wo"], cfg=cfg,
+                    acc_init=acc_init)
+        return out, None
+    # decode: absorbed attention over the compressed latent cache
+    cc = update_at(cache["ckv"], _maybe_quant_kv(ckv, cfg), pos)
+    ckr = update_at(cache["krope"], _maybe_quant_kv(k_rope, cfg), pos)
+    S_kv = cc.shape[1]
+    new_cache = dict(ckv=cc, krope=ckr)
+    ccf = _maybe_dequant_kv(cc, cfg).to(f32)
+    ckrf = _maybe_dequant_kv(ckr, cfg).to(f32)
+    # absorb W_k into q:   score = (q_nope W_kb) . c  +  q_rope . k_rope
+    q_abs = torch.einsum("bshn,chn->bshc", q_nope.to(f32), wk_b.to(f32))
+    scale = 1.0 / np.sqrt(dn + dr)
+    s = (torch.einsum("bshc,btc->bhst", q_abs, ccf)
+         + torch.einsum("bshr,btr->bhst", q_rope.to(f32), ckrf))
+    s = s * scale
+    valid = torch.arange(S_kv, device=x.device)[None] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btc->bshc", pr, ccf)
+    o = torch.einsum("bshc,chv->bshv", o_lat, wv_b.to(f32))
+    out = dense(o.reshape(B, S, H * dv).to(x.dtype), p["wo"], cfg=cfg,
+                acc_init=acc_init)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(draw: Draw, cfg, d, d_ff, dtype):
+    if cfg.mlp_type in ("silu", "geglu"):
+        return dict(w_gate=dense_init(draw, d, d_ff, dtype),
+                    w_up=dense_init(draw, d, d_ff, dtype),
+                    w_down=dense_init(draw, d_ff, d, dtype))
+    return dict(w_up=dense_init(draw, d, d_ff, dtype),
+                w_down=dense_init(draw, d_ff, d, dtype))
+
+
+def mlp_apply(p, x, cfg, acc_init=None):
+    a = act_fn(cfg.mlp_type)
+    if cfg.mlp_type in ("silu", "geglu"):
+        h = a(dense(x, p["w_gate"], cfg=cfg)) * dense(x, p["w_up"], cfg=cfg)
+    else:
+        h = a(dense(x, p["w_up"], cfg=cfg))
+    return dense(h, p["w_down"], cfg=cfg, acc_init=acc_init)
+
+
+# ---------------------------------------------------------------------------
+# MoE — sorted grouped matmul (dropless up to a capacity factor)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(draw: Draw, cfg, d, dtype):
+    E, ff = cfg.num_experts, cfg.moe_d_ff
+    p = dict(
+        router=dense_init(draw, d, E, torch.float32),
+        w_gate=_init(draw, (E, d, ff), dtype),
+        w_up=_init(draw, (E, d, ff), dtype),
+        w_down=_init(draw, (E, ff, d), dtype),
+    )
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_init(draw, cfg, d,
+                               cfg.moe_d_ff * cfg.num_shared_experts, dtype)
+    return p
+
+
+def _route(p, x2d, cfg):
+    """Softmax router, top-k renormalized: (gates (T,k), experts (T,k))."""
+    logits = x2d.to(torch.float32) @ getw(p["router"], torch.float32)
+    gates_full = torch.softmax(logits, dim=-1)
+    topg, topi = torch.topk(gates_full, cfg.top_k, dim=-1)
+    return topg / torch.sum(topg, dim=-1, keepdim=True), topi
+
+
+def _moe_dense_ref(p, x2d, cfg):
+    """Reference dense-dispatch MoE (every token through every expert,
+    mask-combined).  O(E) flops — tests only."""
+    T_, d = x2d.shape
+    E = cfg.num_experts
+    topg, topi = _route(p, x2d, cfg)
+    a = act_fn(cfg.mlp_type)
+    h = torch.einsum("td,edf->tef", x2d, getw(p["w_gate"], x2d.dtype))
+    u = torch.einsum("td,edf->tef", x2d, getw(p["w_up"], x2d.dtype))
+    y_all = torch.einsum("tef,efd->ted", a(h) * u,
+                         getw(p["w_down"], x2d.dtype))  # (T,E,d)
+    w = torch.zeros((T_, E), dtype=x2d.dtype, device=x2d.device)
+    w = w.scatter_add(1, topi, topg.to(x2d.dtype))
+    return torch.einsum("te,ted->td", w, y_all)
+
+
+def moe_apply(p, x, cfg, acc_init=None):
+    """Sorted grouped-matmul MoE: sort tokens by expert, run the experts in
+    order, each on a static ``cap``-row slice from its start (so an
+    expert's spill past its own rows is overwritten by the next experts,
+    and rows past capacity are zeroed after), as the reference's scan
+    does."""
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    T_ = B * S
+    E, k = cfg.num_experts, cfg.top_k
+    if cfg.moe_impl == "dense":
+        y = _moe_dense_ref(p, x2d, cfg)
+    else:
+        topg, topi = _route(p, x2d, cfg)              # (T,k)
+        flat_e = topi.reshape(-1)                    # (T*k,)
+        order = torch.argsort(flat_e, stable=True)
+        tok = order // k
+        cap = int(np.ceil(T_ * k / E * cfg.moe_capacity_factor))
+        cap = max(8, min(cap, T_ * k))
+        # bincount on CUDA reads its input's max back to the host; a
+        # scatter-add counts without waiting for the card
+        counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        starts = torch.cumsum(counts, 0) - counts
+        xs = torch.cat([x2d[tok], x2d.new_zeros((cap, d))])
+        ys = x.new_zeros((T_ * k + cap, d))
+        a = act_fn(cfg.mlp_type)
+        span = torch.arange(cap, device=x.device)
+        for e in range(E):
+            rows = starts[e] + span
+            seg = xs[rows]
+            h = a(seg @ getw(slice_expert(p["w_gate"], e), seg.dtype)) * \
+                (seg @ getw(slice_expert(p["w_up"], e), seg.dtype))
+            ys[rows] = h @ getw(slice_expert(p["w_down"], e), seg.dtype)
+        ys = ys[:T_ * k]
+        # tokens beyond an expert's capacity were never written by their own
+        # expert; zero them (standard token dropping).
+        slot_in_e = torch.arange(T_ * k, device=x.device) - starts[flat_e[order]]
+        ys = ys.masked_fill((slot_in_e >= cap)[:, None], 0)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T_ * k, device=x.device)
+        y_tk = ys[inv].reshape(T_, k, d)
+        y = torch.einsum("tk,tkd->td", topg.to(x.dtype), y_tk)
+    if cfg.num_shared_experts:
+        y = y + mlp_apply(p["shared"], x2d, cfg)
+    y = y.reshape(B, S, d)
+    if acc_init is not None:
+        y = y + acc_init
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 (falcon-mamba) — chunked selective scan
+# ---------------------------------------------------------------------------
+
+
+def mamba_init(draw: Draw, cfg, d, dtype):
+    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    ck = cfg.conv_kernel
+    dev = draw.device
+    f32 = torch.float32
+    A = torch.arange(1, N + 1, dtype=f32, device=dev).expand(di, N)
+    return dict(
+        in_proj=dense_init(draw, d, 2 * di, dtype),
+        conv_w=_init(draw, (ck, di), dtype, scale=1.0 / np.sqrt(ck)),
+        conv_b=torch.zeros((di,), dtype=dtype, device=dev),
+        x_proj=dense_init(draw, di, R + 2 * N, dtype),
+        dt_proj=dense_init(draw, R, di, dtype),
+        dt_bias=torch.zeros((di,), dtype=f32, device=dev),
+        A_log=torch.log(A),
+        D=torch.ones((di,), dtype=f32, device=dev),
+        out_proj=dense_init(draw, di, d, dtype),
+    )
+
+
+def _causal_conv1d(x, w, b, state=None):
+    """x: (B,S,di); w: (K,di) depthwise.  Returns (y, new_state) where state
+    carries the trailing K-1 inputs for decode."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
+    new_state = xp[:, -(K - 1):, :] if K > 1 else None
+    return y + b, new_state
+
+
+def _linear_scan(a, b):
+    """Inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` from ``h = 0`` along
+    axis 1: the pairs ``(a, b)`` composed under ``(a1, b1), (a2, b2) ->
+    (a1 a2, a2 b1 + b2)`` (the reference's ``associative_scan`` operator),
+    in log2(n) doubling steps (Hillis-Steele).  Returns (a_cum, b_cum)."""
+    n = a.shape[1]
+    off = 1
+    while off < n:
+        a_cur = a[:, off:]
+        b = torch.cat([b[:, :off], torch.addcmul(b[:, off:], a_cur,
+                                                 b[:, :-off])], dim=1)
+        a = torch.cat([a[:, :off], a_cur * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def selective_scan_chunked(u, dt, A, Bc, Cc, D, h0=None, chunk=256):
+    """Mamba1 selective scan, chunked for bounded memory.
+
+    u, dt: (B,S,di);  A: (di,N);  Bc, Cc: (B,S,N);  h0: (B,di,N) or None.
+    Returns (y: (B,S,di), h_last).  The reference pads the sequence to
+    whole chunks with dt = 0 (a step that multiplies the state by exactly
+    1 and adds exactly 0); the port runs the last chunk short instead,
+    with the same result."""
+    B, S, di = u.shape
+    N = A.shape[1]
+    f32 = torch.float32
+    h = (torch.zeros((B, di, N), dtype=f32, device=u.device) if h0 is None
+         else h0.to(f32))
+    ys = []
+    for c0 in range(0, S, chunk):
+        dtf = dt[:, c0:c0 + chunk].to(f32)
+        uc = u[:, c0:c0 + chunk].to(f32)
+        a = torch.exp(dtf[..., None] * A)                   # (B,c,di,N)
+        binc = (dtf * uc)[..., None] * Bc[:, c0:c0 + chunk].to(f32)[:, :, None, :]
+        a_cum, b_cum = _linear_scan(a, binc)
+        hs = a_cum * h[:, None] + b_cum                      # (B,c,di,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs,
+                               Cc[:, c0:c0 + chunk].to(f32)))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)
+    y = y + D * u.to(f32)
+    return y, h
+
+
+def mamba_apply(p, x, cfg, *, state=None, acc_init=None):
+    """Falcon-Mamba block.  state = dict(ssm, conv) for decode."""
+    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    f32 = torch.float32
+    xz = dense(x, p["in_proj"], cfg=cfg)
+    xin, z = xz[..., :di], xz[..., di:]
+    conv_state = None if state is None else state["conv"]
+    xc, new_conv = _causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
+    xc = silu(xc)
+    proj = dense(xc, p["x_proj"], cfg=cfg)
+    dt_in, Bc, Cc = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+    dt = softplus(dense(dt_in, p["dt_proj"], cfg=cfg).to(f32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    if state is None:
+        y, _ = selective_scan_chunked(xc, dt, A, Bc, Cc, p["D"])
+        new_state = None
+    else:
+        h0 = state["ssm"]
+        a = torch.exp(dt[:, 0, :, None] * A)                 # (B,di,N)
+        binc = (dt[:, 0] * xc[:, 0].to(f32))[..., None] * \
+            Bc[:, 0].to(f32)[:, None, :]
+        h = a * h0 + binc
+        y = torch.einsum("bdn,bn->bd", h, Cc[:, 0].to(f32))
+        y = (y + p["D"] * xc[:, 0].to(f32))[:, None]
+        new_state = dict(ssm=h, conv=new_conv)
+    y = y.to(x.dtype) * silu(z)
+    out = dense(y, p["out_proj"], cfg=cfg, acc_init=acc_init)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (zamba2) — chunked matmul form
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init(draw: Draw, cfg, d, dtype):
+    di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
+    nh = di // hd
+    ck = cfg.conv_kernel
+    d_conv = di + 2 * N  # x, B, C all pass through the conv (mamba2 layout)
+    dev = draw.device
+    f32 = torch.float32
+    return dict(
+        in_proj=dense_init(draw, d, 2 * di + 2 * N + nh, dtype),
+        conv_w=_init(draw, (ck, d_conv), dtype, scale=1.0 / np.sqrt(ck)),
+        conv_b=torch.zeros((d_conv,), dtype=dtype, device=dev),
+        dt_bias=torch.zeros((nh,), dtype=f32, device=dev),
+        A_log=torch.zeros((nh,), dtype=f32, device=dev),
+        D=torch.ones((nh,), dtype=f32, device=dev),
+        norm_scale=torch.zeros((di,), dtype=f32, device=dev),
+        out_proj=dense_init(draw, di, d, dtype),
+    )
+
+
+def ssd_chunked(xh, dt, A, Bc, Cc, h0=None, chunk=128):
+    """SSD (mamba2) in chunked matmul form.
+
+    xh: (B,S,H,P) head inputs; dt: (B,S,H) (post-softplus);
+    A: (H,) negative; Bc, Cc: (B,S,N).  Returns (y, h_last (B,H,P,N))."""
+    B, S, H, P = xh.shape
+    N = Bc.shape[-1]
+    assert S % chunk == 0 or S < chunk, (S, chunk)
+    c = min(chunk, S)
+    f32 = torch.float32
+    h = (torch.zeros((B, H, P, N), dtype=f32, device=xh.device) if h0 is None
+         else h0.to(f32))
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c0 in range(0, S, c):
+        xr = xh[:, c0:c0 + c]
+        dtr = dt[:, c0:c0 + c]
+        Br = Bc[:, c0:c0 + c].to(f32)
+        Cr = Cc[:, c0:c0 + c].to(f32)
+        cum = torch.cumsum(dtr * A, dim=1)                     # (B,c,H)
+        # intra-chunk: decay(i,j) = exp(cum_i - cum_j) for i >= j
+        dec = torch.exp(cum[:, :, None] - cum[:, None, :, :])  # (B,c,c,H)
+        dec = torch.where(mask[None, :, :, None], dec, 0.0)
+        cb = torch.einsum("bin,bjn->bij", Cr, Br)
+        scores = cb[..., None] * dec                           # (B,c,c,H)
+        xw = dtr[..., None] * xr.to(f32)                       # dt-weighted input
+        y_intra = torch.einsum("bijh,bjhp->bihp", scores, xw)
+        # inter-chunk: contribution of the carried state
+        y_inter = torch.einsum("bin,bhpn->bihp", Cr, h) * \
+            torch.exp(cum)[..., None]
+        # state update
+        tot = cum[:, -1:, :]                                   # (B,1,H)
+        w = torch.exp(tot - cum)                               # (B,c,H)
+        dBx = torch.einsum("bjn,bjhp->bhpn", Br, xw * w[..., None])
+        h = torch.exp(tot[:, 0])[:, :, None, None] * h + dBx
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_apply(p, x, cfg, *, state=None, acc_init=None):
+    B, S, d = x.shape
+    di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
+    nh = di // hd
+    f32 = torch.float32
+    zxbcdt = dense(x, p["in_proj"], cfg=cfg)
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + di + 2 * N]
+    dt_in = zxbcdt[..., -nh:]
+    conv_state = None if state is None else state["conv"]
+    xBC, new_conv = _causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC = silu(xBC)
+    xin = xBC[..., :di].reshape(B, S, nh, hd)
+    Bc = xBC[..., di:di + N]
+    Cc = xBC[..., di + N:]
+    dt = softplus(dt_in.to(f32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    if state is None:
+        y, _ = ssd_chunked(xin, dt, A, Bc, Cc)
+        new_state = None
+    else:
+        h0 = state["ssm"]
+        la = dt[:, 0] * A                                     # (B,H)
+        xw = dt[:, 0, :, None] * xin[:, 0].to(f32)
+        dBx = torch.einsum("bn,bhp->bhpn", Bc[:, 0].to(f32), xw)
+        h = torch.exp(la)[:, :, None, None] * h0 + dBx
+        y = torch.einsum("bhpn,bn->bhp", h, Cc[:, 0].to(f32))[:, None]
+        new_state = dict(ssm=h, conv=new_conv)
+    y = y + p["D"][:, None] * xin.to(f32)
+    y = y.reshape(B, S if state is None else 1, di)
+    y = rmsnorm(y.to(x.dtype) * silu(z[:, :y.shape[1]]), p["norm_scale"])
+    out = dense(y, p["out_proj"], cfg=cfg, acc_init=acc_init)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# chunked softmax cross-entropy (never materializes (B,S,V) logits)
+# ---------------------------------------------------------------------------
+
+
+def chunked_xent(h, emb, labels, chunk=1024, logit_softcap=0.0):
+    """h: (B,S,d), emb: (V,d), labels: (B,S) int (-100 = ignore).
+    Returns (sum_nll, count)."""
+    B, S, d = h.shape
+    c = min(chunk, S)
+    assert S % c == 0, (S, c)
+    s = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    w = emb.T.to(h.dtype)
+    for c0 in range(0, S, c):
+        hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
+        logits = torch.matmul(hc, w).to(torch.float32)
+        if logit_softcap:
+            logits = torch.tanh(logits / logit_softcap) * logit_softcap
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(lc, min=0).to(torch.long)[..., None])[..., 0]
+        valid = lc >= 0
+        nll = torch.where(valid, lse - gold, 0.0)
+        s = s + torch.sum(nll)
+        cnt = cnt + torch.sum(valid).to(torch.int32)
+    return s, cnt
+
+
+def stack_len(stack) -> int:
+    """Leading (layer) extent of a stacked parameter tree."""
+    node = stack
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return (node.q if isinstance(node, Q.BlockQuantized) else node).shape[0]
+
+
+def layer(stack, i):
+    """Layer ``i`` of a stacked parameter tree (views)."""
+    return T.tree_map(lambda t: t[i], stack)

@@ -1,0 +1,72 @@
+"""Attention-free Mamba1 LM (falcon-mamba-7b): the port of
+``repro.models.ssm``.  Blocks are stacked ``(L, ...)`` and run by a loop
+over the layer index."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
+    d, V = cfg.d_model, cfg.vocab_size
+
+    def blk(dr):
+        return dict(ln=L.norm_init(cfg, d, dr.device),
+                    mamba=L.mamba_init(dr, cfg, d, cfg.pdtype))
+
+    return dict(
+        embed=L._init(draw, (V, d), cfg.pdtype, scale=1.0),
+        blocks=L.stack_init(blk, draw, cfg.num_layers),
+        final_norm=L.norm_init(cfg, d, draw.device),
+        unembed=L.dense_init(draw, d, V, cfg.pdtype),
+    )
+
+
+def _block(p, h, cfg, state=None):
+    skip = h
+    m, new_state = L.mamba_apply(
+        p["mamba"], L.norm(h, p["ln"], cfg), cfg, state=state,
+        acc_init=skip if cfg.residual_fusion else None)
+    h = m if cfg.residual_fusion else h + m
+    return h, new_state
+
+
+def _embed(params, cfg, tokens):
+    return params["embed"][tokens.to(torch.long)].to(cfg.compute_dtype)
+
+
+def hidden_states(params, cfg, tokens, extra=None):
+    h = _embed(params, cfg, tokens)
+    for i in range(cfg.num_layers):
+        h, _ = _block(L.layer(params["blocks"], i), h, cfg)
+    return L.norm(h, params["final_norm"], cfg)
+
+
+def loss_fn(params, cfg, batch):
+    h = hidden_states(params, cfg, batch["tokens"])
+    emb = params["unembed"].T.to(cfg.compute_dtype)
+    s, cnt = L.chunked_xent(h, emb, batch["labels"], cfg.loss_chunk)
+    loss = s / torch.clamp_min(cnt, 1)
+    return loss, dict(loss=loss, tokens=cnt)
+
+
+def prefill(params, cfg, tokens, extra=None):
+    h = hidden_states(params, cfg, tokens, extra)
+    return torch.matmul(h[:, -1:], params["unembed"].to(h.dtype))
+
+
+def decode_step(params, cfg, tokens, pos, cache):
+    h = _embed(params, cfg, tokens)
+    ssm, conv = [], []
+    for i in range(cfg.num_layers):
+        h, ns = _block(L.layer(params["blocks"], i), h, cfg,
+                       state=dict(ssm=cache["ssm_state"][i],
+                                  conv=cache["conv_state"][i]))
+        ssm.append(ns["ssm"])
+        conv.append(ns["conv"])
+    h = L.norm(h, params["final_norm"], cfg)
+    logits = torch.matmul(h, params["unembed"].to(h.dtype))
+    return logits, dict(ssm_state=torch.stack(ssm),
+                        conv_state=torch.stack(conv))

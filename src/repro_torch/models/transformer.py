@@ -1,0 +1,289 @@
+"""Decoder-only / encoder-decoder transformer LMs (dense, MoE, VLM, audio).
+
+The port of ``repro.models.transformer``.  Layers are stored stacked, a
+``(L, ...)`` leading axis on every leaf as the reference's ``jax.vmap``
+init lays them out, and run by a Python loop over the layer index (the
+reference's ``lax.scan``; its per-layer remat changes no forward value).
+The residual stream uses the paper's add-fold: the block output matmul
+receives the skip stream as its accumulator initializer (``acc_init``)
+instead of a separate Add node (``cfg.residual_fusion``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+
+def _block_init(cfg: ModelConfig, d, use_moe: bool, cross_attn: bool = False):
+    def init(draw: L.Draw):
+        dev = draw.device
+        p = dict(ln1=L.norm_init(cfg, d, dev))
+        if cfg.attn_type == "mla":
+            p["attn"] = L.mla_init(draw, cfg, d, cfg.pdtype)
+        else:
+            p["attn"] = L.gqa_init(draw, cfg, d, cfg.pdtype)
+        if cross_attn:
+            p["ln_x"] = L.norm_init(cfg, d, dev)
+            p["xattn"] = L.gqa_init(draw, cfg, d, cfg.pdtype)
+        p["ln2"] = L.norm_init(cfg, d, dev)
+        if use_moe:
+            p["moe"] = L.moe_init(draw, cfg, d, cfg.pdtype)
+        else:
+            p["mlp"] = L.mlp_init(draw, cfg, d, cfg.d_ff, cfg.pdtype)
+        return p
+    return init
+
+
+def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
+    d, V = cfg.d_model, cfg.vocab_size
+    dev = draw.device
+    p = dict(
+        embed=L._init(draw, (V, d), cfg.pdtype, scale=1.0),
+        final_norm=L.norm_init(cfg, d, dev),
+    )
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_init(draw, d, V, cfg.pdtype)
+    n_moe = 0
+    if cfg.family == "moe":
+        n_moe = cfg.num_layers - cfg.first_dense_layers
+        n_dense = cfg.first_dense_layers
+    else:
+        n_dense = cfg.num_layers
+    if cfg.family == "audio":
+        p["enc_blocks"] = L.stack_init(
+            _block_init(cfg, d, use_moe=False), draw, cfg.encoder_layers)
+        p["enc_norm"] = L.norm_init(cfg, d, dev)
+        p["enc_pos"] = L._init(draw, (cfg.encoder_len, d), cfg.pdtype,
+                               scale=0.02)
+        p["dec_pos"] = L._init(draw, (32_768, d), cfg.pdtype, scale=0.02)
+        # decoder blocks get cross-attention
+        p["blocks"] = L.stack_init(
+            _block_init(cfg, d, use_moe=False, cross_attn=True), draw,
+            cfg.num_layers)
+    elif n_dense:
+        p["blocks"] = L.stack_init(_block_init(cfg, d, use_moe=False), draw,
+                                   n_dense)
+    if n_moe:
+        p["moe_blocks"] = L.stack_init(_block_init(cfg, d, use_moe=True),
+                                       draw, n_moe)
+    if cfg.family == "vlm":
+        p["patch_proj"] = L.dense_init(draw, d, d, cfg.pdtype)
+    if cfg.mtp_depth:
+        p["mtp"] = L.stack_init(_block_init(cfg, d, use_moe=False), draw,
+                                cfg.mtp_depth)
+        p["mtp_norm"] = L.norm_init(cfg, d, dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(p, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
+                 enc_out=None, xattn_cache=None):
+    """One pre-norm block with add-fold residuals.  Returns (h, new_cache)."""
+    fuse = cfg.residual_fusion
+    skip = h
+    if cfg.attn_type == "mla":
+        a, new_kv = L.mla_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
+                                cache=cache, pos=pos,
+                                acc_init=skip if fuse else None)
+    else:
+        a, new_kv = L.gqa_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
+                                causal=causal, cache=cache, pos=pos,
+                                acc_init=skip if fuse else None)
+    h = a if fuse else h + a
+    if enc_out is not None or xattn_cache is not None:
+        skip = h
+        kv = xattn_cache
+        if kv is None:
+            kv = cross_kv(p["xattn"], enc_out, cfg)
+        x, _ = L.gqa_apply(p["xattn"], L.norm(h, p["ln_x"], cfg), cfg,
+                           xattn_kv=kv, acc_init=skip if fuse else None)
+        h = x if fuse else h + x
+    skip = h
+    hn = L.norm(h, p["ln2"], cfg)
+    if use_moe:
+        m = L.moe_apply(p["moe"], hn, cfg, acc_init=skip if fuse else None)
+    else:
+        m = L.mlp_apply(p["mlp"], hn, cfg, acc_init=skip if fuse else None)
+    h = m if fuse else h + m
+    return h, new_kv
+
+
+def cross_kv(p_xattn, enc_out, cfg):
+    """One decoder block's cross-attention K/V over the encoder states."""
+    B = enc_out.shape[0]
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return dict(
+        k=L.dense(enc_out, p_xattn["wk"], cfg=cfg).reshape(B, -1, KV, hd),
+        v=L.dense(enc_out, p_xattn["wv"], cfg=cfg).reshape(B, -1, KV, hd))
+
+
+def _scan_blocks(stack, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
+                 enc_out=None, xattn_cache=None):
+    """Run a stacked block over the layer axis.  ``cache`` / ``xattn_cache``
+    are stacked along the same axis; returns (h, stacked new caches or
+    None)."""
+    new = []
+    for i in range(L.stack_len(stack)):
+        kv = None if cache is None else {k: v[i] for k, v in cache.items()}
+        xkv = (None if xattn_cache is None
+               else {k: v[i] for k, v in xattn_cache.items()})
+        h, nkv = _apply_block(L.layer(stack, i), h, cfg, use_moe=use_moe,
+                              causal=causal, cache=kv, pos=pos,
+                              enc_out=enc_out, xattn_cache=xkv)
+        new.append(nkv)
+    if new[0] is None:
+        return h, None
+    return h, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg, tokens):
+    h = params["embed"][tokens.to(torch.long)].to(cfg.compute_dtype)
+    if cfg.emb_scale:
+        # sqrt(d) rounded to the compute dtype first, as the reference
+        # rounds it (a host scalar: no copy to the card)
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model),
+                                   dtype=cfg.compute_dtype))
+    return h
+
+
+def _encode(params, cfg, frames):
+    """Whisper encoder over stub frame embeddings (conv frontend is a stub)."""
+    h = frames.to(cfg.compute_dtype) + params["enc_pos"][None, :frames.shape[1]]
+    h, _ = _scan_blocks(params["enc_blocks"], h, cfg, use_moe=False,
+                        causal=False)
+    return L.norm(h, params["enc_norm"], cfg)
+
+
+def encoder_cache(params, cfg: ModelConfig, frames) -> dict:
+    """Whisper's cross-attention cache entries ``xk`` / ``xv`` (L, B,
+    encoder_len, KV, hd) over the encoder states of ``frames``: what a
+    decoder reads at every step after a prefill (the reference's decode
+    reads them from the cache and has no function that fills them)."""
+    enc_out = _encode(params, cfg, frames)
+    kvs = [cross_kv(L.layer(params["blocks"], i)["xattn"], enc_out, cfg)
+           for i in range(L.stack_len(params["blocks"]))]
+    return dict(xk=torch.stack([kv["k"] for kv in kvs]),
+                xv=torch.stack([kv["v"] for kv in kvs]))
+
+
+def hidden_states(params, cfg: ModelConfig, tokens, extra=None):
+    """Token embeddings -> final hidden states (train/prefill path)."""
+    extra = extra or {}
+    h = _embed(params, cfg, tokens)
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = _encode(params, cfg, extra["frames"])
+        h = h + params["dec_pos"][None, :h.shape[1]].to(h.dtype)
+    if cfg.family == "vlm":
+        patches = L.dense(extra["patches"].to(cfg.compute_dtype),
+                          params["patch_proj"], cfg=cfg)
+        # stub frontend: patch embeddings replace the first P token slots so
+        # the cell's (B, S) shape is preserved exactly
+        h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
+    if cfg.family == "moe":
+        if cfg.first_dense_layers:
+            h, _ = _scan_blocks(params["blocks"], h, cfg, use_moe=False)
+        h, _ = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True)
+    else:
+        h, _ = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
+                            enc_out=enc_out)
+    return L.norm(h, params["final_norm"], cfg)
+
+
+def unembed_weight(params, cfg):
+    return params["embed"] if cfg.tie_embeddings else params["unembed"].T
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross entropy (chunked over sequence)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    extra = {k: v for k, v in batch.items() if k in ("frames", "patches")}
+    h = hidden_states(params, cfg, tokens, extra)
+    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    s, cnt = L.chunked_xent(h, emb, labels, cfg.loss_chunk, cfg.logit_softcap)
+    loss = s / torch.clamp_min(cnt, 1)
+    if cfg.mtp_depth:
+        # deepseek MTP: one extra depth predicting t+2 from the trunk states
+        hm = h
+        for i in range(cfg.mtp_depth):
+            hm, _ = _apply_block(L.layer(params["mtp"], i), hm, cfg,
+                                 use_moe=False)
+        hm = L.norm(hm, params["mtp_norm"], cfg)
+        lab2 = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
+                         dim=1)
+        s2, c2 = L.chunked_xent(hm, emb, lab2, cfg.loss_chunk,
+                                cfg.logit_softcap)
+        loss = loss + 0.3 * s2 / torch.clamp_min(c2, 1)
+    return loss, dict(loss=loss, tokens=cnt)
+
+
+def prefill(params, cfg: ModelConfig, tokens, extra=None):
+    """Prefill forward: last-position logits (B, 1, V)."""
+    h = hidden_states(params, cfg, tokens, extra)
+    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    return torch.matmul(h[:, -1:], emb.T.to(h.dtype))
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
+    """tokens (B,1), pos (B,), cache per configs.base.cache_specs.
+    Returns (logits (B,1,V), new_cache)."""
+    h = _embed(params, cfg, tokens)
+    if cfg.family == "audio":
+        h = h + params["dec_pos"][pos.to(torch.long)][:, None].to(h.dtype)
+
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        new_cache = dict(cache)
+        keys = ("ckv", "krope") if cfg.attn_type == "mla" else ("k", "v")
+        parts = {k: [] for k in keys}
+        if nd:
+            h, kv_d = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
+                                   cache={k: cache[k][:nd] for k in keys},
+                                   pos=pos)
+            for k in keys:
+                parts[k].append(kv_d[k])
+        h, kv_m = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True,
+                               cache={k: cache[k][nd:cfg.num_layers]
+                                      for k in keys}, pos=pos)
+        for k in keys:
+            new_cache[k] = torch.cat(parts[k] + [kv_m[k]], dim=0)
+    else:
+        xattn_cache = None
+        if cfg.family == "audio":
+            xattn_cache = dict(
+                k=cache["xk"].to(cfg.compute_dtype),
+                v=cache["xv"].to(cfg.compute_dtype))
+        layer_cache = {k: v for k, v in cache.items()
+                       if k in ("k", "v", "ckv", "krope")}
+        h, kvs = _scan_blocks(
+            params["blocks"], h, cfg, use_moe=False, cache=layer_cache,
+            pos=pos, xattn_cache=xattn_cache)
+        new_cache = dict(cache)
+        new_cache.update(kvs)
+    h = L.norm(h, params["final_norm"], cfg)
+    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    logits = torch.matmul(h, emb.T.to(h.dtype))
+    return logits, new_cache

@@ -1,6 +1,8 @@
 """``repro_torch.serve`` — serving engines and the scheduling layer.
 
-* ``engine``: :class:`~repro_torch.serve.engine.ResNetEngine` (one device,
+* ``engine``: :class:`~repro_torch.serve.engine.Engine` (continuous
+  batching of the float LMs), :class:`~repro_torch.serve.engine.
+  ResNetEngine` (one device,
   compiled image and LM serving), :class:`~repro_torch.serve.engine.
   ShardedResNetEngine` (replica pool + deadline-based batch coalescing).
 * ``sched``: the execution-agnostic scheduling core — injectable clocks,
@@ -9,7 +11,7 @@
   :class:`~repro_torch.serve.sched.ReplicaPool`.
 """
 from repro_torch.serve.engine import (                   # noqa: F401
-    ImageRequest, ResNetEngine, ShardedResNetEngine)
+    Engine, ImageRequest, Request, ResNetEngine, ShardedResNetEngine)
 from repro_torch.serve.sched import (                    # noqa: F401
     Backpressure, BatchCoalescer, Dispatch, DrainResult, FakeClock,
     LatencyStats, MonotonicClock, ReplicaPool, ReplicaState,

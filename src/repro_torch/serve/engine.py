@@ -1,4 +1,12 @@
-"""Image-classification serving over the integer ResNet pipeline.
+"""Batched serving engines.
+
+``Engine`` serves the float LMs (``repro_torch.models``) by continuous
+batching over a fixed slot set: requests (prompts) are admitted into free
+slots; one ``decode_step`` advances every active slot per tick (one token
+each).  Finished slots are recycled at once, so no slot waits for the
+longest request of a "batch".  Prefill is per request, token by token
+through the cache (the batched prefill path is ``models.model.prefill``).
+The decode cache lives on the engine's device.
 
 ``ResNetEngine`` serves the paper's workload — integer ResNet8/20 image
 classification — through :class:`repro_torch.compile.CompiledModel`: the
@@ -23,6 +31,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.tree import leaves
+from repro_torch.models import model as M
 from repro_torch.obs import runtime as _obs
 from repro_torch.serve import sched as S
 
@@ -32,6 +42,109 @@ from repro_torch.serve import sched as S
 # agree only within the per-task tolerances (tests/test_torch_lm.py,
 # chip_smoke.py): its deviation is recorded, never counted as a mismatch.
 _INT_BACKENDS = frozenset({"cuda", "cuda-stream", "torch-int"})
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Engine:
+    """Continuous-batching LM engine over ``models.model.decode_step`` (the
+    port of the JAX package's ``Engine``).  ``device=None`` means ``cuda``
+    and raises without a GPU; pass ``device="cpu"`` to serve on the CPU.
+    ``params`` must already be on that device (``models.model.init_params``
+    or ``params_from_numpy`` with the same ``device``).  Greedy decoding;
+    ``steps`` counts the ``decode_step`` calls (prompt tokens and ticks)."""
+
+    def __init__(self, cfg, params, slots: int = 4, max_len: int = 256,
+                 eos: Optional[int] = None, device=None):
+        from repro_torch.compile.compiler import resolve_device
+
+        self.device = resolve_device(device)
+        where = {t.device for t in leaves(params)}
+        if where != {self.device}:
+            raise ValueError(f"{cfg.name}: parameters on "
+                             f"{sorted(map(str, where))}, engine on "
+                             f"{self.device}")
+        self.cfg, self.params = cfg, params
+        self.slots, self.max_len, self.eos = slots, max_len, eos
+        self.cache = M.init_cache(cfg, slots, max_len, self.device)
+        self.pos = np.zeros((slots,), np.int32)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        self.last_tok = np.zeros((slots, 1), np.int32)
+        self.steps = 0
+
+    def _step(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """One ``decode_step`` over every slot; returns the logits (slots, 1,
+        V) on the device and keeps the new cache."""
+        with torch.no_grad():
+            logits, self.cache = M.decode_step(
+                self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(pos).to(self.device), self.cache)
+        self.steps += 1
+        return logits
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _admit(self):
+        for i in range(self.slots):
+            if self.active[i] is None and self.queue:
+                req = self.queue.pop(0)
+                self.active[i] = req
+                if not req.prompt:
+                    # empty prompt: nothing to prefill (and no logits to seed
+                    # from) — start decoding from token 0 at position 0 on
+                    # the next tick
+                    self.pos[i] = 0
+                    self.last_tok[i, 0] = 0
+                    continue
+                # prefill token-by-token into this slot's cache
+                for j, tok in enumerate(req.prompt):
+                    t = self.last_tok.copy()
+                    t[i, 0] = tok
+                    pos = self.pos.copy()
+                    pos[i] = j
+                    logits = self._step(t, pos)
+                self.pos[i] = len(req.prompt)
+                self.last_tok[i, 0] = int(torch.argmax(logits[i, 0]))
+                req.out.append(int(self.last_tok[i, 0]))
+
+    def tick(self):
+        """One decode step for all active slots."""
+        self._admit()
+        if not any(r is not None for r in self.active):
+            return False
+        logits = self._step(self.last_tok, self.pos)
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.pos[i] += 1
+            tok = int(nxt[i])
+            req.out.append(tok)
+            self.last_tok[i, 0] = tok
+            if len(req.out) >= req.max_new or tok == self.eos or \
+                    self.pos[i] >= self.max_len - 1:
+                req.done = True
+                self.active[i] = None
+                self.pos[i] = 0
+                self.last_tok[i, 0] = 0
+        return True
+
+    def run(self, max_ticks: int = 10_000):
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.active)) and \
+                ticks < max_ticks:
+            self.tick()
+            ticks += 1
+        return ticks
 
 
 @dataclasses.dataclass

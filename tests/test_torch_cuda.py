@@ -1,6 +1,6 @@
-"""GPU-only checks of the port's CUDA kernels (marked ``cuda``; each skips
-without a GPU).  This file imports no JAX, so it also runs on a GPU machine
-that has only PyTorch:
+"""GPU-only checks of the port's CUDA kernels and of the float LM server
+(marked ``cuda``; each skips without a GPU).  This file imports no JAX, so
+it also runs on a GPU machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -1204,3 +1204,41 @@ def test_float_train_step_and_export_validation_on_the_card(dev):
     _, _, qp = ptq_quantize(cfg, new, batches, observer="percentile")
     check = validate_export(cfg, qp, batches[1]["images"][:8], device=dev)
     assert check["bit_exact"] and check["max_abs_dev"] == 0.0
+
+
+def test_bf16_lm_engine_on_the_card(dev):
+    """The float LM server on the card: the bf16 smoke gemma-2b through
+    ``serve.Engine`` (more requests than slots, an empty prompt among
+    them) finishes every request with its cache on the card, and
+    ``Engine(slots=1)`` gives the tokens of a manual greedy
+    ``decode_step`` loop there."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_smoke_config("gemma-2b").with_(dtype="bfloat16",
+                                             param_dtype="bfloat16")
+    params = M.init_params(cfg, 0, dev)
+    eng = Engine(cfg, params, slots=2, max_len=32, device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new=n) for i, (p, n) in enumerate(
+        [([1, 2, 3], 5), ([7], 4), ([], 3), ([9, 4, 4, 2], 6)])]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and len(r.out) == r.max_new for r in reqs)
+    assert eng.cache["k"].is_cuda and eng.cache["k"].dtype == torch.bfloat16
+    one = Engine(cfg, params, slots=1, max_len=32, device=dev)
+    req = Request(rid=0, prompt=[4, 8], max_new=3)
+    one.submit(req)
+    one.run()
+    cache = M.init_cache(cfg, 1, 32, dev)
+    outs = []
+    with torch.no_grad():
+        for t, tok in enumerate([4, 8, None, None]):
+            logits, cache = M.decode_step(
+                params, cfg,
+                torch.tensor([[tok if tok is not None else outs[-1]]],
+                             device=dev),
+                torch.tensor([t], device=dev), cache)
+            if t:
+                outs.append(int(torch.argmax(logits[0, 0])))
+    assert req.out == outs

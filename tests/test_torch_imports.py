@@ -28,8 +28,8 @@ sys.exit(1 if bad else 0)
 
 # the submodules of each slice, so that a new one cannot be missed by the
 # walk (the serving-at-scale and tuning slice, the training and
-# quantization slice, the traffic and health slice and the compile-smoke
-# CLI, among them)
+# quantization slice, the traffic and health slice, the compile-smoke CLI
+# and the float LMs with their server, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
@@ -46,7 +46,18 @@ EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.traffic.slo", "repro_torch.traffic.autoscale",
             "repro_torch.traffic.degrade", "repro_torch.traffic.sim",
             "repro_torch.traffic.live", "repro_torch.traffic.__main__",
-            "repro_torch.traffic.wiring", "repro_torch.compile.__main__"}
+            "repro_torch.traffic.wiring", "repro_torch.compile.__main__",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid",
+            "repro_torch.models.model", "repro_torch.launch.steps",
+            "repro_torch.configs.llama3_2_3b",
+            "repro_torch.configs.nemotron_4_340b",
+            "repro_torch.configs.granite_8b",
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.configs.internvl2_1b",
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.configs.zamba2_7b"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -250,14 +250,44 @@ Phases, one JSON line each:
                 leaves) within 1e-4; (5) ``python -m
                 repro_torch.launch.serve --arch gemma-2b --requests 4
                 --max-new 8`` as a subprocess, exit 0.
-  9. the ``{"kernels": [...], "serve": {...}, "train": {...},
-     "traffic": {...}, "lm_tune": {...}, "lm_float": {...}}`` line (rows
+  9. lm_train — LM training (``launch.steps.make_train_step``, remat, the
+                donated AdamW update, ``launch.train``; plain PyTorch: the
+                counters, zeroed before the phase, must read 0 after it):
+                (1) every smoke config in float32 on the CPU and on the
+                card from the same weights and batch (next-token labels):
+                the loss and every gradient leaf, then one donated AdamW
+                step at ``grad_accum=2``, params and moments, each leaf
+                within 1e-4 of its largest magnitude; (2) bf16 at
+                published width, remat "dots", the donated step, on
+                ``SyntheticTokens``, no checkpoint directory: gemma-2b (18
+                layers, float32 moments, 8 x 1,024 tokens, ``grad_accum``
+                2, 4 steps), falcon-mamba-7b (64 layers, int8 moments, 2 x
+                512, 3 steps), mixtral-8x22b (2 of 56 layers, int8
+                moments, 4 x 512, 4 steps): CUDA-event ms a step (median
+                after the first), tokens/s, model flops and their share of
+                989 TFLOP/s, the port's ``analytic_terms`` at that batch,
+                depth and ``grad_accum``, peak memory, one more step under
+                ``torch.profiler`` (idle share, launches), the losses
+                (finite); (3) gemma-2b at 2 x 1,024 without remat, "dots"
+                and "nothing": step ms and the peak memory of one gradient
+                computation above the resting weights and moments, which
+                must fall in that order; (4) ``python -m
+                repro_torch.launch.train --arch gemma-2b --smoke`` for 20
+                steps with checkpoints every 10, then with ``--steps 30``,
+                which must print ``[resume] restored step 19``; both exit
+                0; then in this process under deterministic algorithms the
+                CLI's ``main`` 20 steps resumed to 30 against 30 straight:
+                params and moments within 1e-6, and whether bitwise.
+  10. the ``{"kernels": [...], "serve": {...}, "train": {...},
+     "traffic": {...}, "lm_tune": {...}, "lm_float": {...},
+     "lm_train": {...}}`` line (rows
      1-3 carry their
      tuned knob and time beside the rule's and their launches in the
      train phase's evaluation and in the traffic phase; rows 4-6 their
      knobs, the sweep's rule and best per shape, the tuned serve's
      launches by config and the LM profile's ms a forward; ``serve`` the
-     sharded and tuned summaries; ``lm_float`` the float phase's), then
+     sharded and tuned summaries; ``lm_float`` and ``lm_train`` the float
+     phases'), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -301,7 +331,8 @@ from repro_torch.core.quant import (dequantize,  # noqa: E402
                                    percentile_linear, requantize_shift,
                                    shift_align)
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.data.synthetic import SyntheticCifar  # noqa: E402
+from repro_torch.data.synthetic import (SyntheticCifar,  # noqa: E402
+                                        SyntheticTokens)
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
 from repro_torch.kernels.common import (knob_key,  # noqa: E402
                                         read_launches, write_launches,
@@ -350,7 +381,11 @@ from repro_torch.kernels.selective_scan.ref import \
 from repro_torch.models import model as float_lm  # noqa: E402
 from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.models import transformer as float_transformer  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.launch import analytic as lm_analytic  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
                              alert_log_path, default_rules, read_bundle)
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
@@ -384,6 +419,7 @@ from repro_torch.tune.config import KernelConfig  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 LOGIT_ATOL = 1e-5
 MIN_UNSATURATED = 0.2    # share of kernel outputs strictly inside (0, 255)
 BUCKET = 32
@@ -3726,13 +3762,15 @@ def lmf_profile(fn, calls):
     """``calls`` runs of ``fn`` under ``torch.profiler``: wall ms a call
     (host clock, ended by a synchronisation), the device's busy ms (its
     kernels and copies, one stream), the idle share 1 - busy / wall,
-    launches a call and the kernels with the most device time."""
+    launches a call and the kernels with the most device time.  Only the
+    device activity is recorded, and the events are aggregated once: a
+    training step launches tens of thousands of kernels, and the host
+    ops' events would take the profiler a minute to aggregate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -3742,11 +3780,13 @@ def lmf_profile(fn, calls):
                   if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
     check(busy_s > 0, "the profiler saw no device time")
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:4]
     return dict(calls=calls, wall_ms=wall_s * 1e3 / calls,
                 device_ms=busy_s * 1e3 / calls,
                 idle_share=1.0 - busy_s / wall_s,
                 launches=sum(e.count for e in dev_events) / calls,
-                top=top_kernels(prof, 4))
+                top=[dict(name=e.key[:60], count=e.count,
+                          device_us=e.self_device_time_total) for e in top])
 
 
 def lmf_requests(n, max_new):
@@ -3946,6 +3986,319 @@ def lm_float_phase(seed, dev):
         cli=cli["line"], port_kernel_launches=sum(launched.values()))
 
 
+# ---------------------------------------------------------------------------
+# LM training (lm_train)
+# ---------------------------------------------------------------------------
+
+LMT_TOL = 1e-4   # card vs CPU, float32 smoke: of each leaf's largest value
+# the smoke step's AdamW: eps 1e-3 keeps the step Lipschitz in the
+# gradient, so float32 noise below 1e-6 cannot flip an entry's step (the
+# CPU tests' setting, tests/test_torch_lm_train.py)
+LMT_SMOKE_HP = dict(lr=1e-2, total_steps=10, warmup=1, eps=1e-3)
+# published width in bf16, remat "dots", the donated step, no checkpoint
+# directory; mixtral cut to 2 of its 56 layers as in lm_float.  gemma-2b
+# takes default_optimizer's AdamW (float32 moments), the other two
+# train_lm's --int8-opt AdamW (float32 moments do not fit beside them)
+LMT_RUNS = (
+    dict(model="gemma-2b", cut={}, int8_opt=False, batch=8, seq=1024,
+         grad_accum=2, steps=4),
+    dict(model="falcon-mamba-7b", cut={}, int8_opt=True, batch=2, seq=512,
+         grad_accum=1, steps=2),
+    dict(model="mixtral-8x22b", cut=dict(num_layers=2), int8_opt=True,
+         batch=4, seq=512, grad_accum=1, steps=4),
+)
+LMT_REMAT = dict(model="gemma-2b", batch=2, seq=1024)
+LMT_REMAT_MODES = ((False, "dots"), (True, "dots"), (True, "nothing"))
+LMT_CLI = ["--arch", "gemma-2b", "--smoke", "--batch", "8", "--seq", "64",
+           "--grad-accum", "2", "--int8-opt", "--ckpt-every", "10"]
+LMT_RESUME_TOL = 1e-6   # tests/test_substrate.py's resume bound
+
+
+def lmt_batch(cfg, batch, seq, seed, dev):
+    """Tokens and next-token labels (-1 at the end) drawn from ``seed``,
+    with whisper's frames and internvl2's patches, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    out = dict(tokens=tokens, labels=np.concatenate(
+        [tokens[:, 1:], -np.ones((batch, 1), np.int32)], axis=1))
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def lmt_leaf_err(a, b):
+    """max |a - b| over max |a| (a: the CPU's), for the tolerance check."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+
+def lmt_cpu_vs_card(seed, dev):
+    """(1) Every smoke config in float32 on the CPU and on the card from
+    the same weights (drawn on the CPU, carried by the bridge) and batch:
+    the loss and every gradient leaf, then one donated AdamW step at
+    ``grad_accum=2`` (params and moments), each leaf within LMT_TOL of its
+    largest magnitude."""
+    out = {}
+    for name in ARCH_IDS:
+        cfg = get_smoke_config(name)
+        runs = {}
+        for where in ("cpu", "card"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            p = float_lm.params_from_numpy(float_lm.params_to_numpy(
+                float_lm.init_params(cfg, seed, "cpu")), cfg, d)
+            x = lmt_batch(cfg, 4, 16, seed, d)
+            (loss, _), g = train_loop.value_and_grad(
+                lambda q: float_lm.loss_fn(q, cfg, x), p)
+            check(all(t is not None for t in tree.leaves(g)),
+                  f"{name}: a leaf got no gradient on {where}")
+            opt = opt_lib.adamw(**LMT_SMOKE_HP)
+            s = opt.init(p)
+            _, _, m = lm_steps.make_train_step(cfg, opt, grad_accum=2)(
+                p, s, 0, x)
+            runs[where] = (float(loss), [t.cpu() for t in tree.leaves(g)],
+                           float(m["loss"]), [t.cpu() for t in
+                                              tree.leaves((p, s))])
+        (l0, g0, s0, p0), (l1, g1, s1, p1) = runs["cpu"], runs["card"]
+        rec = dict(loss_rel_err=abs(l0 - l1) / abs(l0),
+                   step_loss_rel_err=abs(s0 - s1) / abs(s0),
+                   grad_max_rel_err=max(map(lmt_leaf_err, g0, g1)),
+                   step_max_rel_err=max(map(lmt_leaf_err, p0, p1)),
+                   leaves=len(g0))
+        for k in ("loss_rel_err", "step_loss_rel_err", "grad_max_rel_err",
+                  "step_max_rel_err"):
+            check(rec[k] <= LMT_TOL, f"{name}: card vs CPU {k} {rec[k]}")
+        out[name] = rec
+    return dict(tolerance=LMT_TOL, by_model=out)
+
+
+def lmt_step_events(step, params, opt_state, i, batch):
+    """One train step timed by CUDA events; returns (ms, metrics)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    _, _, m = step(params, opt_state, i, batch)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e), m
+
+
+def lmt_full_run(run, seed, dev):
+    """(2) One model at published width through the donated step on
+    ``SyntheticTokens``: CUDA-event ms of every step (the median of those
+    after the first), tokens/s, model flops and the share of 989 TFLOP/s,
+    the port's analytic terms at this batch, depth and ``grad_accum``,
+    peak memory, one more step under the profiler, the losses."""
+    name = run["model"]
+    cfg = get_config(name).with_(**run["cut"])
+    B, S, ga = run["batch"], run["seq"], run["grad_accum"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = float_lm.init_params(cfg, seed, dev)
+    if run["int8_opt"]:
+        opt = opt_lib.adamw(lr=1e-3, total_steps=run["steps"] + 1,
+                            int8_state=True)
+    else:
+        opt = lm_steps.default_optimizer(cfg, total_steps=run["steps"] + 1)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resting_gb = torch.cuda.memory_allocated() / 1e9
+    step = lm_steps.make_train_step(cfg, opt, grad_accum=ga)
+    pipe = SyntheticTokens(B, S, cfg.vocab_size, seed=seed)
+
+    def batch():
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.next().items()}
+
+    times, losses = [], []
+    for i in range(run["steps"]):
+        ms, m = lmt_step_events(step, params, opt_state, i, batch())
+        times.append(ms)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(v) for v in losses),
+          f"{name}: losses {losses}")
+    b = batch()
+    prof = lmf_profile(lambda: step(params, opt_state, run["steps"], b), 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times[1:]))
+    shape = ShapeSpec("lm_train", S, B, "train")
+    flops = float_lm.model_flops(cfg, shape)
+    an = lm_analytic.analytic_terms(lm_analytic.Cell(
+        cfg=cfg, shape=shape, chips=1, tp=1, fsdp=1, grad_accum=ga,
+        opt_state_bytes_per_param=2.0 if run["int8_opt"] else 8.0))
+    rec = dict(model=name, cut=run["cut"], layers=cfg.num_layers,
+               params=float_lm.param_count(cfg), dtype=cfg.dtype,
+               remat_policy=cfg.remat_policy, batch=B, seq=S, grad_accum=ga,
+               moments="int8" if run["int8_opt"] else "float32",
+               init_s=init_s, step_ms=ms, step_ms_all=times,
+               tokens_per_s=B * S / (ms * 1e-3), model_flops=flops,
+               mfu=flops / (ms * 1e-3) / BF16_FLOPS_PER_S,
+               an_flops_per_device=an["an_flops_per_device"],
+               an_step_s=an["an_step_s"], an_bottleneck=an["an_bottleneck"],
+               resting_gb=resting_gb, peak_gb=peak_gb, profile=prof,
+               losses=losses, wall_s=time.perf_counter() - t0)
+    emit("lm_train_run", **rec)
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lmt_remat(seed, dev):
+    """(3) gemma-2b at published width, one microbatch of LMT_REMAT: per
+    remat setting one warm-up step and one step timed by CUDA events (the
+    whole donated step, and its peak memory, which the optimizer's update
+    may set), and the peak memory of one gradient computation above the
+    resting params and moments; that peak must fall from no remat to
+    "dots" to "nothing"."""
+    cfg0 = get_config(LMT_REMAT["model"])
+    params = float_lm.init_params(cfg0, seed, dev)
+    opt = lm_steps.default_optimizer(cfg0, total_steps=10)
+    opt_state = opt.init(params)
+    x = lmt_batch(cfg0, LMT_REMAT["batch"], LMT_REMAT["seq"], seed, dev)
+    out = []
+    for remat, policy in LMT_REMAT_MODES:
+        cfg = cfg0.with_(remat=remat, remat_policy=policy)
+        step = lm_steps.make_train_step(cfg, opt)
+        step(params, opt_state, 0, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = lmt_step_events(step, params, opt_state, 1, x)
+        step_peak = torch.cuda.max_memory_allocated()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, g = train_loop.value_and_grad(
+            lambda q: float_lm.loss_fn(q, cfg, x), params)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() - base
+        del g
+        out.append(dict(remat=remat, policy=policy if remat else None,
+                        step_ms=ms, step_peak_gb=step_peak / 1e9,
+                        grad_peak_above_resting_gb=grad_peak / 1e9))
+    peaks = [r["grad_peak_above_resting_gb"] for r in out]
+    check(peaks[0] > peaks[1] > peaks[2],
+          f"remat: gradient peak memory does not fall: {peaks}")
+    rec = dict(model=LMT_REMAT["model"], batch=LMT_REMAT["batch"],
+               seq=LMT_REMAT["seq"], resting_gb=base / 1e9, modes=out)
+    emit("lm_train_remat", **rec)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lmt_cli(out_dir):
+    """(4) ``python -m repro_torch.launch.train`` on the card: 20 steps with
+    checkpoints every 10, then the same command with ``--steps 30``, which
+    must resume from step 19; both exit 0.  Then, in this process under
+    deterministic algorithms, the CLI's ``main`` the same way (20 steps,
+    resumed to 30) against 30 steps without interruption: params and
+    moments within LMT_RESUME_TOL, and whether bitwise."""
+    import contextlib
+    import io
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent /
+                                          "src"))
+    cli_dir = os.path.join(out_dir, "cli")
+    t0 = time.perf_counter()
+    lines = {}
+    for steps in (20, 30):
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *LMT_CLI,
+             "--steps", str(steps), "--ckpt-dir", cli_dir], env=env,
+            capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0 and "final:" in res.stdout,
+              f"launch.train --steps {steps} exited {res.returncode}: "
+              f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+        lines[steps] = res.stdout
+    check("[resume] restored step 19" in lines[30],
+          f"launch.train --steps 30 did not resume: {lines[30][-2000:]}")
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for key, steps, ck_dir in (("resumed", 20, "det"),
+                                   ("resumed", 30, "det"),
+                                   ("straight", 30, "straight")):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                runs[key] = launch_train.main(
+                    LMT_CLI + ["--steps", str(steps), "--ckpt-dir",
+                               os.path.join(out_dir, ck_dir)])
+            if steps == 30 and key == "resumed":
+                check("[resume] restored step 19" in buf.getvalue(),
+                      "main(--steps 30) did not resume")
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    a = tree.leaves(runs["resumed"][:2])
+    b = tree.leaves(runs["straight"][:2])
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b))
+    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+    check(diff <= LMT_RESUME_TOL, f"resumed run differs from the straight "
+                                  f"one by {diff}")
+    rec = dict(cli_s=cli_s, in_process_s=time.perf_counter() - t0,
+               cli_final=[ln for ln in lines[30].splitlines()
+                                       if ln.startswith("final:")][-1],
+               deterministic_max_abs_diff=diff, deterministic_bitwise=bitwise,
+               leaves=len(a), tolerance=LMT_RESUME_TOL)
+    emit("lm_train_cli", **rec)
+    return rec
+
+
+def lm_train_phase(seed, dev):
+    """LM training on the card (see the module docstring, phase 9);
+    returns the summary for the kernels line."""
+    t0 = time.perf_counter()
+    saved = read_launches()
+    write_launches(zeroed_launches())
+    cpu = lmt_cpu_vs_card(seed, dev)
+    cpu["seconds"] = time.perf_counter() - t0
+    emit("lm_train_cpu_vs_card", **cpu)
+    runs = {r["model"]: lmt_full_run(r, seed, dev) for r in LMT_RUNS}
+    t1 = time.perf_counter()
+    remat = lmt_remat(seed, dev)
+    remat_s = time.perf_counter() - t1
+    out_dir = tempfile.mkdtemp(prefix="repro-lm-train-")
+    try:
+        cli = lmt_cli(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launched = {op.__name__: n for op, (n, _, _) in read_launches().items()}
+    check(not any(launched.values()),
+          f"LM training launched the port's kernels: {launched}")
+    write_launches(saved)
+    seconds = time.perf_counter() - t0
+    parts = dict(cpu_vs_card=cpu["seconds"],
+                 **{k: v["wall_s"] for k, v in runs.items()}, remat=remat_s,
+                 cli=cli["cli_s"], cli_in_process=cli["in_process_s"])
+    emit("lm_train_phase", seconds=seconds, seconds_by_part=parts,
+         port_kernel_launches=launched)
+    return dict(
+        seconds=seconds, seconds_by_part=parts,
+        cpu_vs_card_max_rel_err=max(
+            max(v["grad_max_rel_err"], v["step_max_rel_err"])
+            for v in cpu["by_model"].values()),
+        runs={k: {f: v[f] for f in (
+            "cut", "batch", "seq", "grad_accum", "moments", "step_ms",
+            "tokens_per_s", "mfu", "an_step_s", "an_bottleneck", "peak_gb",
+            "losses")} | {"idle_share": v["profile"]["idle_share"],
+                          "launches": v["profile"]["launches"]}
+            for k, v in runs.items()},
+        remat={("none" if not m["remat"] else m["policy"]):
+               {k: m[k] for k in ("grad_peak_above_resting_gb",
+                                  "step_peak_gb", "step_ms")}
+               for m in remat["modes"]},
+        resume_bitwise=cli["deterministic_bitwise"],
+        resume_max_abs_diff=cli["deterministic_max_abs_diff"],
+        port_kernel_launches=sum(launched.values()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4036,6 +4389,8 @@ def main(argv=None):
          refused=len(lm_tune["refused"]))
     torch.cuda.empty_cache()
     lm_float = lm_float_phase(args.seed, dev)
+    torch.cuda.empty_cache()
+    lm_train = lm_train_phase(args.seed, dev)
     torch.cuda.empty_cache()
 
     conv_launches = sum(d["conv2d_int8"] for d in (
@@ -4161,7 +4516,7 @@ def main(argv=None):
                         for k, v in lm_tune["serve"].items()},
                     "profile": {k: v["ms_per_forward"]
                                 for k, v in lm_tune["profile"].items()}},
-        "lm_float": lm_float,
+        "lm_float": lm_float, "lm_train": lm_train,
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

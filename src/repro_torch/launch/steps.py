@@ -1,12 +1,64 @@
-"""Step builders of the float LMs: the serving half of
-``repro.launch.steps`` (``make_prefill_step``, ``make_serve_step``).  The
-train step waits for LM training (ROADMAP A9.2).  Both steps run without
-autograd."""
+"""Step builders shared by the trainer and the server (the port of
+``repro.launch.steps``): the train step with gradient accumulation, the
+prefill and decode steps (run without autograd), and the default LM
+optimizer."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.models import model as M
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.loop import value_and_grad
+
+
+def make_train_step(cfg, opt, grad_accum: int = 1):
+    """``(params, opt_state, step, batch) -> (params, opt_state,
+    metrics)`` over a batch of tensors on the parameters' device.
+
+    ``grad_accum > 1`` splits the leading batch axis into ``grad_accum``
+    microbatches of ``B // grad_accum`` rows and sums their gradients in
+    each parameter's dtype (a bf16 model accumulates in bf16, as the
+    reference's ``zeros(p.shape, p.dtype)`` plus ``add``), then divides by
+    ``grad_accum`` in that dtype; ``metrics`` are the last microbatch's.
+    This bounds activation memory; the optimizer step happens once.
+
+    The params and moments are donated, as the reference jits this step
+    with ``donate_argnums=(0, 1)``: ``opt.update_`` writes the new values
+    into their storage, so the caller's trees hold them afterwards (and
+    the step returns those trees)."""
+    if opt.update_ is None:
+        raise ValueError("the LM train step updates in place: the "
+                         "optimizer needs update_")
+
+    def grads_of(params, batch):
+        return value_and_grad(lambda p: M.loss_fn(p, cfg, batch), params)
+
+    def accumulate(acc, g):
+        if g is not None:
+            acc.add_(g)
+        return acc
+
+    def train_step(params, opt_state, step, batch):
+        if grad_accum == 1:
+            (_, metrics), grads = grads_of(params, batch)
+        else:
+            B = next(iter(batch.values())).shape[0]
+            if B % grad_accum:
+                raise ValueError(f"batch of {B} rows does not split into "
+                                 f"grad_accum={grad_accum} microbatches")
+            mb = B // grad_accum
+            grads = T.tree_map(torch.zeros_like, params)
+            for i in range(grad_accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                (_, metrics), g = grads_of(params, micro)
+                T.tree_map(accumulate, grads, g)
+                del g
+            T.tree_map(lambda a: a.div_(grad_accum), grads)
+        params, opt_state = opt.update_(grads, opt_state, params, step)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg):
@@ -30,3 +82,10 @@ def make_serve_step(cfg):
                              batch["cache"])
 
     return serve_step
+
+
+def default_optimizer(cfg, total_steps=10_000):
+    """AdamW with int8 pow2 moments for the huge archs (more than 5e10
+    parameters)."""
+    big = M.param_count(cfg) > 5e10
+    return opt_lib.adamw(total_steps=total_steps, int8_state=big)

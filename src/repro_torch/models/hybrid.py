@@ -75,28 +75,40 @@ def _shared_block(p, h, cfg, cache=None, pos=None):
 def _run(params, cfg, h, *, states=None, kv=None, pos=None):
     """states (dict ssm, conv, each (L, ...)) / kv (dict k, v, each
     (n_groups, ...)): None for train/prefill; the decode state otherwise.
-    Returns (h, new states, new kv)."""
+    Returns (h, new states, new kv).  Without a decode state, each group
+    (its Mamba2 layers and the shared block) is rematerialized under
+    autograd per ``cfg.remat_policy``, and each tail layer with nothing
+    saved (the reference's plain ``jax.checkpoint``)."""
     period = cfg.shared_block_period
-    n_groups = cfg.num_layers // period
     decode = states is not None
     new_states, new_kv = [], []
 
-    def mamba(p, h, l):
+    def mamba(h, p, l):
         st = None if not decode else {k: v[l] for k, v in states.items()}
-        h, ns = _mamba_block(p, h, cfg, state=st)
-        new_states.append(ns)
-        return h
+        return _mamba_block(p, h, cfg, state=st)
 
-    for g in range(n_groups):
-        gp = L.layer(params["groups"], g)
-        for j in range(period):
-            h = mamba(L.layer(gp, j), h, g * period + j)
-        gkv = None if not decode else {k: v[g] for k, v in kv.items()}
+    def group(h, layer_params, first, gkv):
+        sts = []
+        for j, p in enumerate(layer_params):
+            h, ns = mamba(h, p, first + j)
+            sts.append(ns)
         h, nkv = _shared_block(params["shared"], h, cfg, cache=gkv, pos=pos)
+        return h, sts, nkv
+
+    tail = mamba
+    if not decode:
+        group = L.remat(group, cfg.remat, cfg.remat_policy)
+        tail = L.remat(mamba, cfg.remat, "nothing")
+    for g, gp in enumerate(L.layers(params["groups"])):
+        gkv = None if not decode else {k: v[g] for k, v in kv.items()}
+        h, sts, nkv = group(h, L.layers(gp), g * period, gkv)
+        new_states += sts
         new_kv.append(nkv)
     if "tail" in params:
-        for j in range(L.stack_len(params["tail"])):
-            h = mamba(L.layer(params["tail"], j), h, n_groups * period + j)
+        first = len(new_states)
+        for j, p in enumerate(L.layers(params["tail"])):
+            h, ns = tail(h, p, first + j)
+            new_states.append(ns)
     if not decode:
         return h, None, None
     stack = lambda parts: {k: torch.stack([s[k] for s in parts])  # noqa: E731

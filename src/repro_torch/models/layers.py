@@ -15,6 +15,9 @@ LM compile path.
   enters the next matmul's accumulator instead of a standalone Add.
 * attention and the loss are chunked, so long sequences run with bounded
   activation memory.
+* stacked ``(L, ...)`` weights are read a layer at a time through
+  ``layers()`` (one unbind a leaf), and a layer's forward is checkpointed
+  under autograd by ``remat()`` where the reference remats.
 
 Random initializers draw from a ``Draw``: a ``torch.Generator`` and the
 device it draws on (``meta`` draws nothing, for shapes only).  The draws
@@ -23,11 +26,14 @@ times ``1/sqrt(fan_in)``, cast to the parameter dtype) is the same.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import quant as Q
 from repro_torch.core import tree as T
@@ -536,12 +542,13 @@ def moe_apply(p, x, cfg, acc_init=None):
         ys = x.new_zeros((T_ * k + cap, d))
         a = act_fn(cfg.mlp_type)
         span = torch.arange(cap, device=x.device)
-        for e in range(E):
+        experts = layers({k: p[k] for k in ("w_gate", "w_up", "w_down")})
+        for e, w in enumerate(experts):
             rows = starts[e] + span
             seg = xs[rows]
-            h = a(seg @ getw(slice_expert(p["w_gate"], e), seg.dtype)) * \
-                (seg @ getw(slice_expert(p["w_up"], e), seg.dtype))
-            ys[rows] = h @ getw(slice_expert(p["w_down"], e), seg.dtype)
+            h = a(seg @ getw(w["w_gate"], seg.dtype)) * \
+                (seg @ getw(w["w_up"], seg.dtype))
+            ys[rows] = h @ getw(w["w_down"], seg.dtype)
         ys = ys[:T_ * k]
         # tokens beyond an expert's capacity were never written by their own
         # expert; zero them (standard token dropping).
@@ -806,6 +813,49 @@ def stack_len(stack) -> int:
     return (node.q if isinstance(node, Q.BlockQuantized) else node).shape[0]
 
 
-def layer(stack, i):
-    """Layer ``i`` of a stacked parameter tree (views)."""
-    return T.tree_map(lambda t: t[i], stack)
+def layers(stack) -> list:
+    """The per-layer trees of a stacked parameter tree (views): one
+    ``torch.unbind`` per leaf, a ``BlockQuantized``'s ``q`` and ``exp``
+    alike.  Under autograd the backward then writes each stacked leaf's
+    gradient once (``UnbindBackward`` stacks the per-layer gradients),
+    where reading layer ``i`` as ``t[i]`` would write a zero tensor the
+    size of the whole stack for every layer and add it in."""
+    parts = [torch.unbind(t) for t in T.leaves(stack)]
+    return [T.unflatten(stack, [p[i] for p in parts])
+            for i in range(stack_len(stack))]
+
+
+# ---------------------------------------------------------------------------
+# rematerialization (the reference's ``jax.checkpoint`` around a layer)
+# ---------------------------------------------------------------------------
+
+# the matmuls with no batch dimension, as PyTorch dispatches them (a
+# ``torch.matmul`` of (B, S, d) by (d, n) folds into ``mm``): what
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, enabled: bool, policy: str):
+    """``fn`` checkpointed per call when ``enabled`` and autograd is
+    recording (serving runs without autograd and is left as it is): the
+    backward recomputes ``fn``'s forward instead of keeping what it saved.
+    ``policy == "dots"`` keeps the outputs of the matmuls with no batch
+    dimension (selective checkpointing); any other value keeps nothing, as
+    the reference's ``policy=None``.  The recomputed forward is the same
+    arithmetic, so no value changes."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        return checkpoint(fn, *args, **kw)
+    return run

@@ -1,6 +1,7 @@
 """Attention-free Mamba1 LM (falcon-mamba-7b): the port of
 ``repro.models.ssm``.  Blocks are stacked ``(L, ...)`` and run by a loop
-over the layer index."""
+over the layers, each checkpointed under autograd as the reference
+remats it."""
 from __future__ import annotations
 
 import torch
@@ -38,9 +39,14 @@ def _embed(params, cfg, tokens):
 
 
 def hidden_states(params, cfg, tokens, extra=None):
+    """Remat per layer under autograd, as the reference's scan body."""
+    def body(h, p):
+        return _block(p, h, cfg)[0]
+
+    body = L.remat(body, cfg.remat, cfg.remat_policy)
     h = _embed(params, cfg, tokens)
-    for i in range(cfg.num_layers):
-        h, _ = _block(L.layer(params["blocks"], i), h, cfg)
+    for p in L.layers(params["blocks"]):
+        h = body(h, p)
     return L.norm(h, params["final_norm"], cfg)
 
 
@@ -60,10 +66,9 @@ def prefill(params, cfg, tokens, extra=None):
 def decode_step(params, cfg, tokens, pos, cache):
     h = _embed(params, cfg, tokens)
     ssm, conv = [], []
-    for i in range(cfg.num_layers):
-        h, ns = _block(L.layer(params["blocks"], i), h, cfg,
-                       state=dict(ssm=cache["ssm_state"][i],
-                                  conv=cache["conv_state"][i]))
+    for i, p in enumerate(L.layers(params["blocks"])):
+        h, ns = _block(p, h, cfg, state=dict(ssm=cache["ssm_state"][i],
+                                             conv=cache["conv_state"][i]))
         ssm.append(ns["ssm"])
         conv.append(ns["conv"])
     h = L.norm(h, params["final_norm"], cfg)

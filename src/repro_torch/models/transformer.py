@@ -2,8 +2,9 @@
 
 The port of ``repro.models.transformer``.  Layers are stored stacked, a
 ``(L, ...)`` leading axis on every leaf as the reference's ``jax.vmap``
-init lays them out, and run by a Python loop over the layer index (the
-reference's ``lax.scan``; its per-layer remat changes no forward value).
+init lays them out, and run by a Python loop over the layers (the
+reference's ``lax.scan``), each checkpointed under autograd as the
+reference remats it.
 The residual stream uses the paper's add-fold: the block output matmul
 receives the skip stream as its accumulator initializer (``acc_init``)
 instead of a separate Add node (``cfg.residual_fusion``).
@@ -132,17 +133,22 @@ def cross_kv(p_xattn, enc_out, cfg):
 
 def _scan_blocks(stack, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
                  enc_out=None, xattn_cache=None):
-    """Run a stacked block over the layer axis.  ``cache`` / ``xattn_cache``
-    are stacked along the same axis; returns (h, stacked new caches or
-    None)."""
+    """Run a stacked block over the layer axis, rematerialized per layer
+    under autograd (``cfg.remat``, ``cfg.remat_policy``).  ``cache`` /
+    ``xattn_cache`` are stacked along the same axis; returns (h, stacked
+    new caches or None)."""
+    def body(h, p, kv, xkv):
+        return _apply_block(p, h, cfg, use_moe=use_moe, causal=causal,
+                            cache=kv, pos=pos, enc_out=enc_out,
+                            xattn_cache=xkv)
+
+    body = L.remat(body, cfg.remat, cfg.remat_policy)
     new = []
-    for i in range(L.stack_len(stack)):
+    for i, p in enumerate(L.layers(stack)):
         kv = None if cache is None else {k: v[i] for k, v in cache.items()}
         xkv = (None if xattn_cache is None
                else {k: v[i] for k, v in xattn_cache.items()})
-        h, nkv = _apply_block(L.layer(stack, i), h, cfg, use_moe=use_moe,
-                              causal=causal, cache=kv, pos=pos,
-                              enc_out=enc_out, xattn_cache=xkv)
+        h, nkv = body(h, p, kv, xkv)
         new.append(nkv)
     if new[0] is None:
         return h, None
@@ -178,8 +184,8 @@ def encoder_cache(params, cfg: ModelConfig, frames) -> dict:
     decoder reads at every step after a prefill (the reference's decode
     reads them from the cache and has no function that fills them)."""
     enc_out = _encode(params, cfg, frames)
-    kvs = [cross_kv(L.layer(params["blocks"], i)["xattn"], enc_out, cfg)
-           for i in range(L.stack_len(params["blocks"]))]
+    kvs = [cross_kv(p["xattn"], enc_out, cfg)
+           for p in L.layers(params["blocks"])]
     return dict(xk=torch.stack([kv["k"] for kv in kvs]),
                 xv=torch.stack([kv["v"] for kv in kvs]))
 
@@ -222,10 +228,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
     loss = s / torch.clamp_min(cnt, 1)
     if cfg.mtp_depth:
         # deepseek MTP: one extra depth predicting t+2 from the trunk states
+        # (no remat on the MTP blocks, as in the reference)
         hm = h
-        for i in range(cfg.mtp_depth):
-            hm, _ = _apply_block(L.layer(params["mtp"], i), hm, cfg,
-                                 use_moe=False)
+        for p in L.layers(params["mtp"]):
+            hm, _ = _apply_block(p, hm, cfg, use_moe=False)
         hm = L.norm(hm, params["mtp_norm"], cfg)
         lab2 = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
                          dim=1)

@@ -69,10 +69,13 @@ class Watchdog:
 def value_and_grad(loss_fn: Callable, params):
     """``((loss, aux), grads)`` of ``loss_fn(params) -> (loss, aux)``:
     ``grads`` has the structure of ``params``, with ``None`` where the loss
-    does not read a leaf (the optimizers count it as zero)."""
+    does not read a leaf (the optimizers count it as zero).  The tensors
+    of ``aux`` come back detached, so that no metric holds the graph."""
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     loss, aux = loss_fn(T.unflatten(params, leaves))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    aux = T.tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
+                     else x, aux)
     return (loss.detach(), aux), T.unflatten(params, list(grads))
 
 

@@ -9,7 +9,10 @@
 API, the JAX package's: ``opt = make(name, **hp)``; ``state =
 opt.init(params)``; ``params, state = opt.update(grads, state, params,
 step)``.  Updates are functional (new tensors, the old ones untouched) and
-run without autograd.
+run without autograd.  ``adamw`` also has ``opt.update_``, the same step
+written into the given params' and state's storage (what the reference
+gets from ``donate_argnums``): the LM trainer's form, since a functional
+step holds two copies of params and moments at once.
 
 Every leaf is updated, as the reference maps over every leaf: a gradient
 of ``None`` (a leaf the loss does not read, e.g. ``bn.mean`` / ``bn.var``
@@ -26,7 +29,7 @@ import ctypes
 import ctypes.util
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,9 @@ F32 = np.float32
 class Optimizer:
     init: Callable
     update: Callable
+    # the update written into the storage of the params and state it is
+    # given (None: the optimizer has only the functional form)
+    update_: Optional[Callable] = None
 
 
 @functools.cache
@@ -95,6 +101,18 @@ def sgdm(lr=0.1, momentum=0.9, weight_decay=1e-4, total_steps=1000,
     return Optimizer(init, update)
 
 
+# elements of a leaf that the in-place update works on at once: its float32
+# temporaries stay near 1 GiB whatever the leaf's size
+CHUNK_ELEMENTS = 1 << 26
+
+
+def _rows(t):
+    """``t`` as a 2-D view (rows, last axis); a vector is one row.  The
+    moments' quantization blocks run along the last axis, so rows update
+    independently."""
+    return t.view(-1, t.shape[-1]) if t.dim() > 1 else t.view(1, -1)
+
+
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
           total_steps=10_000, warmup=200, int8_state=False,
           state_block=128):
@@ -112,26 +130,44 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def init(params):
         def zeros(p):
-            return _q(torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device))
+            if not int8_state or p.numel() < state_block:
+                return torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+            # every row of zeros quantizes alike: one row, repeated (the
+            # whole leaf in float32 would not fit beside a 7B model)
+            row = Q.block_quantize(torch.zeros(
+                (1, p.shape[-1]), dtype=torch.float32, device=p.device),
+                block=state_block)
+            n = _rows(p).shape[0]
+            return Q.BlockQuantized(
+                q=row.q.repeat(n, 1).reshape(p.shape),
+                exp=row.exp.repeat(n, 1).reshape(
+                    tuple(p.shape[:-1]) + (row.exp.shape[-1],)))
         return dict(m=T.tree_map(zeros, params),
                     v=T.tree_map(zeros, params))
 
+    def scalars(step):
+        t = F32(step) + F32(1)
+        return (float(sched(step)), float(F32(1) - F32(b1) ** t),
+                float(F32(1) - F32(b2) ** t))
+
+    def leaf(p, g, m, v, lr_t, c1, c2):
+        """One leaf's step: (new parameter, float32 m, float32 v)."""
+        gf = g.to(torch.float32)
+        mf = b1 * m + (1 - b1) * gf
+        vf = b2 * v + (1 - b2) * gf * gf
+        u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+        u = u + weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr_t * u).to(p.dtype), mf, vf
+
     @torch.no_grad()
     def update(grads, state, params, step):
-        lr_t = float(sched(step))
-        t = F32(step) + F32(1)
-        c1 = float(F32(1) - F32(b1) ** t)
-        c2 = float(F32(1) - F32(b2) ** t)
+        lr_t, c1, c2 = scalars(step)
 
         def upd(p, g, m, v):
-            gf = _grad_or_zero(g, p).to(torch.float32)
-            mf = b1 * _dq(m) + (1 - b1) * gf
-            vf = b2 * _dq(v) + (1 - b2) * gf * gf
-            u = (mf / c1) / (torch.sqrt(vf / c2) + eps)
-            u = u + weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr_t * u).to(p.dtype), _q(mf), \
-                _q(vf)
+            newp, mf, vf = leaf(p, _grad_or_zero(g, p), _dq(m), _dq(v),
+                                lr_t, c1, c2)
+            return newp, _q(mf), _q(vf)
 
         # the walk follows the params' structure, so a BlockQuantized
         # moment arrives whole at its parameter's leaf
@@ -140,7 +176,49 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             m=T.tree_map(lambda _, o: o[1], params, out),
             v=T.tree_map(lambda _, o: o[2], params, out))
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state, params, step):
+        """``update`` written into the storage of ``params`` and ``state``
+        (the reference's donated buffers): each leaf, and each moment's
+        float32 tensor or ``q`` / ``exp``, is overwritten a chunk of rows
+        at a time, so the peak is one chunk's temporaries above the
+        parameters, moments and gradients.  Elementwise in rows, so equal
+        to ``update`` bitwise.  Returns ``(params, state)``."""
+        lr_t, c1, c2 = scalars(step)
+
+        def moment(x):
+            """(read rows r, write rows r) of a moment."""
+            if isinstance(x, Q.BlockQuantized):
+                q, e = _rows(x.q), _rows(x.exp)
+
+                def write(r, val):
+                    bq = Q.block_quantize(val, block=state_block)
+                    q[r].copy_(bq.q)
+                    e[r].copy_(bq.exp)
+                return (lambda r: Q.block_dequantize(
+                    Q.BlockQuantized(q[r], e[r]), block=state_block)), write
+            x2 = _rows(x)
+            return (lambda r: x2[r]), (lambda r, val: x2[r].copy_(val))
+
+        def upd(p, g, m, v):
+            p2 = _rows(p)
+            g2 = None if g is None else _rows(g.contiguous())
+            (read_m, write_m), (read_v, write_v) = moment(m), moment(v)
+            n, width = p2.shape
+            chunk = max(1, CHUNK_ELEMENTS // width)
+            for r0 in range(0, n, chunk):
+                r = slice(r0, r0 + chunk)
+                newp, mf, vf = leaf(p2[r], _grad_or_zero(
+                    None if g2 is None else g2[r], p2[r]), read_m(r),
+                    read_v(r), lr_t, c1, c2)
+                p2[r].copy_(newp)
+                write_m(r, mf)
+                write_v(r, vf)
+
+        T.tree_map(upd, params, grads, state["m"], state["v"])
+        return params, state
+
+    return Optimizer(init, update, update_)
 
 
 def make(name: str, **hp) -> Optimizer:

@@ -1242,3 +1242,43 @@ def test_bf16_lm_engine_on_the_card(dev):
             if t:
                 outs.append(int(torch.argmax(logits[0, 0])))
     assert req.out == outs
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(dev):
+    """One smoke AdamW train step (llama3.2-3b, float32, ``grad_accum=2``,
+    donated, remat ``"dots"``) on the card against the same step on the
+    CPU from the same weights: loss, params and moments within 1e-4 of
+    each leaf's largest magnitude (``chip_smoke.py``'s ``lm_train``
+    tolerance; TF32 off)."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = get_smoke_config("llama3.2-3b")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        batch = dict(tokens=tokens, labels=np.concatenate(
+            [tokens[:, 1:], -np.ones((4, 1), np.int32)], axis=1))
+        opt = opt_lib.adamw(lr=1e-2, warmup=1, eps=1e-3)
+        step = make_train_step(cfg, opt, grad_accum=2)
+        runs = []
+        for d in (torch.device("cpu"), dev):
+            p = M.params_from_numpy(M.params_to_numpy(
+                M.init_params(cfg, 0, "cpu")), cfg, d)
+            s = opt.init(p)
+            _, _, m = step(p, s, 0, {k: torch.from_numpy(v).to(d)
+                                     for k, v in batch.items()})
+            runs.append((float(m["loss"]), [t.cpu() for t in
+                                            T.leaves((p, s))]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_loss, cpu), (card_loss, card) = runs
+    assert abs(cpu_loss - card_loss) <= 1e-4 * abs(cpu_loss)
+    assert all(a.is_floating_point() for a in cpu)
+    for a, b in zip(cpu, card):
+        assert torch.allclose(a, b, rtol=0,
+                              atol=1e-4 * float(a.abs().max()))

@@ -119,6 +119,15 @@ def both(arch, seed=0, **over):
     return jcfg, cfg, jp, M.params_from_numpy(jax_to_numpy(jp), cfg, "cpu")
 
 
+def next_token_labels(tokens):
+    """Each position's label is the next token, -1 at the end (as
+    ``SyntheticTokens`` makes them): with ``labels = tokens`` a model with
+    tied embeddings can score a loss of exactly 0, and the check would
+    hold nothing."""
+    return np.concatenate([tokens[:, 1:], -np.ones((tokens.shape[0], 1),
+                                                   np.int32)], axis=1)
+
+
 def extras(x, to):
     return {k: to(v) for k, v in x.items() if k in ("frames", "patches")}
 
@@ -274,15 +283,16 @@ def test_float32_forwards_match_reference(arch):
     logits and every cache leaf, float32, within ``F32_TOL``."""
     jcfg, cfg, jp, p = both(arch)
     x = inputs(cfg)
+    labels = next_token_labels(x["tokens"])
     with torch.inference_mode():
         got = M.prefill(p, cfg, _t(x["tokens"]), extras(x, _t))
         loss, aux = M.loss_fn(p, cfg, dict(tokens=_t(x["tokens"]),
-                                           labels=_t(x["tokens"]),
+                                           labels=_t(labels),
                                            **extras(x, _t)))
     want = J_PREFILL(jp, jcfg, jnp.asarray(x["tokens"]),
                      extras(x, jnp.asarray))
     jloss, jaux = J_LOSS(jp, jcfg, dict(tokens=jnp.asarray(x["tokens"]),
-                                           labels=jnp.asarray(x["tokens"]),
+                                           labels=jnp.asarray(labels),
                                            **extras(x, jnp.asarray)))
     assert got.shape == (B, 1, cfg.vocab_size) and got.dtype == torch.float32
     close(got, want, F32_TOL, "prefill logits")
@@ -390,8 +400,8 @@ def test_residual_fusion_changes_no_value():
     (``tests/test_layers.py::test_residual_fusion_equivalence``)."""
     cfg = cb.get_smoke_config("llama3.2-3b")
     p = M.init_params(cfg, 0, "cpu")
-    tokens = _t(inputs(cfg)["tokens"])
-    batch = dict(tokens=tokens, labels=tokens)
+    tokens = inputs(cfg)["tokens"]
+    batch = dict(tokens=_t(tokens), labels=_t(next_token_labels(tokens)))
     with torch.inference_mode():
         l1, _ = M.loss_fn(p, cfg, batch)
         l2, _ = M.loss_fn(p, cfg.with_(residual_fusion=False), batch)

@@ -278,16 +278,51 @@ Phases, one JSON line each:
                 0; then in this process under deterministic algorithms the
                 CLI's ``main`` 20 steps resumed to 30 against 30 straight:
                 params and moments within 1e-6, and whether bitwise.
-  10. the ``{"kernels": [...], "serve": {...}, "train": {...},
+  10. parallel — the SPMD layer (``repro_torch.parallel``, DTensor) on an
+                NCCL group of world size 1 (``launch.mesh.
+                init_process_group`` on a free local port) and a (1, 1)
+                ``("data", "model")`` ``DeviceMesh``, destroyed at the end:
+                (a) the group and the mesh; (b) ResNet20 at full width
+                through ``CompiledModel.run_sharded`` on ``cuda`` and
+                ``cuda-stream`` at buckets 8 and 32 and a padded batch of
+                5, the logits a DTensor bitwise ``__call__``'s, the
+                kernels the profiler saw in each bucket run (conv_stem + 9
+                resblock_fused, or 1 block_chain; a session that misses
+                records is taken again, at most 3, each reported) equal
+                to the plan and to the counters, images/s beside the
+                unsharded graph's (in turns); (c) one train step of gemma-2b at published width,
+                bf16, 2 x 1,024, params and moments DTensors from
+                ``params_shardings``, against ``make_train_step``'s
+                unsharded step from the same weights on the same batch:
+                the loss and every params and moments leaf within 1e-4 of
+                the leaf's largest (and whether bitwise), then step ms
+                (CUDA events, in turns), tokens/s, idle share and launches
+                of both; (d) ``python -m repro_torch.launch.dryrun`` of
+                that cell on a fake (1, 1) mesh: its
+                ``argument_bytes_per_device`` equal to the real step's
+                param, moment and batch bytes, its predicted peak beside
+                the step's measured one and its flops beside 6 N D; (e)
+                the CLI on gemma-2b train_4k (256 chips) and internvl2-1b
+                decode_32k: 256 chips, ``an_step_s > 0``, collectives
+                counted in the train cell, finite bytes, ``fits_hbm`` and
+                the host seconds (the dry-runs start as subprocesses before
+                the lm_float phase, overlap it and end before this phase
+                times anything); (f)
+                ``compressed_psum_grads``, ``collective_matmul`` and
+                ``pipeline_step`` on the group against their plain forms;
+                (g) with two or more cards, the 2-rank cases over NCCL, one
+                rank a card; with one, ``"ranks": 1`` and the tests that
+                hold them on the CPU named.
+  11. the ``{"kernels": [...], "serve": {...}, "train": {...},
      "traffic": {...}, "lm_tune": {...}, "lm_float": {...},
-     "lm_train": {...}}`` line (rows
+     "lm_train": {...}, "parallel": {...}}`` line (rows
      1-3 carry their
      tuned knob and time beside the rule's and their launches in the
      train phase's evaluation and in the traffic phase; rows 4-6 their
      knobs, the sweep's rule and best per shape, the tuned serve's
      launches by config and the LM profile's ms a forward; ``serve`` the
-     sharded and tuned summaries; ``lm_float`` and ``lm_train`` the float
-     phases'), then
+     sharded and tuned summaries; ``lm_float``, ``lm_train`` and
+     ``parallel`` their phases'), then
      ``{"ok": true, "device": ...}``.
 
 Every phase's line carries ``card``: the card's name and power limit as
@@ -302,6 +337,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -383,12 +419,17 @@ from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.models import transformer as float_transformer  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import analytic as lm_analytic  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
                              alert_log_path, default_rules, read_bundle)
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
+from repro_torch.parallel import collectives as par_coll  # noqa: E402
+from repro_torch.parallel import ctx as par_ctx  # noqa: E402
+from repro_torch.parallel import pp as par_pp  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.obs.__main__ import (load_alerts,  # noqa: E402
                                       load_chrome_trace)
 from repro_torch.obs.metrics import parse_text  # noqa: E402
@@ -4299,6 +4340,389 @@ def lm_train_phase(seed, dev):
         port_kernel_launches=sum(launched.values()))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel layer on one card
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+PAR_BUCKETS = (8, 32)
+# (c): gemma-2b at published width, bf16, 2 x 1,024 tokens, one microbatch
+PAR_TRAIN = dict(model="gemma-2b", batch=2, seq=1024, steps=6)
+PAR_TOL = 1e-4
+PAR_TRACES = 3      # profiler sessions at most a traced bucket run
+PAR_SETTLE_S = 0.02   # host wait at the start of a traced bucket run
+# (d) and (e): the dry-run cells, each a subprocess of its own (a process
+# holds one fake process group)
+DRYRUN_CELLS = {
+    "step_1x1": ["--arch", "gemma-2b", "--shape", "train_4k", "--mesh-data",
+                 "1", "--mesh-model", "1", "--batch",
+                 str(PAR_TRAIN["batch"]), "--seq", str(PAR_TRAIN["seq"])],
+    "gemma-2b/train_4k": ["--arch", "gemma-2b", "--shape", "train_4k"],
+    "internvl2-1b/decode_32k": ["--arch", "internvl2-1b", "--shape",
+                                "decode_32k"],
+}
+# the processes this script starts, stopped at its end whatever happens
+STARTED = []
+
+
+def start_dryruns(out_dir):
+    """Start the dry-run cells: host work (fake tensors, nothing on the
+    card) that overlaps the phases before the parallel one."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in DRYRUN_CELLS.items():
+        out = os.path.join(out_dir, name.replace("/", "__") + ".json")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", out], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+        STARTED.append(p)
+        procs[name] = (p, out)
+    return procs
+
+
+def finish_dryruns(procs):
+    res = {}
+    for name, (p, out) in procs.items():
+        _, err = p.communicate(timeout=900)
+        check(p.returncode == 0,
+              f"dryrun {name} exited {p.returncode}: {err[-3000:]}")
+        with open(out) as f:
+            res[name] = json.load(f)
+    return res
+
+
+def stop_started():
+    for p in STARTED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def par_serve(seed, dev, mesh):
+    """(b) ResNet20 through ``run_sharded`` on both backends."""
+    qp = resnet_qparams(R.RESNET20, seed)
+    gen = torch.Generator().manual_seed(seed)
+    imgs = (torch.rand((BUCKET, 32, 32, 3), generator=gen) * 0.999).to(dev)
+    batches = [imgs[:8], imgs[:32], imgs[:5]]
+    out = {}
+    for backend in ("cuda", "cuda-stream"):
+        cm = compile_model(R.RESNET20, qp, backend=backend,
+                           batch_sizes=PAR_BUCKETS, device=dev)
+        refs = [cm(b) for b in batches]
+        for b in batches:                 # the shard executables built
+            cm.run_sharded(b, mesh)
+        built = (len(cm._shard_execs), cm.compile_count,
+                 dict(cm.trace_counts))
+        per_run, _ = launch_plan(R.RESNET20, backend)
+        got, seen, ran = [], [], {}
+        def settled(b):
+            # the card idle before each traced run; in a whole script's
+            # run the first profiler session of a run still often records
+            # no kernel (the retries below), where the phase alone does
+            torch.cuda.synchronize()
+            time.sleep(PAR_SETTLE_S)
+            return cm.run_sharded(b, mesh)
+
+        for b in batches:
+            # one profiler session a bucket run; a session whose trace
+            # misses kernel records is taken again, up to PAR_TRACES
+            # times, and every session's count is reported
+            counts = []
+            for _ in range(PAR_TRACES):
+                zero_resnet_launches()
+                logits, r, _ = traced_launches(lambda: settled(b))
+                counts.append({k: v for k, v in r.items() if v})
+                if all(r[k] == per_run.get(k, 0) for k in r):
+                    break
+            check_traced(r, resnet_launches(), per_run, 1,
+                         f"run_sharded {backend} at {b.shape[0]} images")
+            got.append(logits)
+            seen.append(counts)
+            for k, v in r.items():
+                ran[k] = ran.get(k, 0) + v
+        for g, r, b in zip(got, refs, batches):
+            check(tuple(g.shape) == tuple(r.shape) and
+                  torch.equal(g.full_tensor(), r),
+                  f"run_sharded {backend} at {b.shape[0]} images: not "
+                  f"bitwise __call__'s logits")
+            check(tuple(g.placements) == shd.spec_to_placements(
+                ("data",), mesh),
+                  f"run_sharded {backend}: placements {g.placements}")
+        check((len(cm._shard_execs), cm.compile_count,
+               dict(cm.trace_counts)) == built,
+              f"run_sharded {backend}: an executable was built again")
+        x = imgs[:BUCKET]
+        sh, un = [], []
+        for _ in range(4):                # in turns
+            sh.append(call_ms(lambda: cm.run_sharded(x, mesh), REPS))
+            un.append(call_ms(lambda: cm(x), REPS))
+        rec = dict(bitwise=True, launches=ran, plan_per_run=per_run,
+                   bucket_runs=len(batches), traced_sessions=seen,
+                   shard_executables=len(cm._shard_execs),
+                   sharded_ms=float(np.median(sh)),
+                   graph_ms=float(np.median(un)),
+                   images_per_s_sharded=BUCKET / (np.median(sh) * 1e-3),
+                   images_per_s_graph=BUCKET / (np.median(un) * 1e-3))
+        emit("parallel_serve", backend=backend, **rec)
+        out[backend] = rec
+        del cm
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_local_bytes(*trees):
+    return sum(nbytes(x.to_local() if hasattr(x, "to_local") else x)
+               for t in trees for x in tree.leaves(t))
+
+
+def par_train(seed, dev, mesh):
+    """(c) One sharded train step of gemma-2b at published width against
+    the unsharded one, then both timed in turns."""
+    cfg = get_config(PAR_TRAIN["model"])
+    B, S, n = PAR_TRAIN["batch"], PAR_TRAIN["seq"], PAR_TRAIN["steps"]
+    opt = lm_steps.default_optimizer(cfg, total_steps=2 * n + 2)
+    step = lm_steps.make_train_step(cfg, opt, grad_accum=1)
+    pipe = SyntheticTokens(B, S, cfg.vocab_size, seed=seed)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.next().items()} for _ in range(n + 1)]
+    torch.cuda.empty_cache()
+    pu = float_lm.init_params(cfg, seed, dev)
+    su = opt.init(pu)
+    full = float_lm.init_params(cfg, seed, dev)
+    ps = shd.distribute_tree(full, shd.params_shardings(full, mesh))
+    del full
+    ss = opt.init(ps)
+    arg_bytes = par_local_bytes(ps, ss, batches[0])
+
+    def sharded(i, b):
+        with par_ctx.mesh_context(mesh):
+            return lmt_step_events(step, ps, ss, i, b)
+
+    ms_u, mu = lmt_step_events(step, pu, su, 0, batches[0])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms_s, msd = sharded(0, batches[0])
+    step_peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+    loss_err = abs(float(mu["loss"]) - float(msd["loss"])) / \
+        abs(float(mu["loss"]))
+    pairs = list(zip(tree.leaves((pu, su)), tree.leaves((ps, ss))))
+    errs = [lmt_leaf_err(a, b.to_local()) for a, b in pairs]
+    bitwise = all(torch.equal(a, b.to_local()) for a, b in pairs) and \
+        float(mu["loss"]) == float(msd["loss"])
+    check(loss_err <= PAR_TOL and max(errs) <= PAR_TOL,
+          f"sharded gemma-2b step: loss {loss_err}, leaves {max(errs)}")
+    times_u, times_s = [ms_u], [ms_s]
+    for i in range(1, n):
+        times_u.append(lmt_step_events(step, pu, su, i, batches[i])[0])
+        times_s.append(sharded(i, batches[i])[0])
+    prof_u = lmf_profile(lambda: step(pu, su, n, batches[n]), 1)
+    with par_ctx.mesh_context(mesh):
+        prof_s = lmf_profile(lambda: step(ps, ss, n, batches[n]), 1)
+    tok = B * S
+    ms_u_med, ms_s_med = float(np.median(times_u[1:])), \
+        float(np.median(times_s[1:]))
+    rec = dict(model=cfg.name, batch=B, seq=S, dtype=cfg.dtype,
+               params=float_lm.param_count(cfg), leaves=len(pairs),
+               loss=float(msd["loss"]), loss_rel_err=loss_err,
+               max_leaf_rel_err=max(errs), bitwise=bitwise,
+               tolerance=PAR_TOL,
+               sharded_leaves=sum(any(p.is_shard() for p in x.placements)
+                                  for x in tree.leaves(ps)),
+               argument_bytes=arg_bytes, measured_step_peak_bytes=step_peak,
+               step_ms_sharded=ms_s_med, step_ms_unsharded=ms_u_med,
+               step_ms_all_sharded=times_s, step_ms_all_unsharded=times_u,
+               dtensor_overhead_ms=ms_s_med - ms_u_med,
+               tokens_per_s_sharded=tok / (ms_s_med * 1e-3),
+               tokens_per_s_unsharded=tok / (ms_u_med * 1e-3),
+               idle_share_sharded=prof_s["idle_share"],
+               idle_share_unsharded=prof_u["idle_share"],
+               launches_sharded=prof_s["launches"],
+               launches_unsharded=prof_u["launches"],
+               wall_ms_sharded=prof_s["wall_ms"],
+               wall_ms_unsharded=prof_u["wall_ms"])
+    emit("parallel_train", **rec)
+    del pu, su, ps, ss, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def par_collectives(dev, mesh):
+    """(f) The collectives and the pipeline on the group against their
+    plain forms (one rank: the int8 codec's round trip, the product, the
+    stage applied to each microbatch)."""
+    from repro_torch.core import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # whole blocks on the last dim: one rank's all-reduce is then the
+    # codec's round trip (the reference's shift map follows the blocks)
+    g = torch.randn((64, 1024), generator=gen, device=dev)
+    e = 1e-3 * torch.randn((64, 1024), generator=gen, device=dev)
+    out, new_e = par_coll.compressed_psum_grads(
+        dict(w=g), dict(w=e), "data", block=256, mesh=mesh)
+    plain = Q.block_dequantize(Q.block_quantize(g + e, 256), 256)
+    comp = dict(bitwise=bool(torch.equal(out["w"], plain)),
+                error_bitwise=bool(torch.equal(new_e["w"], g + e - plain)))
+    x = torch.randn((256, 512), generator=gen, device=dev)
+    w = torch.randn((512, 384), generator=gen, device=dev)
+    xd = shd.distribute(x, shd.NamedSharding(mesh, shd.P("model", None)))
+    wd = shd.distribute(w, shd.NamedSharding(mesh, shd.P(None, "model")))
+    y = par_coll.collective_matmul(xd, wd, mesh, "model")
+    cm = dict(bitwise=bool(torch.equal(y.full_tensor(), x @ w)),
+              placements=[str(p) for p in y.placements])
+    f = par_pp.pipeline_step(lambda i, v: torch.tanh(v) * 2.0 + 1.0, mesh,
+                             "data", n_micro=4)
+    xs = torch.randn((4, 8, 32), generator=gen, device=dev)
+    pipe = dict(bitwise=bool(torch.equal(f(xs), torch.tanh(xs) * 2.0 + 1.0)))
+    rec = dict(compressed_psum_grads=comp, collective_matmul=cm,
+               pipeline_step=pipe)
+    check(comp["bitwise"] and comp["error_bitwise"] and cm["bitwise"] and
+          pipe["bitwise"], f"collectives against their plain forms: {rec}")
+    emit("parallel_collectives", **rec)
+    return rec
+
+
+def par_two_rank_child(rank, port):
+    """One rank of (g): the collectives on a 2-rank NCCL group, each
+    against the plain form computed alike on every rank."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = mesh_lib.init_process_group(
+        "cuda", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=2)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((64, 96), generator=gen, device=dev)
+        w = torch.randn((96, 32), generator=gen, device=dev)
+        m = init_device_mesh("cuda", (2,), mesh_dim_names=("model",))
+        y = par_coll.collective_matmul(
+            shd.distribute(x, shd.NamedSharding(m, shd.P("model", None))),
+            shd.distribute(w, shd.NamedSharding(m, shd.P(None, "model"))),
+            m, "model").full_tensor()
+        check(float((y - x @ w).abs().max()) <= 1e-4 *
+              float((x @ w).abs().max()), "2-rank collective_matmul")
+        f = par_pp.pipeline_step(lambda i, v: v * (i + 2.0) + 1.0, m,
+                                 "model", n_micro=3)
+        xs = torch.randn((3, 4, 8), generator=gen, device=dev)
+        check(torch.equal(f(xs), (xs * 2.0 + 1.0) * 3.0 + 1.0),
+              "2-rank pipeline_step")
+        gs = torch.randn((2, 16, 512), generator=gen, device=dev)
+        out, _ = par_coll.compressed_psum_grads(
+            dict(w=gs[rank]), dict(w=torch.zeros_like(gs[rank])), "model",
+            block=256, mesh=m)
+        exact = gs.sum(0)
+        check(float((out["w"] - exact).abs().max()) <
+              0.05 * float(exact.abs().max()), "2-rank compressed all-reduce")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def par_two_ranks():
+    """(g) The 2-rank cases over NCCL, one rank a card, when there are two
+    cards."""
+    n = torch.cuda.device_count()
+    held = ["tests/test_torch_parallel.py", "tests/test_torch_parallel_train.py"]
+    if n < 2:
+        return dict(ranks=1, multi_rank="held on the CPU by 4 spawned gloo "
+                    "ranks: " + ", ".join(held))
+    import torch.multiprocessing as mp
+    mp.start_processes(par_two_rank_child, args=(free_port(),), nprocs=2,
+                       start_method="spawn", join=True)
+    return dict(ranks=2, multi_rank="collective_matmul, pipeline_step and "
+                "compressed_psum_grads on 2 cards over NCCL; the rest held "
+                "on the CPU: " + ", ".join(held))
+
+
+def par_dryrun_checks(dry, train):
+    """(d) and (e) on the dry-run cells' results."""
+    cell = dry["step_1x1"]
+    check(cell["argument_bytes_per_device"] == train["argument_bytes"],
+          f"dry-run argument bytes {cell['argument_bytes_per_device']} != "
+          f"the real step's {train['argument_bytes']}")
+    step = dict(argument_bytes=cell["argument_bytes_per_device"],
+                predicted_peak_bytes=cell["hbm_required_bytes"],
+                measured_peak_bytes=train["measured_step_peak_bytes"],
+                peak_ratio=cell["hbm_required_bytes"] /
+                train["measured_step_peak_bytes"],
+                flops_per_device=cell["flops_per_device"],
+                six_n_d=cell["model_flops"],
+                flops_over_6nd=cell["flops_per_device"] /
+                cell["model_flops"], host_seconds=cell["host_seconds"])
+    prod = {}
+    for name in ("gemma-2b/train_4k", "internvl2-1b/decode_32k"):
+        r = dry[name]
+        check(r["chips"] == 256, f"{name}: {r['chips']} chips")
+        check(r["an_step_s"] > 0, f"{name}: an_step_s {r['an_step_s']}")
+        for k in ("flops_per_device", "bytes_per_device",
+                  "collective_bytes_per_device", "argument_bytes_per_device",
+                  "temp_bytes_per_device", "hbm_required_bytes"):
+            check(math.isfinite(r[k]) and r[k] >= 0, f"{name}: {k} {r[k]}")
+        if name.endswith("train_4k"):
+            check(sum(r["collective_counts"].values()) > 0,
+                  f"{name}: no collective counted")
+        prod[name] = {k: r[k] for k in (
+            "chips", "grad_accum", "fits_hbm", "hbm_required_bytes",
+            "argument_bytes_per_device", "temp_bytes_per_device",
+            "flops_per_device", "model_flops_per_device",
+            "useful_flops_ratio", "collective_bytes_per_device",
+            "collective_counts", "bottleneck", "an_bottleneck", "an_step_s",
+            "host_seconds")}
+    emit("parallel_dryrun", step_1x1=step, production=prod)
+    return dict(step_1x1=step, production=prod)
+
+
+def parallel_phase(seed, dev, dryruns):
+    """The parallel layer on the card (see the module docstring, phase
+    10); returns the summary for the kernels line."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    # the dry-runs (host work) end before anything here is timed
+    dry_cells = finish_dryruns(dryruns)
+    waited = time.perf_counter() - t0
+    port = free_port()
+    mesh_lib.init_process_group("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_local_mesh(1, 1, "cuda")
+        group = dict(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                     mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+        emit("parallel_group", **group)
+        serve = par_serve(seed, dev, mesh)
+        train = par_train(seed, dev, mesh)
+        coll = par_collectives(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    ranks = par_two_ranks()
+    dry = par_dryrun_checks(dry_cells, train)
+    seconds = time.perf_counter() - t0
+    emit("parallel_phase", seconds=seconds, dryrun_wait_s=waited, **ranks)
+    return dict(seconds=seconds, dryrun_wait_s=waited, group=group,
+                serve={b: {k: v[k] for k in (
+                    "bitwise", "launches", "images_per_s_sharded",
+                    "images_per_s_graph", "sharded_ms", "graph_ms")}
+                    for b, v in serve.items()},
+                train={k: train[k] for k in (
+                    "model", "batch", "seq", "loss_rel_err",
+                    "max_leaf_rel_err", "bitwise", "step_ms_sharded",
+                    "step_ms_unsharded", "dtensor_overhead_ms",
+                    "tokens_per_s_sharded", "tokens_per_s_unsharded",
+                    "idle_share_sharded", "idle_share_unsharded",
+                    "launches_sharded", "launches_unsharded")},
+                dryrun=dry, collectives=coll, **ranks)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4388,9 +4812,17 @@ def main(argv=None):
     emit("lm_tune_phase", seconds=lm_tune["seconds"],
          refused=len(lm_tune["refused"]))
     torch.cuda.empty_cache()
-    lm_float = lm_float_phase(args.seed, dev)
-    torch.cuda.empty_cache()
-    lm_train = lm_train_phase(args.seed, dev)
+    dry_dir = tempfile.mkdtemp(prefix="repro-dryrun-")
+    try:
+        dryruns = start_dryruns(dry_dir)
+        lm_float = lm_float_phase(args.seed, dev)
+        torch.cuda.empty_cache()
+        lm_train = lm_train_phase(args.seed, dev)
+        torch.cuda.empty_cache()
+        parallel = parallel_phase(args.seed, dev, dryruns)
+    finally:
+        stop_started()
+        shutil.rmtree(dry_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     conv_launches = sum(d["conv2d_int8"] for d in (
@@ -4516,7 +4948,7 @@ def main(argv=None):
                         for k, v in lm_tune["serve"].items()},
                     "profile": {k: v["ms_per_forward"]
                                 for k, v in lm_tune["profile"].items()}},
-        "lm_float": lm_float, "lm_train": lm_train,
+        "lm_float": lm_float, "lm_train": lm_train, "parallel": parallel,
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

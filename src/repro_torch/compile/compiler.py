@@ -52,6 +52,12 @@ The port's counterpart of the JAX package's ahead-of-time executables:
     batching discipline: the weights are copied and lowered again there
     (``PackedWeight`` keeps its TMA maps on one device's pointers), and
     that device gets graphs of its own.
+  * **SPMD serving.**  :meth:`CompiledModel.run_sharded` serves a batch
+    split over one dim of a ``DeviceMesh``, every rank calling it with
+    the same batch: the weights replicated (each rank's own copy, lowered
+    once per mesh axis and devices), each rank running its rows through
+    its own executable (a CUDA graph of ``bucket / n`` rows), the logits a
+    DTensor ``Shard(0)`` over that dim.
 
 Entry points run on the GPU: ``device=None`` means ``"cuda"`` and raises
 when no CUDA device exists; pass ``device="cpu"`` to run the kernels'
@@ -60,7 +66,7 @@ plain versions on the CPU.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Sequence, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -68,6 +74,7 @@ from repro_torch.compile import lowering
 from repro_torch.compile.backends import Backend, get_backend
 from repro_torch.compile.params import ensure_typed
 from repro_torch.kernels.common import add_launches, capture_graph
+from repro_torch.launch.mesh import rank_device
 from repro_torch.obs import runtime as _obs
 
 # forwards run on a side stream before a capture
@@ -97,6 +104,14 @@ def input_shape(cfg, batch: int):
     if lowering._is_lm_cfg(cfg):
         return (batch, cfg.seq_len), torch.int32
     return (batch, cfg.img, cfg.img, 3), torch.float32
+
+
+class InputSpec(NamedTuple):
+    """A bucket's input: its global shape and dtype, and the DTensor
+    placements it takes over a mesh (None: one device)."""
+    shape: tuple
+    dtype: torch.dtype
+    placements: Optional[tuple] = None
 
 
 def _as_input(cfg, x, device) -> torch.Tensor:
@@ -158,6 +173,39 @@ class EagerExecutable:
         return self.forward(_pad_rows(x, self.batch))[:x.shape[0]]
 
 
+class ShardExecutable:
+    """One bucket split over one mesh dim: ``exe(x)`` for a batch ``x``
+    of at most ``batch`` rows (the same on every rank) zero-pads it to the
+    bucket, runs this rank's ``batch / n`` rows through its local
+    executable and returns the ``x.shape[0]`` rows' logits as a DTensor
+    ``Shard(0)`` over the dim."""
+
+    def __init__(self, local, mesh, axis, batch: int):
+        from repro_torch.parallel.sharding import spec_to_placements
+        self.local, self.mesh, self.batch = local, mesh, batch
+        self.placements = spec_to_placements((axis,), mesh)
+        d = tuple(mesh.mesh_dim_names).index(axis)
+        self.index = mesh.get_local_rank(d)
+        self.rows = batch // mesh.size(d)
+
+    def __call__(self, x: torch.Tensor):
+        from torch.distributed.tensor import DTensor, Replicate
+        n = x.shape[0]
+        r0 = self.index * self.rows
+        loc = self.local(_pad_rows(x, self.batch)[r0:r0 + self.rows])
+        shape = (self.batch,) + tuple(loc.shape[1:])
+        out = DTensor.from_local(loc, self.mesh, self.placements,
+                                 run_check=False, shape=torch.Size(shape),
+                                 stride=torch.empty(shape, device="meta")
+                                 .stride())
+        if n < self.batch:
+            # the pad rows sliced off: the first n rows, split anew
+            rep = [Replicate()] * self.mesh.ndim
+            out = out.redistribute(self.mesh, rep)[:n].redistribute(
+                self.mesh, self.placements)
+        return out
+
+
 class CompiledModel:
     """A quantized network lowered through one backend, served in fixed
     batch buckets, one executable per bucket (a CUDA graph on the GPU).
@@ -186,6 +234,8 @@ class CompiledModel:
         self._pools: Dict[torch.device, tuple] = {}
         self._execs: Dict[int, Callable] = {}
         self._dev_execs: Dict[tuple, Callable] = {}
+        self._shard_execs: Dict[tuple, Callable] = {}
+        self._shard_lowered: Dict[tuple, Callable] = {}
         self.trace_counts: Dict[int, int] = {}
         self.compile_count = 0
         self.run_counts: Dict[int, int] = {b: 0 for b in self.batch_sizes}
@@ -255,17 +305,35 @@ class CompiledModel:
         self._note_compile(kind, batch, time.perf_counter() - t0)
         return exe
 
-    def _capture(self, batch: int, device: torch.device) -> GraphExecutable:
-        forward = self._lowering(device)
+    def input_spec(self, batch: int, placements=None) -> InputSpec:
+        """THE input-shape contract of every executable this model builds
+        (default, per-device and SPMD): ``input_shape`` of the bucket, with
+        its placements over a mesh when given."""
         shape, dtype = input_shape(self.cfg, batch)
-        static_in = torch.zeros(shape, dtype=dtype, device=device)
+        return InputSpec(tuple(shape), dtype,
+                         None if placements is None else tuple(placements))
+
+    def _capture(self, batch: int, device: torch.device, forward=None,
+                 rows: Optional[int] = None) -> GraphExecutable:
+        """The CUDA graph of ``rows`` rows (default: the bucket's) of
+        ``forward`` (default: the model's lowering on ``device``); the
+        capture counts a trace of bucket ``batch``."""
+        forward = forward or self._lowering(device)
+        shape = list(self.input_spec(batch).shape)
+        shape[0] = batch if rows is None else rows
+        static_in = torch.zeros(shape, dtype=self.input_spec(batch).dtype,
+                                device=device)
         if device not in self._pools:
             with torch.cuda.device(device):
                 self._pools[device] = torch.cuda.graph_pool_handle()
         # the warm-up runs the lowered forward; the capture runs it through
-        # _staged, which counts the trace
+        # staged, which counts the trace
+        def staged():
+            self._note_trace(batch)
+            return forward(static_in)
+
         graph, static_out, per_replay = capture_graph(
-            lambda: self._staged(static_in, device),
+            staged,
             warmup=WARMUP_RUNS, warm=lambda: forward(static_in),
             pool=self._pools[device], device=device)
         return GraphExecutable(graph, static_in, static_out, per_replay)
@@ -304,6 +372,67 @@ class CompiledModel:
             _as_input(self.cfg, images, device),
             lambda bucket: self.device_executable(bucket, device))
 
+    def shard_executable(self, mesh, batch: int, axis: str = "data"):
+        """The SPMD executable of bucket ``batch`` over ``mesh``: the
+        batch dim split over mesh dim ``axis``, the weights replicated
+        (this rank's whole copy).  ``batch`` must divide over the dim.
+        The weights' lowering depends only on the dim and the mesh's
+        devices, not the bucket: lowered once per ``(axis, devices)``,
+        shared across buckets; one executable per ``(batch, axis, mesh
+        shape, devices)``, counted in ``compile_count``."""
+        from repro_torch.parallel.sharding import axis_size, mesh_shape
+
+        n_dev = axis_size(mesh, axis)
+        if batch not in self.batch_sizes:
+            raise ValueError(
+                f"batch {batch} is not a compiled bucket {self.batch_sizes}")
+        if batch % n_dev != 0:
+            raise ValueError(
+                f"bucket {batch} must be divisible by mesh axis "
+                f"{axis!r} (size {n_dev})")
+        devs = (mesh.device_type, tuple(mesh.mesh.flatten().tolist()))
+        # the mesh's axis structure is part of the key: two meshes over the
+        # same ranks (4x1 'data','model' vs 2x2) split the batch apart
+        key = (int(batch), axis, tuple(mesh_shape(mesh).items()), devs)
+        if key not in self._shard_execs:
+            device = rank_device(mesh)
+            lkey = (axis, devs)
+            if lkey not in self._shard_lowered:
+                self._shard_lowered[lkey] = self.backend.lower(
+                    self.graph, self.cfg, self.params.to(device))
+            forward = self._shard_lowered[lkey]
+            rows = batch // n_dev
+            t0 = time.perf_counter()
+            if device.type == "cuda":
+                local = self._capture(batch, device, forward, rows)
+            else:
+                def local(x, forward=forward, bucket=batch):
+                    self._note_trace(bucket)
+                    return forward(x)
+                local = EagerExecutable(local, rows)
+            self._shard_execs[key] = ShardExecutable(local, mesh, axis,
+                                                     batch)
+            self._note_compile("shard", batch, time.perf_counter() - t0)
+        return self._shard_execs[key]
+
+    def run_sharded(self, images, mesh, axis: str = "data"):
+        """Serve ``images`` (the same batch on every rank of ``mesh``)
+        split over mesh dim ``axis``, with the shared bucket discipline
+        restricted to the buckets that divide over the dim; returns the
+        logits as a DTensor ``Shard(0)`` over the dim.  Bitwise the same
+        as ``__call__``: sharding never changes the arithmetic."""
+        from repro_torch.parallel.sharding import axis_size
+
+        n_dev = axis_size(mesh, axis)
+        fits = tuple(b for b in self.batch_sizes if b % n_dev == 0)
+        if not fits:
+            raise ValueError(
+                f"no compiled bucket in {self.batch_sizes} divides over "
+                f"mesh axis {axis!r} (size {n_dev})")
+        return self._run_batched(
+            _as_input(self.cfg, images, rank_device(mesh)),
+            lambda bucket: self.shard_executable(mesh, bucket, axis), fits)
+
     # -- dispatch -----------------------------------------------------------
 
     def bucket_for(self, n: int) -> int:
@@ -319,19 +448,23 @@ class CompiledModel:
         bucket up to its bucket: the batch a bucket run computes on."""
         return _pad_rows(images, self.bucket_for(images.shape[0]))
 
-    def _run_batched(self, images: torch.Tensor, exe_for) -> torch.Tensor:
+    def _run_batched(self, images: torch.Tensor, exe_for,
+                     buckets=None) -> torch.Tensor:
         """THE one home of the serving batching discipline, shared by
-        ``__call__`` and ``run_placed``: the smallest bucket >= n, batches
-        beyond the largest bucket chunked; ``exe_for(bucket)`` is the
-        executable that pads, runs and slices one bucket."""
+        ``__call__``, ``run_placed`` and ``run_sharded``: the smallest
+        bucket >= n of ``buckets`` (default: every bucket), batches beyond
+        the largest bucket chunked; ``exe_for(bucket)`` is the executable
+        that pads, runs and slices one bucket."""
+        buckets = self.batch_sizes if buckets is None else buckets
         n = images.shape[0]
         if n == 0:
             raise ValueError("empty batch")
-        cap = self.batch_sizes[-1]
+        cap = buckets[-1]
         if n > cap:
-            return torch.cat([self._run_batched(images[i:i + cap], exe_for)
+            return torch.cat([self._run_batched(images[i:i + cap], exe_for,
+                                                buckets)
                               for i in range(0, n, cap)], dim=0)
-        bucket = self.bucket_for(n)
+        bucket = next(b for b in buckets if b >= n)
         self.run_counts[bucket] += 1
         ob = _obs.active()
         if ob is not None:

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.models import model as M
+from repro_torch.parallel import ctx
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loop import value_and_grad
 
@@ -26,13 +27,22 @@ def make_train_step(cfg, opt, grad_accum: int = 1):
     The params and moments are donated, as the reference jits this step
     with ``donate_argnums=(0, 1)``: ``opt.update_`` writes the new values
     into their storage, so the caller's trees hold them afterwards (and
-    the step returns those trees)."""
+    the step returns those trees).
+
+    Under a mesh (``parallel.ctx.mesh_context``) the params and moments
+    are DTensors (``parallel.sharding.params_shardings``) and the batch is
+    the whole batch on every rank (DTensors of it are gathered first):
+    each microbatch is the reference's (the same rows), and each rank
+    computes its share of its rows (``ctx.local_rows``), the gradients
+    summed over the ranks by the weights' reduce-scatters."""
     if opt.update_ is None:
         raise ValueError("the LM train step updates in place: the "
                          "optimizer needs update_")
 
     def grads_of(params, batch):
-        return value_and_grad(lambda p: M.loss_fn(p, cfg, batch), params)
+        rows, axes = ctx.local_rows(batch)
+        with ctx.rows_split_over(axes):
+            return value_and_grad(lambda p: M.loss_fn(p, cfg, rows), params)
 
     def accumulate(acc, g):
         if g is not None:
@@ -40,6 +50,7 @@ def make_train_step(cfg, opt, grad_accum: int = 1):
         return acc
 
     def train_step(params, opt_state, step, batch):
+        batch = ctx.full_batch(batch)
         if grad_accum == 1:
             (_, metrics), grads = grads_of(params, batch)
         else:

@@ -17,21 +17,37 @@ updated in place, ``--grad-accum`` microbatches a step, on
 fault-tolerant loop (checkpoints every ``--ckpt-every`` steps,
 auto-resume from ``--ckpt-dir``, the step watchdog).  ``--device cpu``
 trains on the CPU; the default is the GPU, and it raises without one.
-There is one device: ``--mesh-data`` / ``--mesh-model`` above 1 (the
-reference's FSDP x TP mesh) are refused until parallelism is ported.
+
+``--mesh-data D --mesh-model M`` (either above 1) train an LM on the
+reference's FSDP x TP mesh, one process a rank under ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch gemma-2b --smoke --mesh-data 2 --mesh-model 2 --device cpu
+
+(``nccl`` on the GPU, one card a rank; ``gloo`` with ``--device cpu``).
+Every rank draws the same weights from ``--seed`` and keeps its shards
+(``parallel.sharding.params_shardings``), the moments inherit their
+placements, and the step runs inside ``parallel.ctx.mesh_context``; a
+resume reshards the checkpoint onto the mesh, whatever mesh wrote it.
+The launcher refuses a world size other than ``D * M``, naming the
+command to run.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
 from repro_torch.compile.compiler import resolve_device
 from repro_torch.configs import base as cbase
 from repro_torch.data.synthetic import SyntheticCifar, SyntheticTokens
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import make_train_step as make_lm_step
 from repro_torch.models import model as M
 from repro_torch.models import resnet as R
+from repro_torch.parallel import ctx
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loop import LoopConfig, make_train_step, run
 
@@ -66,11 +82,6 @@ def train_resnet(args, log=print):
 def train_lm(args, log=print):
     """Train the LM ``args.arch`` for ``args.steps`` steps; returns
     ``(params, opt_state, metrics)`` of the last step."""
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise SystemExit(
-            f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model}: "
-            f"the port trains on one device; the FSDP x TP mesh is ROADMAP "
-            f"item A10, not ported yet")
     cfg = (cbase.get_smoke_config(args.arch) if args.smoke
            else cbase.get_config(args.arch))
     if cfg.family in MISSING_INPUT:
@@ -78,22 +89,63 @@ def train_lm(args, log=print):
             f"--arch {args.arch}: its loss reads batch"
             f"[{MISSING_INPUT[cfg.family]!r}], which SyntheticTokens does "
             f"not make (nor does the reference's train_lm)")
-    dev = resolve_device(args.device)
+    mesh, lead = None, True
+    if args.mesh_data > 1 or args.mesh_model > 1:
+        mesh = _start_mesh(args)
+        dev = mesh_lib.rank_device(mesh)
+        lead = mesh.get_rank() == 0
+    else:
+        dev = resolve_device(args.device)
     params = M.init_params(cfg, args.seed, dev)
     opt = opt_lib.adamw(lr=args.lr, total_steps=args.steps,
                         int8_state=args.int8_opt)
+    shardings = None
+    if mesh is not None:
+        p_shard = shd.params_shardings(params, mesh)
+        params = shd.distribute_tree(params, p_shard)
+    opt_state = opt.init(params)
+    if mesh is not None:
+        shardings = (p_shard, shd.state_shardings(opt_state, p_shard))
     step = make_lm_step(cfg, opt, grad_accum=args.grad_accum)
 
     def on_device(p, o, i, batch):
         return step(p, o, i, {k: torch.as_tensor(v, device=dev)
                               for k, v in batch.items()})
 
-    params, opt_state, metrics = run(
-        _loop_config(args), params=params, opt_state=opt.init(params),
-        train_step=on_device, pipeline=SyntheticTokens(
-            args.batch, args.seq, cfg.vocab_size, seed=args.seed), log=log)
-    log(f"final: {({k: float(v) for k, v in metrics.items()})}")
+    try:
+        with ctx.mesh_context(mesh):
+            params, opt_state, metrics = run(
+                _loop_config(args), params=params, opt_state=opt_state,
+                train_step=on_device, pipeline=SyntheticTokens(
+                    args.batch, args.seq, cfg.vocab_size, seed=args.seed),
+                shardings=shardings,
+                log=log if lead else (lambda *a, **k: None))
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if lead:
+        log(f"final: {({k: float(v) for k, v in metrics.items()})}")
     return params, opt_state, metrics
+
+
+def _start_mesh(args):
+    """The ``(mesh_data, mesh_model)`` mesh over a process group started
+    from the ``torchrun`` environment, whose world size must be its
+    size."""
+    need = args.mesh_data * args.mesh_model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != need:
+        raise SystemExit(
+            f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model} "
+            f"needs {need} ranks, one process each, and this is a world of "
+            f"{world}; run: torchrun --nproc-per-node {need} -m "
+            f"repro_torch.launch.train --arch {args.arch} ... --mesh-data "
+            f"{args.mesh_data} --mesh-model {args.mesh_model}")
+    mesh_lib.init_process_group(args.device)
+    return mesh_lib.make_local_mesh(args.mesh_data, args.mesh_model,
+                                    args.device)
+
 
 
 def main(argv=None):

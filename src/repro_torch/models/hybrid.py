@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as T
 from repro_torch.models import layers as L
+from repro_torch.parallel import ctx
 
 
 def _mamba_blk_init(cfg, d):
@@ -53,6 +54,7 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 
 
 def _mamba_block(p, h, cfg, state=None):
+    p = ctx.gather_tree(p)            # the layer's weights, at their use
     skip = h
     m, ns = L.mamba2_apply(p["mamba"], L.norm(h, p["ln"], cfg), cfg,
                            state=state,
@@ -61,6 +63,7 @@ def _mamba_block(p, h, cfg, state=None):
 
 
 def _shared_block(p, h, cfg, cache=None, pos=None):
+    p = ctx.gather_tree(p)            # gathered again at every call site
     skip = h
     a, kv = L.gqa_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
                         cache=cache, pos=pos,
@@ -88,6 +91,7 @@ def _run(params, cfg, h, *, states=None, kv=None, pos=None):
         return _mamba_block(p, h, cfg, state=st)
 
     def group(h, layer_params, first, gkv):
+        h = ctx.constrain(h, ctx.batch_axes(), None, None)
         sts = []
         for j, p in enumerate(layer_params):
             h, ns = mamba(h, p, first + j)
@@ -117,17 +121,18 @@ def _run(params, cfg, h, *, states=None, kv=None, pos=None):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens.to(torch.long)].to(cfg.compute_dtype)
+    return ctx.sharded_take(params["embed"], tokens).to(cfg.compute_dtype)
 
 
 def hidden_states(params, cfg, tokens, extra=None):
     h, _, _ = _run(params, cfg, _embed(params, cfg, tokens))
-    return L.norm(h, params["final_norm"], cfg)
+    return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
 def loss_fn(params, cfg, batch):
     h = hidden_states(params, cfg, batch["tokens"])
-    emb = params["unembed"].T.to(cfg.compute_dtype)
+    emb = ctx.constrain(ctx.gather(params["unembed"]).T.to(
+        cfg.compute_dtype), "model", None)
     s, cnt = L.chunked_xent(h, emb, batch["labels"], cfg.loss_chunk)
     loss = s / torch.clamp_min(cnt, 1)
     return loss, dict(loss=loss, tokens=cnt)
@@ -135,7 +140,7 @@ def loss_fn(params, cfg, batch):
 
 def prefill(params, cfg, tokens, extra=None):
     h = hidden_states(params, cfg, tokens, extra)
-    return torch.matmul(h[:, -1:], params["unembed"].to(h.dtype))
+    return torch.matmul(h[:, -1:], ctx.gather(params["unembed"]).to(h.dtype))
 
 
 def decode_step(params, cfg, tokens, pos, cache):
@@ -143,8 +148,8 @@ def decode_step(params, cfg, tokens, pos, cache):
         params, cfg, _embed(params, cfg, tokens),
         states=dict(ssm=cache["ssm_state"], conv=cache["conv_state"]),
         kv=dict(k=cache["k"], v=cache["v"]), pos=pos)
-    h = L.norm(h, params["final_norm"], cfg)
-    logits = torch.matmul(h, params["unembed"].to(h.dtype))
+    h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
+    logits = torch.matmul(h, ctx.gather(params["unembed"]).to(h.dtype))
     return logits, dict(ssm_state=new_states["ssm"],
                         conv_state=new_states["conv"],
                         k=new_kv["k"], v=new_kv["v"])

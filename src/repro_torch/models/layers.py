@@ -37,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import quant as Q
 from repro_torch.core import tree as T
+from repro_torch.parallel import ctx
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -91,7 +92,8 @@ def stack_init(fn, draw: Draw, n: int) -> dict:
 
 def _fq8(x):
     """Power-of-two-scale int8 fake quantization with dynamic range."""
-    amax = torch.clamp_min(x.detach().abs().max(), 1e-8)
+    # the whole batch's range under a mesh (each rank holds its rows)
+    amax = torch.clamp_min(ctx.batch_max(x.detach().abs().max()), 1e-8)
     e = torch.ceil(torch.log2(amax / 127.0))
     scale = torch.exp2(e).to(x.dtype)
     spec_like = x / scale
@@ -520,6 +522,20 @@ def moe_apply(p, x, cfg, acc_init=None):
     expert's spill past its own rows is overwritten by the next experts,
     and rows past capacity are zeroed after), as the reference's scan
     does."""
+    # routing and capacity are global: under a mesh every rank routes the
+    # rows of all ranks (with the weights' gradients then alike on every
+    # rank) and keeps its own rows' outputs
+    axes = ctx.split_axes()
+    x_all = ctx.all_rows(x)
+    with ctx.rows_split_over(()):
+        y = _moe_rows(ctx.gather_tree(p), x_all, cfg)
+    y = ctx.own_rows(y, axes)
+    if acc_init is not None:
+        y = y + acc_init
+    return y
+
+
+def _moe_rows(p, x, cfg):
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     T_ = B * S
@@ -560,10 +576,7 @@ def moe_apply(p, x, cfg, acc_init=None):
         y = torch.einsum("tk,tkd->td", topg.to(x.dtype), y_tk)
     if cfg.num_shared_experts:
         y = y + mlp_apply(p["shared"], x2d, cfg)
-    y = y.reshape(B, S, d)
-    if acc_init is not None:
-        y = y + acc_init
-    return y
+    return y.reshape(B, S, d)
 
 
 # ---------------------------------------------------------------------------
@@ -802,7 +815,8 @@ def chunked_xent(h, emb, labels, chunk=1024, logit_softcap=0.0):
         nll = torch.where(valid, lse - gold, 0.0)
         s = s + torch.sum(nll)
         cnt = cnt + torch.sum(valid).to(torch.int32)
-    return s, cnt
+    # under a mesh: summed over the ranks' rows
+    return ctx.batch_sum(s), ctx.batch_sum(cnt)
 
 
 def stack_len(stack) -> int:
@@ -819,8 +833,10 @@ def layers(stack) -> list:
     alike.  Under autograd the backward then writes each stacked leaf's
     gradient once (``UnbindBackward`` stacks the per-layer gradients),
     where reading layer ``i`` as ``t[i]`` would write a zero tensor the
-    size of the whole stack for every layer and add it in."""
-    parts = [torch.unbind(t) for t in T.leaves(stack)]
+    size of the whole stack for every layer and add it in.  A DTensor
+    leaf sharded on its layer dim is gathered along it first (DTensor
+    unbinds no sharded dim)."""
+    parts = [torch.unbind(ctx.whole_along(t, 0)) for t in T.leaves(stack)]
     return [T.unflatten(stack, [p[i] for p in parts])
             for i in range(stack_len(stack))]
 

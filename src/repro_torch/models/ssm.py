@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import ctx
 
 
 def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
@@ -26,6 +27,7 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 
 
 def _block(p, h, cfg, state=None):
+    p = ctx.gather_tree(p)            # the layer's weights, at their use
     skip = h
     m, new_state = L.mamba_apply(
         p["mamba"], L.norm(h, p["ln"], cfg), cfg, state=state,
@@ -35,24 +37,26 @@ def _block(p, h, cfg, state=None):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens.to(torch.long)].to(cfg.compute_dtype)
+    return ctx.sharded_take(params["embed"], tokens).to(cfg.compute_dtype)
 
 
 def hidden_states(params, cfg, tokens, extra=None):
     """Remat per layer under autograd, as the reference's scan body."""
     def body(h, p):
+        h = ctx.constrain(h, ctx.batch_axes(), None, None)
         return _block(p, h, cfg)[0]
 
     body = L.remat(body, cfg.remat, cfg.remat_policy)
     h = _embed(params, cfg, tokens)
     for p in L.layers(params["blocks"]):
         h = body(h, p)
-    return L.norm(h, params["final_norm"], cfg)
+    return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
 def loss_fn(params, cfg, batch):
     h = hidden_states(params, cfg, batch["tokens"])
-    emb = params["unembed"].T.to(cfg.compute_dtype)
+    emb = ctx.constrain(ctx.gather(params["unembed"]).T.to(
+        cfg.compute_dtype), "model", None)
     s, cnt = L.chunked_xent(h, emb, batch["labels"], cfg.loss_chunk)
     loss = s / torch.clamp_min(cnt, 1)
     return loss, dict(loss=loss, tokens=cnt)
@@ -60,7 +64,7 @@ def loss_fn(params, cfg, batch):
 
 def prefill(params, cfg, tokens, extra=None):
     h = hidden_states(params, cfg, tokens, extra)
-    return torch.matmul(h[:, -1:], params["unembed"].to(h.dtype))
+    return torch.matmul(h[:, -1:], ctx.gather(params["unembed"]).to(h.dtype))
 
 
 def decode_step(params, cfg, tokens, pos, cache):
@@ -71,7 +75,7 @@ def decode_step(params, cfg, tokens, pos, cache):
                                              conv=cache["conv_state"][i]))
         ssm.append(ns["ssm"])
         conv.append(ns["conv"])
-    h = L.norm(h, params["final_norm"], cfg)
-    logits = torch.matmul(h, params["unembed"].to(h.dtype))
+    h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
+    logits = torch.matmul(h, ctx.gather(params["unembed"]).to(h.dtype))
     return logits, dict(ssm_state=torch.stack(ssm),
                         conv_state=torch.stack(conv))

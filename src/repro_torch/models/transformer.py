@@ -5,6 +5,9 @@ The port of ``repro.models.transformer``.  Layers are stored stacked, a
 init lays them out, and run by a Python loop over the layers (the
 reference's ``lax.scan``), each checkpointed under autograd as the
 reference remats it.
+Under a mesh (``parallel.ctx``) the forward computes this rank's rows with
+each layer's weights all-gathered at their use, inside the layer's
+rematerialized body.
 The residual stream uses the paper's add-fold: the block output matmul
 receives the skip stream as its accumulator initializer (``acc_init``)
 instead of a separate Add node (``cfg.residual_fusion``).
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import ctx
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +97,9 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 def _apply_block(p, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
                  enc_out=None, xattn_cache=None):
     """One pre-norm block with add-fold residuals.  Returns (h, new_cache)."""
+    # the layer's weights gathered at their use (the MoE gathers its own,
+    # inside the region where every rank computes every row)
+    p = {k: v if k == "moe" else ctx.gather_tree(v) for k, v in p.items()}
     fuse = cfg.residual_fusion
     skip = h
     if cfg.attn_type == "mla":
@@ -138,6 +145,9 @@ def _scan_blocks(stack, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
     ``xattn_cache`` are stacked along the same axis; returns (h, stacked
     new caches or None)."""
     def body(h, p, kv, xkv):
+        # pin the residual stream: batch over (pod,data), d replicated
+        h = ctx.constrain(h, ctx.batch_axes(),
+                          "model" if cfg.seq_shard else None, None)
         return _apply_block(p, h, cfg, use_moe=use_moe, causal=causal,
                             cache=kv, pos=pos, enc_out=enc_out,
                             xattn_cache=xkv)
@@ -161,7 +171,7 @@ def _scan_blocks(stack, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
 
 
 def _embed(params, cfg, tokens):
-    h = params["embed"][tokens.to(torch.long)].to(cfg.compute_dtype)
+    h = ctx.sharded_take(params["embed"], tokens).to(cfg.compute_dtype)
     if cfg.emb_scale:
         # sqrt(d) rounded to the compute dtype first, as the reference
         # rounds it (a host scalar: no copy to the card)
@@ -172,10 +182,11 @@ def _embed(params, cfg, tokens):
 
 def _encode(params, cfg, frames):
     """Whisper encoder over stub frame embeddings (conv frontend is a stub)."""
-    h = frames.to(cfg.compute_dtype) + params["enc_pos"][None, :frames.shape[1]]
+    h = frames.to(cfg.compute_dtype) + \
+        ctx.gather(params["enc_pos"])[None, :frames.shape[1]]
     h, _ = _scan_blocks(params["enc_blocks"], h, cfg, use_moe=False,
                         causal=False)
-    return L.norm(h, params["enc_norm"], cfg)
+    return L.norm(h, ctx.gather_tree(params["enc_norm"]), cfg)
 
 
 def encoder_cache(params, cfg: ModelConfig, frames) -> dict:
@@ -184,7 +195,7 @@ def encoder_cache(params, cfg: ModelConfig, frames) -> dict:
     decoder reads at every step after a prefill (the reference's decode
     reads them from the cache and has no function that fills them)."""
     enc_out = _encode(params, cfg, frames)
-    kvs = [cross_kv(p["xattn"], enc_out, cfg)
+    kvs = [cross_kv(ctx.gather_tree(p["xattn"]), enc_out, cfg)
            for p in L.layers(params["blocks"])]
     return dict(xk=torch.stack([kv["k"] for kv in kvs]),
                 xv=torch.stack([kv["v"] for kv in kvs]))
@@ -197,10 +208,10 @@ def hidden_states(params, cfg: ModelConfig, tokens, extra=None):
     enc_out = None
     if cfg.family == "audio":
         enc_out = _encode(params, cfg, extra["frames"])
-        h = h + params["dec_pos"][None, :h.shape[1]].to(h.dtype)
+        h = h + ctx.gather(params["dec_pos"])[None, :h.shape[1]].to(h.dtype)
     if cfg.family == "vlm":
         patches = L.dense(extra["patches"].to(cfg.compute_dtype),
-                          params["patch_proj"], cfg=cfg)
+                          ctx.gather(params["patch_proj"]), cfg=cfg)
         # stub frontend: patch embeddings replace the first P token slots so
         # the cell's (B, S) shape is preserved exactly
         h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
@@ -211,11 +222,13 @@ def hidden_states(params, cfg: ModelConfig, tokens, extra=None):
     else:
         h, _ = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
                             enc_out=enc_out)
-    return L.norm(h, params["final_norm"], cfg)
+    return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
 def unembed_weight(params, cfg):
-    return params["embed"] if cfg.tie_embeddings else params["unembed"].T
+    """The (V, d) logits weight, whole on this rank."""
+    return ctx.gather(params["embed"]) if cfg.tie_embeddings \
+        else ctx.gather(params["unembed"]).T
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -224,6 +237,8 @@ def loss_fn(params, cfg: ModelConfig, batch):
     extra = {k: v for k, v in batch.items() if k in ("frames", "patches")}
     h = hidden_states(params, cfg, tokens, extra)
     emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    # vocab-sharded view for the logits matmul (param is stored d-sharded)
+    emb = ctx.constrain(emb, "model", None)
     s, cnt = L.chunked_xent(h, emb, labels, cfg.loss_chunk, cfg.logit_softcap)
     loss = s / torch.clamp_min(cnt, 1)
     if cfg.mtp_depth:
@@ -232,7 +247,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
         hm = h
         for p in L.layers(params["mtp"]):
             hm, _ = _apply_block(p, hm, cfg, use_moe=False)
-        hm = L.norm(hm, params["mtp_norm"], cfg)
+        hm = L.norm(hm, ctx.gather_tree(params["mtp_norm"]), cfg)
         lab2 = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
                          dim=1)
         s2, c2 = L.chunked_xent(hm, emb, lab2, cfg.loss_chunk,
@@ -245,6 +260,7 @@ def prefill(params, cfg: ModelConfig, tokens, extra=None):
     """Prefill forward: last-position logits (B, 1, V)."""
     h = hidden_states(params, cfg, tokens, extra)
     emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    emb = ctx.constrain(emb, "model", None)
     return torch.matmul(h[:, -1:], emb.T.to(h.dtype))
 
 
@@ -258,7 +274,8 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     Returns (logits (B,1,V), new_cache)."""
     h = _embed(params, cfg, tokens)
     if cfg.family == "audio":
-        h = h + params["dec_pos"][pos.to(torch.long)][:, None].to(h.dtype)
+        h = h + ctx.gather(params["dec_pos"])[pos.to(torch.long)][:, None].to(
+            h.dtype)
 
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
@@ -289,7 +306,8 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
             pos=pos, xattn_cache=xattn_cache)
         new_cache = dict(cache)
         new_cache.update(kvs)
-    h = L.norm(h, params["final_norm"], cfg)
+    h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
     emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
+    emb = ctx.constrain(emb, "model", None)
     logits = torch.matmul(h, emb.T.to(h.dtype))
     return logits, new_cache

@@ -1,0 +1,288 @@
+"""The ambient mesh, so that model code can express sharding without
+threading the mesh through every call: the port of ``repro.parallel.ctx``.
+
+The reference is single-controller: XLA partitions one program over the
+mesh, steered by ``constrain`` / ``sharded_take``.  The port is SPMD (one
+process a rank) and its models compute on the **local batch** with plain
+tensors; DTensor carries the parameters and every collective:
+
+* ``gather(w)`` is the FSDP x TP all-gather of one weight at its use (a
+  layer's weights inside its rematerialized body, so the backward gathers
+  them again): the DTensor redistributed to ``Replicate`` on every mesh
+  dim, then its local tensor, whose gradient is declared ``Partial`` over
+  the mesh dims that split the batch rows, so the backward reduce-scatters
+  it onto the weight's own placements.
+* ``local_rows(batch)`` / ``rows_split_over(axes)``: the rows this rank
+  computes and the mesh dims that split them (every batch axis when the
+  rows divide over them, else none: each rank then computes all rows).
+* ``batch_sum(x)``: a sum over the split rows (the loss's numerator and
+  token count), an all-reduce whose backward hands each rank its own
+  gradient; ``batch_max(x)`` the largest value over them (QAT's dynamic
+  exponent).
+* ``all_rows`` / ``own_rows``: the rows of every rank and back, around
+  what mixes rows (MoE routing with its global capacity).
+* ``constrain(x, *spec)`` redistributes a DTensor to the reference's spec
+  (the identity on a plain tensor, which is what the models carry between
+  layers: the local rows are the reference's ``(batch, None, None)``).
+* ``sharded_take(emb, tokens)``: the embedding gather on a table sharded
+  ``(None, 'model')``, local on each model shard, then one all-gather of
+  the gathered rows' columns.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as T
+
+_MESH = None
+# the mesh dims whose ranks hold different rows of the batch being computed
+_SPLIT: tuple = ()
+
+
+def set_mesh(mesh):
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh():
+    return _MESH
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def _names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names)
+
+
+def batch_axes():
+    if _MESH is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in _names(_MESH))
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+# ---------------------------------------------------------------------------
+# the rows of the batch
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def rows_split_over(axes):
+    """Within the block, the batch rows differ across the mesh dims
+    ``axes`` (and are the same on every other dim)."""
+    global _SPLIT
+    prev, _SPLIT = _SPLIT, tuple(axes)
+    try:
+        yield
+    finally:
+        _SPLIT = prev
+
+
+def split_axes() -> tuple:
+    return _SPLIT
+
+
+def _rows_index(mesh, axes) -> tuple:
+    """(this rank's index among the ranks of ``axes``, their count), the
+    axes taken major to minor in mesh order."""
+    coord = mesh.get_coordinate()
+    names = _names(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        i = names.index(a)
+        idx = idx * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    return idx, n
+
+
+def local_rows(batch: dict):
+    """``(rows, axes)``: this rank's contiguous share of the leading axis
+    of every tensor of ``batch`` (the same whole batch on every rank) and
+    the batch axes that split it; ``(batch, ())`` without a mesh or when
+    the rows do not divide over the batch axes."""
+    axes = batch_axes()
+    if not axes:
+        return batch, ()
+    idx, n = _rows_index(_MESH, axes)
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        return batch, ()
+    per = B // n
+    return {k: v[idx * per:(idx + 1) * per] for k, v in batch.items()}, axes
+
+
+def full_batch(batch: dict) -> dict:
+    """DTensors of a batch gathered whole (the same on every rank)."""
+    return {k: v.full_tensor() if _is_dtensor(v) else v
+            for k, v in batch.items()}
+
+
+def _grad_placements(mesh):
+    from torch.distributed.tensor import Partial, Replicate
+    return [Partial() if a in _SPLIT else Replicate() for a in _names(mesh)]
+
+
+def _rows_placements(mesh):
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if a in _SPLIT else Replicate() for a in _names(mesh)]
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that hold other rows (identity when no
+    mesh dim splits the rows)."""
+    if _MESH is None or not _SPLIT:
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, _MESH, _grad_placements(_MESH),
+                              run_check=False).full_tensor()
+
+
+def batch_max(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (no gradient) maxed over the ranks that hold other rows: a
+    statistic of the whole batch, e.g. QAT's dynamic exponent."""
+    if _MESH is None or not _SPLIT:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial("max") if a in _SPLIT else Replicate()
+          for a in _names(_MESH)]
+    return DTensor.from_local(x, _MESH, pl, run_check=False).full_tensor()
+
+
+def all_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rows of every rank, concatenated in rank order (the global
+    batch's order); its gradient goes back to the rows' own rank."""
+    if _MESH is None or not _SPLIT:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * _MESH.ndim
+    d = DTensor.from_local(x, _MESH, _rows_placements(_MESH),
+                           run_check=False)
+    return d.redistribute(_MESH, rep).to_local(grad_placements=rep)
+
+
+def own_rows(x: torch.Tensor, axes) -> torch.Tensor:
+    """The inverse of ``all_rows`` for rows split over ``axes``: this
+    rank's share of rows that every rank computed alike."""
+    if _MESH is None or not axes:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    with rows_split_over(axes):
+        rows = _rows_placements(_MESH)
+    d = DTensor.from_local(x, _MESH, [Replicate()] * _MESH.ndim,
+                           run_check=False)
+    return d.redistribute(_MESH, rows).to_local()
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+
+def gather(w):
+    """A weight as a whole local tensor: a DTensor all-gathered (its
+    gradient reduce-scattered back, summed over the ranks that split the
+    rows); a plain tensor as it is."""
+    if not _is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    if not all(p.is_replicate() for p in w.placements):
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return w.to_local(grad_placements=_grad_placements(mesh))
+
+
+def whole_along(w, dim: int):
+    """A DTensor with ``dim`` gathered on every mesh dim that splits it
+    (a stacked leaf FSDP-sharded on its layer dim, before ``unbind``); a
+    plain tensor as it is."""
+    if not _is_dtensor(w) or not any(p.is_shard(dim) for p in w.placements):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [Replicate() if p.is_shard(dim)
+                                          else p for p in w.placements])
+
+
+def gather_tree(tree):
+    """``gather`` at every leaf (a layer's weights at its use)."""
+    return T.tree_map(gather, tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's constraint sites
+# ---------------------------------------------------------------------------
+
+
+def sharded_take(emb, tokens):
+    """Embedding lookup with the table sharded P(None, 'model') (d-sharded).
+
+    Each model shard gathers its columns of the rows it needs; one
+    all-gather over 'model' then assembles the rows (the reference's
+    shard_map gather).  The table's gradient (the scatter-add) stays local
+    to each column shard, summed over the ranks that split the rows."""
+    idx = tokens.to(torch.long)
+    if _MESH is None or not _is_dtensor(emb):
+        return gather(emb)[idx]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = emb.device_mesh
+    names = _names(mesh)
+    if "model" not in names or \
+            emb.shape[1] % mesh.size(names.index("model")):
+        return gather(emb)[idx]
+    mi = names.index("model")
+    want = [Shard(1) if i == mi else Replicate() for i in range(mesh.ndim)]
+    if tuple(emb.placements) != tuple(want):
+        emb = emb.redistribute(mesh, want)
+    grad_pl = _grad_placements(mesh)
+    grad_pl[mi] = Shard(1)
+    cols = emb.to_local(grad_placements=grad_pl)[idx]
+    rows = _rows_placements(mesh)
+    pl = list(rows)
+    pl[mi] = Shard(cols.dim() - 1)
+    return DTensor.from_local(cols, mesh, pl, run_check=False).redistribute(
+        mesh, rows).to_local()
+
+
+def _fixed_spec(shape, spec, mesh):
+    """The reference's rule: each axis entry kept only where it is on the
+    mesh and the axes' product divides the dim."""
+    names = _names(mesh)
+    fixed = []
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            fixed.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        axes = tuple(a for a in axes if a in names)
+        n = int(np.prod([mesh.size(names.index(a)) for a in axes])) \
+            if axes else 1
+        fixed.append((axes if len(axes) > 1 else axes[0])
+                     if axes and dim % n == 0 else None)
+    return tuple(fixed) + (None,) * (len(shape) - len(fixed))
+
+
+def constrain(x, *spec):
+    """A DTensor redistributed to ``spec`` on the ambient mesh (axis
+    entries that don't divide the corresponding dim are dropped); the
+    identity on a plain tensor or without a mesh."""
+    if _MESH is None or not _is_dtensor(x):
+        return x
+    from repro_torch.parallel.sharding import P, spec_to_placements
+    pl = spec_to_placements(P(*_fixed_spec(x.shape, spec, _MESH)), _MESH)
+    if tuple(x.placements) == tuple(pl):
+        return x
+    return x.redistribute(_MESH, pl)

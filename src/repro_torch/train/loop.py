@@ -23,6 +23,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import tree as T
 from repro_torch.train import checkpoint as ckpt_lib
@@ -69,14 +70,25 @@ class Watchdog:
 def value_and_grad(loss_fn: Callable, params):
     """``((loss, aux), grads)`` of ``loss_fn(params) -> (loss, aux)``:
     ``grads`` has the structure of ``params``, with ``None`` where the loss
-    does not read a leaf (the optimizers count it as zero).  The tensors
-    of ``aux`` come back detached, so that no metric holds the graph."""
+    does not read a leaf (the optimizers count it as zero), each DTensor
+    gradient on its leaf's placements.  The tensors of ``aux`` come back
+    detached, so that no metric holds the graph."""
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     loss, aux = loss_fn(T.unflatten(params, leaves))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [_on_placements(g, p) for g, p in zip(
+        torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
     aux = T.tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
                      else x, aux)
     return (loss.detach(), aux), T.unflatten(params, list(grads))
+
+
+def _on_placements(g, p):
+    """A DTensor gradient on its parameter's placements (a gradient that
+    arrives partial, e.g. the embedding's scatter-add summed over the
+    ranks' rows, is reduced here)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(loss_fn: Callable, opt, device) -> Callable:
@@ -103,14 +115,16 @@ def _wait(metrics: dict) -> None:
 
 
 def run(loop_cfg: LoopConfig, *, params, opt_state, train_step: Callable,
-        pipeline, log: Callable = print):
+        pipeline, shardings=None, log: Callable = print):
     """Generic loop over ``train_step(params, opt_state, step, batch)``.
-    A restore places each of the checkpoint's leaves on the device of the
-    leaf it replaces."""
+    A restore places each of the checkpoint's leaves on ``shardings`` (the
+    ``(params, opt_state)`` shardings, any mesh) when given, else on the
+    device (or the mesh and placements) of the leaf it replaces.  Under a
+    process group every rank runs the loop and rank 0 alone writes."""
     start_step = 0
     if loop_cfg.ckpt_dir and ckpt_lib.latest_steps(loop_cfg.ckpt_dir):
         (params, opt_state), start_step, extra = ckpt_lib.restore(
-            loop_cfg.ckpt_dir, (params, opt_state))
+            loop_cfg.ckpt_dir, (params, opt_state), shardings=shardings)
         if "pipeline" in extra:
             pipeline.state = type(pipeline.state).from_dict(extra["pipeline"])
         log(f"[resume] restored step {start_step}")

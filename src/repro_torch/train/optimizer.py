@@ -14,6 +14,13 @@ written into the given params' and state's storage (what the reference
 gets from ``donate_argnums``): the LM trainer's form, since a functional
 step holds two copies of params and moments at once.
 
+``adamw``'s ``init`` and ``update_`` take DTensor parameters (FSDP x TP,
+``parallel.sharding``): each moment inherits its parameter's placements
+(ZeRO-3), and the update, elementwise, runs on the local shards.  Int8
+moments are quantized on the local shard, which gives the reference's
+blocks when the local extent of the last (blocked) dim is a multiple of
+the block; ``init`` refuses any other placement, naming the leaf.
+
 Every leaf is updated, as the reference maps over every leaf: a gradient
 of ``None`` (a leaf the loss does not read, e.g. ``bn.mean`` / ``bn.var``
 in training mode) counts as zero, so weight decay still shrinks it.  The
@@ -33,6 +40,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import quant as Q
 from repro_torch.core import tree as T
@@ -113,6 +121,35 @@ def _rows(t):
     return t.view(-1, t.shape[-1]) if t.dim() > 1 else t.view(1, -1)
 
 
+def _local(x):
+    """A DTensor's local shard (sharing its storage), else ``x``."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _local_state(x):
+    if isinstance(x, Q.BlockQuantized):
+        return Q.BlockQuantized(q=_local(x.q), exp=_local(x.exp))
+    return _local(x)
+
+
+def _local_grad(g, p):
+    """The gradient's shard on its parameter's placements."""
+    if isinstance(g, DTensor):
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g.to_local()
+    return g
+
+
+def _like(p, t):
+    """A tensor made on ``p``'s local shard, as a DTensor on ``p``'s
+    placements when ``p`` is one."""
+    if not isinstance(p, DTensor):
+        return t
+    return DTensor.from_local(t, p.device_mesh, p.placements,
+                              run_check=False)
+
+
 def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
           total_steps=10_000, warmup=200, int8_state=False,
           state_block=128):
@@ -129,20 +166,24 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         return x
 
     def init(params):
+        if int8_state:
+            _check_int8_shards(params, state_block)
+
         def zeros(p):
+            loc = _local(p)
             if not int8_state or p.numel() < state_block:
-                return torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+                return _like(p, torch.zeros(loc.shape, dtype=torch.float32,
+                                            device=loc.device))
             # every row of zeros quantizes alike: one row, repeated (the
             # whole leaf in float32 would not fit beside a 7B model)
             row = Q.block_quantize(torch.zeros(
-                (1, p.shape[-1]), dtype=torch.float32, device=p.device),
+                (1, loc.shape[-1]), dtype=torch.float32, device=loc.device),
                 block=state_block)
-            n = _rows(p).shape[0]
+            n = _rows(loc).shape[0]
             return Q.BlockQuantized(
-                q=row.q.repeat(n, 1).reshape(p.shape),
-                exp=row.exp.repeat(n, 1).reshape(
-                    tuple(p.shape[:-1]) + (row.exp.shape[-1],)))
+                q=_like(p, row.q.repeat(n, 1).reshape(loc.shape)),
+                exp=_like(p, row.exp.repeat(n, 1).reshape(
+                    tuple(loc.shape[:-1]) + (row.exp.shape[-1],))))
         return dict(m=T.tree_map(zeros, params),
                     v=T.tree_map(zeros, params))
 
@@ -201,6 +242,8 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             return (lambda r: x2[r]), (lambda r, val: x2[r].copy_(val))
 
         def upd(p, g, m, v):
+            p, g = _local(p), None if g is None else _local_grad(g, p)
+            m, v = _local_state(m), _local_state(v)
             p2 = _rows(p)
             g2 = None if g is None else _rows(g.contiguous())
             (read_m, write_m), (read_v, write_v) = moment(m), moment(v)
@@ -219,6 +262,22 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         return params, state
 
     return Optimizer(init, update, update_)
+
+
+def _check_int8_shards(params, block):
+    """Int8 moments of a DTensor leaf whose last dim is sharded need a
+    local extent that is a multiple of ``block``."""
+    for path, p in T.flatten_with_path(params):
+        if not isinstance(p, DTensor) or p.numel() < block:
+            continue
+        last = p.dim() - 1
+        loc = p.to_local().shape[-1]
+        if any(pl.is_shard(last) for pl in p.placements) and loc % block:
+            raise ValueError(
+                f"{path}: int8 moments need the local extent of the last "
+                f"dim ({loc} of {p.shape[-1]}, placements "
+                f"{tuple(p.placements)}) to be a multiple of the block "
+                f"{block}")
 
 
 def make(name: str, **hp) -> Optimizer:

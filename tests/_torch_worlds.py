@@ -1,0 +1,370 @@
+"""The bodies of the port's spawned gloo worlds (``_torch_dist``): each
+runs on every rank and returns rank 0's ``checks`` dict.  No ``jax`` and
+no ``repro`` here: the tests hold the returned values against the JAX
+package in their own process."""
+import numpy as np
+import torch
+
+from _torch_dist import checks
+
+
+def _pl(p):
+    """A placement as plain data: ``("Shard", dim)``, ``("Replicate",)``,
+    ``("Partial",)``."""
+    return ("Shard", p.dim) if p.is_shard() else (type(p).__name__,)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel.py
+# ---------------------------------------------------------------------------
+
+
+def parallel_world(rank, world, inp):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.compile import compile_model
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import resnet as R
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import ctx, pp
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.loop import value_and_grad
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    m22 = mesh_lib.make_local_mesh(2, 2, "cpu")
+    model4 = init_device_mesh("cpu", (4,), mesh_dim_names=("model",))
+    stage4 = init_device_mesh("cpu", (4,), mesh_dim_names=("stage",))
+    dp4 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+
+    def gather_all(x):
+        out = [None] * world
+        dist.all_gather_object(out, x)
+        return out
+
+    def stacked():
+        full = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+        sh = shd.NamedSharding(m22, shd.P(("data", "model"), None))
+        d = shd.distribute(full, sh)
+        # data-major: rank (d, m) holds row block 2 d + m
+        blocks = gather_all(d.to_local().numpy())
+        return dict(placements=tuple(_pl(p) for p in d.placements),
+                    whole=bool(torch.equal(d.full_tensor(), full)),
+                    blocks=[b.tolist() for b in blocks])
+
+    def refuses():
+        try:
+            mesh_lib.make_local_mesh(2, 1, "cpu")
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def constrain():
+        x = DTensor.from_local(torch.arange(48.).reshape(8, 6), m22,
+                               [Replicate(), Replicate()])
+        y = torch.arange(18.).reshape(3, 6)
+        with ctx.mesh_context(m22):
+            a = ctx.constrain(x, "data", "model")
+            b = ctx.constrain(DTensor.from_local(y, m22, [Replicate()] * 2),
+                              "data", None)
+            c = ctx.constrain(y, "data", None)
+        no_mesh = ctx.constrain(x, "data", "model")
+        return dict(a=tuple(_pl(p) for p in a.placements),
+                    a_whole=bool(torch.equal(a.full_tensor(), x.full_tensor())),
+                    b=tuple(_pl(p) for p in b.placements),
+                    plain_is_identity=c is y, no_mesh_is_identity=no_mesh is x)
+
+    def sharded_take():
+        emb = torch.from_numpy(inp["emb"])
+        tok = torch.from_numpy(inp["tok"])
+        table = shd.distribute(emb, shd.NamedSharding(m22, shd.P(None, "model")))
+        seen = {}
+
+        def loss(p):
+            h = ctx.sharded_take(p["t"], rows["tokens"])
+            seen["h"] = h.detach()
+            return ctx.batch_sum((h * torch.arange(1., 9.)).sum()), {}
+
+        with ctx.mesh_context(m22):
+            rows, axes = ctx.local_rows(dict(tokens=tok))
+            with ctx.rows_split_over(axes):
+                (s, _), g = value_and_grad(loss, dict(t=table))
+        got = torch.cat(gather_all(seen["h"]))
+        return dict(axes=axes, rows=got.numpy(),
+                    loss=float(s), grad=g["t"].full_tensor().numpy(),
+                    grad_placements=tuple(_pl(p) for p in g["t"].placements))
+
+    def cmatmul():
+        x = shd.distribute(torch.from_numpy(inp["cm_x"]),
+                           shd.NamedSharding(model4, shd.P("model", None)))
+        w = shd.distribute(torch.from_numpy(inp["cm_w"]),
+                           shd.NamedSharding(model4, shd.P(None, "model")))
+        y = C.collective_matmul(x, w, model4, "model")
+        return dict(y=y.full_tensor().numpy(),
+                    placements=tuple(_pl(p) for p in y.placements))
+
+    def pipeline():
+        ws = [0.5, 1.5, -2.0, 3.0]
+        f = pp.pipeline_step(lambda i, x: x * ws[i] + 1.0, stage4, "stage",
+                             n_micro=6)
+        return f(torch.arange(18, dtype=torch.float32).reshape(6, 3)).numpy()
+
+    def compressed(key):
+        def run():
+            g = torch.from_numpy(inp[key + "_g"][rank])
+            e = torch.from_numpy(inp[key + "_e"][rank])
+            out, new_e = C.compressed_psum_grads(
+                dict(w=g), dict(w=e), "data", block=inp[key + "_block"],
+                mesh=dp4)
+            return dict(out=gather_all(out["w"].numpy()),
+                        err=gather_all(new_e["w"].numpy()),
+                        zero=C.init_error_state(dict(w=g))["w"].abs().sum()
+                        .item())
+        return run
+
+    qp = inp["qp8"]
+    imgs = torch.from_numpy(inp["imgs"])
+
+    def sharded_serve():
+        cm = compile_model(R.RESNET8, qp, backend="torch-int",
+                           batch_sizes=(8,), device="cpu")
+        ref = cm(imgs).numpy()
+        out = cm.run_sharded(imgs, dp4)
+        out5 = cm.run_sharded(imgs[:5], dp4)
+        first = dict(execs=len(cm._shard_execs),
+                     lowered=len(cm._shard_lowered),
+                     compile_count=cm.compile_count)
+        # the same ranks, another mesh shape: a new executable on the same
+        # lowering; the 2x2 mesh splits the batch over 'data' (2 ways)
+        out22 = cm.run_sharded(imgs, m22, "data")
+        return dict(ref=ref, full=out.full_tensor().numpy(),
+                    placements=tuple(_pl(p) for p in out.placements),
+                    local_rows=out.to_local().shape[0],
+                    five=out5.full_tensor().numpy(),
+                    five_shape=tuple(out5.shape), first=first,
+                    m22=out22.full_tensor().numpy(),
+                    after=dict(execs=len(cm._shard_execs),
+                               lowered=len(cm._shard_lowered),
+                               compile_count=cm.compile_count),
+                    keys=sorted((k[0], k[1], k[2])
+                                for k in cm._shard_execs))
+
+    def serve_errors():
+        msgs = []
+        cm = compile_model(R.RESNET8, qp, backend="torch-int",
+                           batch_sizes=(6, 8), device="cpu")
+        for call in (lambda: cm.shard_executable(dp4, 3),
+                     lambda: cm.shard_executable(dp4, 6)):
+            try:
+                call()
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        cm6 = compile_model(R.RESNET8, qp, backend="torch-int",
+                            batch_sizes=(6,), device="cpu")
+        try:
+            cm6.run_sharded(imgs, dp4)
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+        return msgs
+
+    return checks([
+        ("stacked_placements", stacked), ("local_mesh_refuses", refuses),
+        ("constrain", constrain), ("sharded_take", sharded_take),
+        ("collective_matmul", cmatmul), ("pipeline_step", pipeline),
+        ("compressed_even", compressed("even")),
+        ("compressed_ragged", compressed("ragged")),
+        ("run_sharded", sharded_serve), ("run_sharded_errors", serve_errors),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_train.py
+# ---------------------------------------------------------------------------
+
+
+def _lm_batch(cfg, seed, batch, seq):
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    out = dict(tokens=tok, labels=np.concatenate(
+        [tok[:, 1:], -np.ones((batch, 1), np.int32)], axis=1))
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _clone(tree):
+    from repro_torch.core import tree as T
+    return T.tree_map(lambda t: t.clone(), tree)
+
+
+def train_world(rank, world, inp):
+    """Gradients of the ten smoke configs and two train steps of three,
+    sharded on a (2, 2) mesh against the port's unsharded ones computed on
+    each rank; a checkpoint written on (2, 2) and restored onto (4, 1)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.core import quant as Q
+    from repro_torch.core import tree as T
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import value_and_grad
+
+    m22 = mesh_lib.make_local_mesh(2, 2, "cpu")
+    # FSDP from 2**10 elements: at smoke size the default 2**18 shards no
+    # leaf over 'data'
+    kw = dict(min_size_fsdp=2 ** 10)
+
+    def worst_rel(want, got):
+        """Largest error of a leaf over that leaf's largest magnitude."""
+        worst = 0.0
+        for (k, a), b in zip(T.flatten_with_path(want), T.leaves(got)):
+            if a is None:
+                assert b is None, k
+                continue
+            b = b.full_tensor() if hasattr(b, "full_tensor") else b
+            a, b = a.to(torch.float32), b.to(torch.float32)
+            scale = float(a.abs().max())
+            if scale:
+                worst = max(worst, float((a - b).abs().max()) / scale)
+        return worst
+
+    def grads(arch, **over):
+        def run():
+            cfg = cb.get_smoke_config(arch).with_(**over)
+            p = M.init_params(cfg, 0, "cpu")
+            batch = _lm_batch(cfg, 1, 4, 16)
+            (l0, _), g0 = value_and_grad(
+                lambda q: M.loss_fn(q, cfg, batch), p)
+            sh = shd.params_shardings(p, m22, **kw)
+            pd = shd.distribute_tree(p, sh)
+            with ctx.mesh_context(m22):
+                rows, axes = ctx.local_rows(batch)
+                with ctx.rows_split_over(axes):
+                    (l1, _), g1 = value_and_grad(
+                        lambda q: M.loss_fn(q, cfg, rows), pd)
+            n_sharded = sum(any(pl.is_shard() for pl in x.placements)
+                            for x in T.leaves(pd))
+            n_layer = sum(any(pl.is_shard(0) for pl in x.placements)
+                          for x in T.leaves(pd) if x.dim() == 2
+                          and x.shape[0] == cfg.num_layers)
+            same_pl = all(tuple(a.placements) == tuple(b.placements)
+                          for a, b in zip(T.leaves(pd), T.leaves(g1))
+                          if b is not None)
+            return dict(loss=(float(l0), float(l1)), rel=worst_rel(g0, g1),
+                        axes=axes, n_sharded=n_sharded, same_pl=same_pl,
+                        n_layer_sharded=n_layer)
+        return run
+
+    saved = {}
+
+    def steps(arch, int8):
+        def run():
+            cfg = cb.get_smoke_config(arch)
+            p = inp["params"][arch]
+            hp = dict(inp["hp"], int8_state=int8)
+            opt = opt_lib.adamw(**hp)
+            step = S.make_train_step(cfg, opt, grad_accum=2)
+            pu = _clone(p)
+            su = opt.init(pu)
+            sh = shd.params_shardings(p, m22, **kw)
+            ps = shd.distribute_tree(p, sh)
+            ss = opt.init(ps)
+            losses, ulosses = [], []
+            for i in range(2):
+                batch = _lm_batch(cfg, 10 + i, 8, 16)
+                pu, su, mu = step(pu, su, i, batch)
+                with ctx.mesh_context(m22):
+                    ps, ss, ms = step(ps, ss, i, batch)
+                ulosses.append(float(mu["loss"]))
+                losses.append(float(ms["loss"]))
+
+            def host(x):
+                x = x.full_tensor() if hasattr(x, "full_tensor") else x
+                return x.numpy()
+
+            def moments(state):
+                """Each moment leaf as ("f", array) or ("q", q, exp)."""
+                out = []
+                for k in ("m", "v"):
+                    for path, _ in T.flatten_with_path(pu):
+                        x = state[k]
+                        for key in path.split("/"):
+                            x = x[key]
+                        out.append(("q", host(x.q), host(x.exp))
+                                   if isinstance(x, Q.BlockQuantized)
+                                   else ("f", host(x)))
+                return out
+
+            out = dict(losses=losses, ulosses=ulosses,
+                       uparams=[host(t) for t in T.leaves(pu)],
+                       params=[host(t) for t in T.leaves(ps)],
+                       umoments=moments(su), moments=moments(ss))
+            if arch == "gemma-2b" and int8:
+                saved.update(ps=ps, ss=ss, sh=sh, opt=opt, cfg=cfg)
+            return out
+        return run
+
+    def checkpoint():
+        d = inp["ckpt_dir"]
+        ps, ss = saved["ps"], saved["ss"]
+        ck.save(d, 7, (ps, ss), extra=dict(mesh="2x2"))
+        ck.save_async(d, 8, (ps, ss))
+        ck.wait_pending()
+        torch.distributed.barrier()     # rank 0's thread has written
+        written = sorted(ck.latest_steps(d))
+        m41 = mesh_lib.make_local_mesh(4, 1, "cpu")
+        fresh = M.init_params(saved["cfg"], 3, "cpu")
+        p41 = shd.params_shardings(fresh, m41, **kw)
+        fresh = shd.distribute_tree(fresh, p41)
+        st = saved["opt"].init(fresh)
+        (rp, rs), step, extra = ck.restore(
+            d, (fresh, st), step=7,
+            shardings=(p41, shd.state_shardings(st, p41)))
+        same = all(torch.equal(a.full_tensor(), b.full_tensor())
+                   for a, b in zip(T.leaves((rp, rs)), T.leaves((ps, ss))))
+        placed = all(tuple(a.placements) == tuple(s.placements)
+                     for a, s in zip(T.leaves(rp), T.leaves(p41)))
+        n41 = sum(any(pl.is_shard() for pl in a.placements)
+                  for a in T.leaves(rp))
+        # restored onto the target's own placements when no shardings
+        (rp2, _), _, _ = ck.restore(d, (ps, ss), step=8)
+        same2 = all(torch.equal(a.full_tensor(), b.full_tensor()) and
+                    tuple(a.placements) == tuple(b.placements)
+                    for a, b in zip(T.leaves(rp2), T.leaves(ps)))
+        return dict(written=written, step=step, extra=extra, same=same,
+                    placed=placed, n41=n41, same2=same2,
+                    full=T.tree_map(lambda t: t.full_tensor().numpy(),
+                                    (ps, ss)))
+
+    def refuses_int8():
+        cfg = cb.get_smoke_config("zamba2-7b")
+        p = shd.distribute_tree(M.init_params(cfg, 0, "cpu"),
+                                shd.params_shardings(
+                                    M.init_params(cfg, 0, "meta"), m22, **kw))
+        try:
+            opt_lib.adamw(int8_state=True, state_block=32).init(p)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    pairs = [(f"grads/{a}", grads(a)) for a in cb.ARCH_IDS]
+    # QAT's dynamic exponent is a statistic of the whole batch
+    pairs += [("grads/qat", grads("llama3.2-3b", quant="qat"))]
+    # (L, d_inner) leaves of 2 x 8,192 take FSDP on their layer dim
+    pairs += [("grads/layer-sharded",
+               grads("falcon-mamba-7b", d_inner=8192))]
+    pairs += [(f"steps/{a}/{'int8' if q else 'float'}", steps(a, q))
+              for a in inp["params"] for q in (False, True)]
+    pairs += [("checkpoint", checkpoint), ("refuses_int8", refuses_int8)]
+    return checks(pairs)

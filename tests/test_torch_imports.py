@@ -29,7 +29,8 @@ sys.exit(1 if bad else 0)
 # the submodules of each slice, so that a new one cannot be missed by the
 # walk (the serving-at-scale and tuning slice, the training and
 # quantization slice, the traffic and health slice, the compile-smoke CLI,
-# the float LMs with their server and LM training, among them)
+# the float LMs with their server, LM training and the parallel layer with
+# the dry-run, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
@@ -58,7 +59,10 @@ EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.configs.mixtral_8x22b",
             "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.configs.zamba2_7b",
-            "repro_torch.launch.analytic", "repro_torch.launch.mesh"}
+            "repro_torch.launch.analytic", "repro_torch.launch.mesh",
+            "repro_torch.parallel.sharding", "repro_torch.parallel.ctx",
+            "repro_torch.parallel.collectives", "repro_torch.parallel.pp",
+            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -600,8 +600,10 @@ def test_train_lm_refuses_what_synthetic_tokens_cannot_feed(arch, missing):
 
 
 def test_train_lm_refuses_a_mesh_and_needs_a_gpu(monkeypatch):
+    """A mesh needs a world of its size (one process a rank, under
+    ``torchrun``): a single process refuses it, naming the command."""
     for flag in ("--mesh-data", "--mesh-model"):
-        with pytest.raises(SystemExit, match="A10"):
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
             launch_train.main(["--arch", "gemma-2b", "--smoke", flag, "2",
                                "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -339,7 +339,8 @@ def test_launch_train_cpu_three_steps(tmp_path, capsys):
     assert np.isfinite(float(metrics["loss"]))
     assert ck.latest_steps(str(tmp_path)) == [1, 2]
     assert "final:" in capsys.readouterr().out
-    # the LMs train since ROADMAP A9.2; a mesh waits for A10
-    with pytest.raises(SystemExit, match="A10"):
+    # the LMs train since ROADMAP A9.2, on a mesh under torchrun since
+    # A10: one process refuses a mesh of two ranks, naming the command
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         launch_train.main(["--arch", "gemma-2b", "--device", "cpu",
                            "--mesh-data", "2"])

@@ -287,9 +287,8 @@ Phases, one JSON line each:
                 ``cuda-stream`` at buckets 8 and 32 and a padded batch of
                 5, the logits a DTensor bitwise ``__call__``'s, the
                 kernels the profiler saw in each bucket run (conv_stem + 9
-                resblock_fused, or 1 block_chain; a session that misses
-                records is taken again, at most 3, each reported) equal
-                to the plan and to the counters, images/s beside the
+                resblock_fused, or 1 block_chain) equal to the plan and
+                to the counters, images/s beside the
                 unsharded graph's (in turns); (c) one train step of gemma-2b at published width,
                 bf16, 2 x 1,024, params and moments DTensors from
                 ``params_shardings``, against ``make_train_step``'s
@@ -307,15 +306,28 @@ Phases, one JSON line each:
                 counted in the train cell, finite bytes, ``fits_hbm`` and
                 the host seconds (the dry-runs start as subprocesses before
                 the lm_float phase, overlap it and end before this phase
-                times anything); (f)
+                times anything); per cell the flops a device over the
+                model's flops a device, the collective bytes by kind and
+                the layer kinds that split over 'model' (tensor
+                parallelism) or repeat; gemma-2b train_4k must read under
+                4x (flops a device over the model's, the inverse of
+                ``useful_flops_ratio``) and fit 80 GB; (f)
                 ``compressed_psum_grads``, ``collective_matmul`` and
                 ``pipeline_step`` on the group against their plain forms;
                 (g) with two or more cards, the 2-rank cases over NCCL, one
                 rank a card; with one, ``"ranks": 1`` and the tests that
                 hold them on the CPU named.
-  11. the ``{"kernels": [...], "serve": {...}, "train": {...},
+  11. examples — the twins of the JAX package's examples on the card
+                (``repro_torch.examples``), in this process through their
+                ``main``: ``quickstart`` (its printed lines; the ``cuda``
+                executable bit-exact with ``torch-int``),
+                ``train_resnet_cifar`` (60 float and 20 QAT steps, the
+                export gate bit-exact, top-1 of 512 images) and
+                ``serve_lm`` (llama3.2-3b's smoke config, float and int8
+                KV cache).  ``multipod_dryrun``'s cell is phase 10's.
+  12. the ``{"kernels": [...], "serve": {...}, "train": {...},
      "traffic": {...}, "lm_tune": {...}, "lm_float": {...},
-     "lm_train": {...}, "parallel": {...}}`` line (rows
+     "lm_train": {...}, "parallel": {...}, "examples": {...}}`` line (rows
      1-3 carry their
      tuned knob and time beside the rule's and their launches in the
      train phase's evaluation and in the traffic phase; rows 4-6 their
@@ -327,6 +339,12 @@ Phases, one JSON line each:
 
 Every phase's line carries ``card``: the card's name and power limit as
 nvidia-smi reports them.
+
+Every check of the kernels a profiler session saw goes through one rule
+(``traced_check``): a session short of the plan (CUPTI drops a record now
+and then) is taken again, at most ``PAR_TRACES`` sessions, a session over
+it fails at once, the final one must equal the plan and the counters, and
+the phase's line reports every session (``traced_sessions``).
 
 Any failure raises, and the script exits non-zero without the last line.
 """
@@ -1174,6 +1192,8 @@ def replay_ms(exe, reps):
     return float(np.median(times))
 
 
+PAR_TRACES = 3      # profiler sessions at most a traced check
+
 # the port's kernel entry points by the name the profiler gives their
 # launches: (the wrapper that counts them, the path it counts them on)
 KERNEL_ENTRIES = {
@@ -1216,15 +1236,6 @@ def traced_launches(fn):
     return out, ran, by_path
 
 
-def check_traced(ran, launches, per_run, runs, what):
-    """The kernels the card ran in a served run (``traced_launches``): the
-    plan once for every bucket run and no other kernel of the port, and
-    the wrappers' counters agree."""
-    check_traced_want(ran, launches,
-                      {k: runs * v for k, v in per_run.items()},
-                      f"{what} ({runs} bucket runs of {per_run})")
-
-
 def check_traced_want(ran, launches, want, what):
     """The kernels the card ran (``traced_launches``) are ``want`` and no
     other kernel of the port, and the wrappers' counters agree."""
@@ -1234,6 +1245,57 @@ def check_traced_want(ran, launches, want, what):
           f"{what}: the profiler saw {ran} kernel launches, want {full}")
     check(all(ran[k] == n for k, n in launches.items()),
           f"{what}: the counters say {launches}, the profiler {ran}")
+
+
+def traced_check(run, zero, counters, want_of, what, retake=None):
+    """Every traced check of the script: ``run()`` in a profiler session
+    (``traced_launches``) with the wrappers' counters zeroed just before
+    (``zero()``) and read just after (``counters()``), the kernels the
+    card ran held against the plan ``want_of(result, launches)`` and the
+    counters (``check_traced_want``).
+
+    CUPTI can drop a kernel record from a session, so a session whose
+    counts fall short of the plan (no kernel over it, none outside it) is
+    taken again, ``PAR_TRACES`` sessions at most in all.  A session that
+    sees more launches than the plan, or a kernel of the port the plan
+    lacks, fails at once: an extra launch is a fault, not a dropped
+    record.  The final session must equal the plan and the counters
+    exactly.
+
+    A retake runs ``retake()`` (``run`` where the run is stateless).  A
+    run that consumes state (an engine serving its requests, a replayed
+    arrival trace, a decode) gets a ``retake`` that builds the same work
+    anew from the same seed, reusing the compiled model and making only
+    the requests anew.  The first session's result and counters are the
+    ones the caller checks bitwise; a retake only recounts launches.
+    Returns ``(result, launches, ran_by_path, sessions)``: the first
+    session's result, counters and the profiler's counts by path, and the
+    profiler's counts of every session (the phase's line reports them)."""
+    zero()
+    first, ran, by_path = traced_launches(run)
+    launches = last = counters()
+    want = want_of(first, launches)
+    sessions = [ran]
+    while True:
+        full = {k: 0 for k in ran}
+        full.update(want)
+        if ran == full:
+            break
+        over = {k: (n, full[k]) for k, n in ran.items() if n > full[k]}
+        check(not over, f"{what}: session {len(sessions)} saw more "
+                        f"launches than the plan (seen, planned) {over}; "
+                        f"sessions {sessions}")
+        check(len(sessions) < PAR_TRACES,
+              f"{what}: {len(sessions)} sessions fell short of the plan "
+              f"{full}: {sessions}")
+        zero()
+        out, ran, _ = traced_launches(retake or run)
+        last = counters()
+        want = want_of(out, last)
+        sessions.append(ran)
+    check_traced_want(ran, last, want,
+                      f"{what} (session {len(sessions)} of {PAR_TRACES})")
+    return first, launches, by_path, sessions
 
 
 def build_served_buckets(eng, requests):
@@ -1301,28 +1363,48 @@ def serve_phase(cfg, seed, dev, backend):
         np.float32)
     eng = ResNetEngine(cfg, qp, batch=BUCKET, backend=backend,
                        batch_sizes=(1, 8, BUCKET), ab_backends=("torch-int",))
-    reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
-    for r in reqs:
-        eng.submit(r)
+
+    def submitted():
+        reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+        for r in reqs:
+            eng.submit(r)
+        return reqs
+
+    reqs = submitted()
     built = build_served_buckets(eng, REQUESTS)
 
-    conv_stem_op.launches = resblock_fused_op.launches = 0
-    block_chain_op.launches = conv2d_int8_op.launches = 0
-    for op in (conv_stem_op, conv2d_int8_op):
-        op.launches_by_path = dict.fromkeys(op.launches_by_path, 0)
-    t0 = time.perf_counter()
-    ticks, ran, ran_by_path = traced_launches(eng.run)
-    wall = time.perf_counter() - t0
-    launches = dict(conv_stem=conv_stem_op.launches,
-                    resblock_fused=resblock_fused_op.launches,
-                    block_chain=block_chain_op.launches,
-                    conv2d_int8=conv2d_int8_op.launches)
-    by_path = dict(conv_stem=dict(conv_stem_op.launches_by_path),
-                   conv2d_int8=dict(conv2d_int8_op.launches_by_path))
+    def zero():
+        zero_resnet_launches()
+        for op in (conv_stem_op, conv2d_int8_op):
+            op.launches_by_path = dict.fromkeys(op.launches_by_path, 0)
 
-    runs = sum(eng.model.run_counts.values())
+    def served():
+        """One run of the engine over its queue: (ticks, its bucket runs,
+        images served, wall s, launches by path)."""
+        runs0, served0 = dict(eng.model.run_counts), eng.served
+        t0 = time.perf_counter()
+        ticks = eng.run()
+        wall = time.perf_counter() - t0
+        return (ticks, {b: k - runs0.get(b, 0)
+                        for b, k in eng.model.run_counts.items()},
+                eng.served - served0, wall,
+                dict(conv_stem=dict(conv_stem_op.launches_by_path),
+                     conv2d_int8=dict(conv2d_int8_op.launches_by_path)))
+
+    def retake():
+        submitted()
+        return served()
+
     per_run, chains = launch_plan(cfg, backend)
-    check(eng.served == REQUESTS and all(r.done for r in reqs),
+    (ticks, bucket_runs, n_served, wall, by_path), launches, ran_by_path, \
+        sessions = traced_check(
+            served, zero, resnet_launches,
+            lambda out, _: {k: sum(out[1].values()) * v
+                            for k, v in per_run.items()},
+            f"{cfg.name} {backend}", retake)
+    ran = sessions[-1]
+    runs = sum(bucket_runs.values())
+    check(n_served == REQUESTS and all(r.done for r in reqs),
           "engine left requests unserved")
     check(runs == math.ceil(REQUESTS / BUCKET), f"{runs} bucket runs")
     check(launches == {k: runs * v for k, v in per_run.items()},
@@ -1331,9 +1413,8 @@ def serve_phase(cfg, seed, dev, backend):
     check(by_path["conv_stem"]["banded"] == launches["conv_stem"],
           f"{backend}: stem launches {by_path['conv_stem']} not all on the "
           f"banded path")
-    used = [b for b, k in eng.model.run_counts.items() if k]
+    used = [b for b, k in bucket_runs.items() if k]
     check(used == built, f"buckets {used} used, {built} built")
-    check_traced(ran, launches, per_run, runs, f"{cfg.name} {backend}")
     check(ran_by_path.get("conv_stem", {}).get("general", 0) == 0,
           f"{backend}: the profiler saw stem launches {ran_by_path} off the "
           f"banded path")
@@ -1371,7 +1452,6 @@ def serve_phase(cfg, seed, dev, backend):
           "argmax differs from torch-int")
     check(max(eng.ab_stats["torch-int"]) <= LOGIT_ATOL, "A/B shadow")
 
-    bucket_runs = dict(eng.model.run_counts)
     trace_counts = dict(m.trace_counts)
     x = x[:BUCKET]
     check_replays(m, x, x.flip(0), f"{cfg.name} {backend}")
@@ -1390,7 +1470,8 @@ def serve_phase(cfg, seed, dev, backend):
     emit("serve", model=cfg.name, backend=backend, chains=chains,
          requests=REQUESTS, ticks=ticks, bucket_runs=bucket_runs,
          trace_counts=trace_counts, launches=launches,
-         traced_launches=ran, traced_serve_wall_s=wall, u8_bitwise=True,
+         traced_launches=ran, traced_sessions=sessions,
+         traced_serve_wall_s=wall, u8_bitwise=True,
          max_abs_logit_dev=dev_max,
          ab_max_abs_dev=max(eng.ab_stats["torch-int"]),
          feature_nonzero_share=float((feats > 0).float().mean()),
@@ -1853,35 +1934,41 @@ def sharded_serve_phase(cfg, seed, backend):
         eng.run()
         return reqs, sreqs
 
+    def traced_drive():
+        """The bursts served once (fresh requests each call): (requests,
+        bucket runs, images served)."""
+        runs0, served0 = sum(m.run_counts.values()), eng.served
+        reqs, _ = drive()
+        return (reqs, sum(m.run_counts.values()) - runs0,
+                eng.served - served0)
+
     runs0 = dict(m.run_counts)
-    conv_stem_op.launches = resblock_fused_op.launches = 0
-    block_chain_op.launches = conv2d_int8_op.launches = 0
-    (reqs, _), ran, _ = traced_launches(drive)
-    launches = dict(conv_stem=conv_stem_op.launches,
-                    resblock_fused=resblock_fused_op.launches,
-                    block_chain=block_chain_op.launches,
-                    conv2d_int8=conv2d_int8_op.launches)
-    runs = sum(m.run_counts.values()) - sum(runs0.values())
     per_run, chains = launch_plan(cfg, backend)
-    check(eng.served == SHARDED_REQUESTS and all(r.done for r in reqs),
-          f"sharded {backend}: {eng.served} of {SHARDED_REQUESTS} served")
+    (reqs, runs, n_served), launches, _, sessions = traced_check(
+        traced_drive, zero_resnet_launches, resnet_launches,
+        lambda out, _: {k: out[1] * v for k, v in per_run.items()},
+        f"sharded {cfg.name} {backend}")
+    ran = sessions[-1]
+    check(n_served == SHARDED_REQUESTS and all(r.done for r in reqs),
+          f"sharded {backend}: {n_served} of {SHARDED_REQUESTS} served")
     check(launches == {k: runs * v for k, v in per_run.items()},
           f"sharded {backend}: launch counts {launches} for {runs} bucket "
           f"runs of {per_run}")
-    check_traced(ran, launches, per_run, runs, f"sharded {cfg.name} "
-                                               f"{backend}")
     traced_batches = len(batches)
 
+    served0 = eng.served
     t0 = time.perf_counter()
     reqs2, sreqs = drive()
     wall = time.perf_counter() - t0
-    check(eng.served == 2 * SHARDED_REQUESTS and all(r.done for r in reqs2),
+    check(eng.served - served0 == SHARDED_REQUESTS and
+          all(r.done for r in reqs2),
           f"sharded {backend}: the timed run left requests unserved")
     timed_batches = len(batches)
 
     arrivals = np.cumsum(rng.exponential(1.0 / PACED_RATE, len(imgs)))
     reqs3 = [ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
     paced, i = [], 0
+    served0 = eng.served
     t0 = time.perf_counter()
     while i < len(reqs3):
         now = time.perf_counter() - t0
@@ -1892,7 +1979,8 @@ def sharded_serve_phase(cfg, seed, backend):
         eng.tick()
     eng.run()
     paced_wall = time.perf_counter() - t0
-    check(eng.served == 3 * SHARDED_REQUESTS and all(r.done for r in reqs3),
+    check(eng.served - served0 == SHARDED_REQUESTS and
+          all(r.done for r in reqs3),
           f"sharded {backend}: the paced run left requests unserved")
     check((dict(m.trace_counts), m.compile_count) == built,
           f"sharded {backend}: a capture during serving: {m.trace_counts}")
@@ -1951,8 +2039,8 @@ def sharded_serve_phase(cfg, seed, backend):
         bitwise_with_resnet_engine=bool(dev_max == 0.0),
         max_abs_dev_resnet_engine=dev_max,
         micro_batches_bitwise=True, trace_counts=dict(m.trace_counts),
-        traced_launches=ran, launches=launches, traced_runs=runs,
-        chains=chains)
+        traced_launches=ran, traced_sessions=sessions, launches=launches,
+        traced_runs=runs, chains=chains)
     emit("sharded_serve", model=cfg.name, backend=backend, **summary)
     return summary
 
@@ -2082,27 +2170,41 @@ def traffic_sim_phase(qps, dev, seed, out_dir):
                                       device=dev)
                   for arch, (cfg, qp) in qps.items()}
     recorded = {arch: RecordedModel(m) for arch, m in served_models.items()}
-    def timed_run():
-        t0 = time.perf_counter()
-        out = traffic_sim_run(recorded, classes, arrivals, images,
-                              os.path.join(out_dir, "sim1"))
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    retakes = []
 
-    zero_resnet_launches()
-    ((sim, report, log, bundles), wall), ran, _ = traced_launches(timed_run)
-    launches = resnet_launches()
-    dispatches = {arch: len(r.calls) for arch, r in recorded.items()}
-    want = {k: 0 for k in launches}
-    for arch, (cfg, _) in qps.items():
-        per_run, _ = launch_plan(cfg, "cuda-stream")
-        for k, v in per_run.items():
-            want[k] += dispatches[arch] * v
+    def timed_run(models, name):
+        t0 = time.perf_counter()
+        out = traffic_sim_run(models, classes, arrivals, images,
+                              os.path.join(out_dir, name))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            arch: len(r.calls) for arch, r in models.items()}
+
+    def retake():
+        # the same trace replayed through fresh recorders of the same
+        # compiled models
+        retakes.append(None)
+        return timed_run({arch: RecordedModel(m)
+                          for arch, m in served_models.items()},
+                         f"sim1_retake{len(retakes)}")
+
+    def want_of(out, _):
+        want = {k: 0 for k in resnet_launches()}
+        for arch, (cfg, _) in qps.items():
+            per_run, _ = launch_plan(cfg, "cuda-stream")
+            for k, v in per_run.items():
+                want[k] += out[2][arch] * v
+        return want
+
+    ((sim, report, log, bundles), wall, dispatches), launches, _, \
+        sessions = traced_check(
+            lambda: timed_run(recorded, "sim1"), zero_resnet_launches,
+            resnet_launches, want_of, "traffic sim", retake)
+    ran = sessions[-1]
+    want = want_of((None, None, dispatches), None)
     check(launches == want and launches["block_chain"] > 0,
           f"traffic sim: launch counts {launches} for {dispatches} "
           f"dispatches, want {want}")
-    check_traced_want(ran, launches, want,
-                      f"traffic sim ({dispatches} dispatches)")
 
     where = {}
     max_dev = 0.0
@@ -2151,7 +2253,8 @@ def traffic_sim_phase(qps, dev, seed, out_dir):
     summary = dict(
         arrivals=len(arrivals), offered_rate=SIM_RATE,
         duration_s=SIM_DURATION, dispatches=dispatches,
-        launches=launches, traced_launches=ran, wall_s=wall, max_abs_dev_torch_int=max_dev,
+        launches=launches, traced_launches=ran, traced_sessions=sessions,
+        wall_s=wall, max_abs_dev_torch_int=max_dev,
         totals=report["totals"], classes=class_summary(report),
         autoscaler={k: report["autoscaler"][k] for k in (
             "active", "scale_events", "last_reason")},
@@ -2226,8 +2329,6 @@ def live_leg(name, spec, classes_spec, qps, devices, refs, seed, out_dir,
         eng.pool.warmup()
         record_dispatches(eng, arch, records)
         variants[arch] = eng
-    runs0 = {arch: sum(e.model.run_counts.values())
-             for arch, e in variants.items()}
     bundle_dir = os.path.join(out_dir, name)
     ob = obs_runtime.instrument() if observed else None
     health = None
@@ -2242,51 +2343,70 @@ def live_leg(name, spec, classes_spec, qps, devices, refs, seed, out_dir,
                                        degrade_arch="resnet8",
                                        backend="cuda", leg=name)
             ob.health = health
-        scaler = Autoscaler(AutoscaleConfig(
-            min_replicas=1, max_replicas=len(devices)),
-            clock=variants["resnet20"].clock, health=health)
-        variants["resnet20"].set_active_replicas(scaler.active)
-        router = OverloadRouter(classes, primary="resnet20",
-                                degraded="resnet8", health=health)
-        runner = LiveTrafficRunner(variants, classes, router,
-                                   autoscaler=scaler, health=health)
-        def timed_run():
+        def timed_run(health):
+            """The leg's arrivals through a fresh runner (autoscaler and
+            router) over the variants: (report, wall s, bucket runs, the
+            dispatches recorded, the health checks of an observed run,
+            made before a retake adds to the session's counters)."""
+            scaler = Autoscaler(AutoscaleConfig(
+                min_replicas=1, max_replicas=len(devices)),
+                clock=variants["resnet20"].clock, health=health)
+            variants["resnet20"].set_active_replicas(scaler.active)
+            router = OverloadRouter(classes, primary="resnet20",
+                                    degraded="resnet8", health=health)
+            runner = LiveTrafficRunner(variants, classes, router,
+                                       autoscaler=scaler, health=health)
+            runs0 = {arch: sum(e.model.run_counts.values())
+                     for arch, e in variants.items()}
             t0 = time.perf_counter()
             out = runner.run(arrivals, images)
             torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
+            wall = time.perf_counter() - t0
+            return out, wall, {
+                arch: sum(e.model.run_counts.values()) - runs0[arch]
+                for arch, e in variants.items()}, len(records), (
+                leg_health(name, ob, health, out, classes, bundle_dir)
+                if health is not None else None)
 
-        zero_resnet_launches()
+        def want_of(out, _):
+            want = {k: 0 for k in resnet_launches()}
+            for arch, (cfg, _) in qps.items():
+                per_run, _ = launch_plan(cfg, "cuda")
+                for k, v in per_run.items():
+                    want[k] += out[2][arch] * v
+            return want
+
+        sessions = None
         if traced:
-            (report, wall), ran, _ = traced_launches(timed_run)
+            # a retake replays the arrivals through a fresh runner with no
+            # health monitor; the first session's dispatches are checked
+            (report, wall, runs, n_records, healthy), launches, _, \
+                sessions = traced_check(
+                    lambda: timed_run(health), zero_resnet_launches,
+                    resnet_launches, want_of, f"traffic {name}",
+                    lambda: timed_run(None))
+            ran = sessions[-1]
         else:
-            (report, wall), ran = timed_run(), None
-        launches = resnet_launches()
+            zero_resnet_launches()
+            (report, wall, runs, n_records, healthy), ran = \
+                timed_run(health), None
+            launches = resnet_launches()
     finally:
         if observed:
             obs_runtime.disable()
 
-    runs = {arch: sum(e.model.run_counts.values()) - runs0[arch]
-            for arch, e in variants.items()}
-    want = {k: 0 for k in launches}
-    for arch, (cfg, _) in qps.items():
-        per_run, _ = launch_plan(cfg, "cuda")
-        for k, v in per_run.items():
-            want[k] += runs[arch] * v
+    want = want_of((None, None, runs), None)
     check(launches == want and launches["conv_stem"] > 0 and
           launches["resblock_fused"] > 0,
           f"traffic {name}: launch counts {launches} for bucket runs "
           f"{runs}, want {want}")
-    if traced:
-        check_traced_want(ran, launches, want,
-                          f"traffic {name} ({runs} bucket runs)")
 
     # every dispatch bitwise ResNetEngine's model on the same batch, every
     # request its row of it and bitwise what ResNetEngine serving the
     # image in its own batches gave; every logit within 1e-5 of torch-int
     served = 0
     dev_int = 0.0
-    for arch, payloads, out in records:
+    for arch, payloads, out in records[:n_records]:
         x = np.stack([p.image for p in payloads])
         check(torch.equal(out, refs[arch]["engine"].model(x)),
               f"traffic {name} {arch}: a dispatch differs from "
@@ -2332,13 +2452,13 @@ def live_leg(name, spec, classes_spec, qps, devices, refs, seed, out_dir,
         compute_ms=report["servers"]["resnet20"]["compute_ms"],
         queue_wait_ms=report["servers"]["resnet20"]["queue_wait_ms"],
         bucket_runs=runs, launches=launches, traced_launches=ran,
+        traced_sessions=sessions,
         autoscaler={k: report["autoscaler"][k] for k in (
             "active", "scale_events", "last_reason")},
         strict_classes=strict, max_abs_dev_torch_int=dev_int,
         bitwise_resnet_engine=True)
     if observed:
-        summary.update(leg_health(name, ob, health, report, classes,
-                                  bundle_dir))
+        summary.update(healthy)
     emit("traffic_live", leg=name, backend="cuda", **summary)
     return summary
 
@@ -3221,28 +3341,53 @@ def lm_serve_phase(name, seed, dev):
         np.int32)
     eng = ResNetEngine(cfg, params, batch=LM_BUCKET, backend="cuda",
                        batch_sizes=(1, LM_BUCKET), ab_backends=("torch-int",))
-    reqs = [ImageRequest(rid=i, image=t) for i, t in enumerate(toks)]
-    for r in reqs:
-        eng.submit(r)
-    built = build_served_buckets(eng, LM_REQUESTS)
-    for op in LM_KERNEL_OPS.values():
-        op.launches = 0
-    matmul_int8_op.launches_by_path = dict.fromkeys(
-        matmul_int8_op.launches_by_path, 0)
-    for op in LM_TUNE_OPS.values():
-        op.launches_by_config = {}
-    t0 = time.perf_counter()
-    ticks, ran, ran_by_path = traced_launches(eng.run)
-    wall = time.perf_counter() - t0
-    launches = {k: op.launches for k, op in LM_KERNEL_OPS.items()}
-    by_path = dict(matmul_int8_op.launches_by_path)
-    by_config = {k: dict(op.launches_by_config)
-                 for k, op in LM_TUNE_OPS.items()}
-    bucket_runs = dict(eng.model.run_counts)
 
-    runs = sum(bucket_runs.values())
+    def submitted():
+        reqs = [ImageRequest(rid=i, image=t) for i, t in enumerate(toks)]
+        for r in reqs:
+            eng.submit(r)
+        return reqs
+
+    reqs = submitted()
+    built = build_served_buckets(eng, LM_REQUESTS)
+
+    def zero():
+        for op in LM_KERNEL_OPS.values():
+            op.launches = 0
+        matmul_int8_op.launches_by_path = dict.fromkeys(
+            matmul_int8_op.launches_by_path, 0)
+        for op in LM_TUNE_OPS.values():
+            op.launches_by_config = {}
+
+    def served():
+        """One run of the engine over its queue: (ticks, its bucket runs,
+        requests served, wall s, launches by path, by config)."""
+        runs0, served0 = dict(eng.model.run_counts), eng.served
+        t0 = time.perf_counter()
+        ticks = eng.run()
+        wall = time.perf_counter() - t0
+        return (ticks, {b: k - runs0.get(b, 0)
+                        for b, k in eng.model.run_counts.items()},
+                eng.served - served0, wall,
+                dict(matmul_int8_op.launches_by_path),
+                {k: dict(op.launches_by_config)
+                 for k, op in LM_TUNE_OPS.items()})
+
+    def retake():
+        submitted()
+        return served()
+
     per_run = lm_launch_plan(cfg)
-    check(eng.served == LM_REQUESTS and all(r.done for r in reqs),
+    (ticks, bucket_runs, n_served, wall, by_path, by_config), launches, \
+        ran_by_path, sessions = traced_check(
+            served, zero,
+            lambda: {k: op.launches for k, op in LM_KERNEL_OPS.items()},
+            lambda out, _: {k: sum(out[1].values()) * v
+                            for k, v in per_run.items()},
+            f"{name} cuda", retake)
+    ran = sessions[-1]
+    runs = sum(bucket_runs.values())
+    check(n_served == LM_REQUESTS and all(r.done for r in reqs),
           "engine left requests unserved")
     check(runs == math.ceil(LM_REQUESTS / LM_BUCKET), f"{runs} bucket runs")
     check(launches == {k: runs * v for k, v in per_run.items()},
@@ -3258,7 +3403,6 @@ def lm_serve_phase(name, seed, dev):
     check(by_config == rule,
           f"{name}: the untuned run launched by config {by_config}, the "
           f"rules' tiles are {rule}")
-    check_traced(ran, launches, per_run, runs, f"{name} cuda")
     check(ran_by_path.get("matmul_int8", {}).get("mma_sync", 0) == 0,
           f"{name}: the profiler saw matmul launches {ran_by_path} off the "
           f"wgmma path")
@@ -3320,7 +3464,8 @@ def lm_serve_phase(name, seed, dev):
          launches=launches,
          matmul_launches_by_path=by_path, launches_by_config=by_config,
          launches_per_run=per_run,
-         traced_launches=ran, init_s=init_s, traced_serve_wall_s=wall,
+         traced_launches=ran, traced_sessions=sessions, init_s=init_s,
+         traced_serve_wall_s=wall,
          tasks=tasks, hidden_differ_share=differ / n_el,
          hidden_max_step=max_step, one_step_flip_differ_share=flip_share,
          one_step_flip_max_step=flip_step,
@@ -4349,7 +4494,6 @@ PAR_BUCKETS = (8, 32)
 # (c): gemma-2b at published width, bf16, 2 x 1,024 tokens, one microbatch
 PAR_TRAIN = dict(model="gemma-2b", batch=2, seq=1024, steps=6)
 PAR_TOL = 1e-4
-PAR_TRACES = 3      # profiler sessions at most a traced bucket run
 PAR_SETTLE_S = 0.02   # host wait at the start of a traced bucket run
 # (d) and (e): the dry-run cells, each a subprocess of its own (a process
 # holds one fake process group)
@@ -4361,6 +4505,7 @@ DRYRUN_CELLS = {
     "internvl2-1b/decode_32k": ["--arch", "internvl2-1b", "--shape",
                                 "decode_32k"],
 }
+SPLIT_MAX = 4.0     # gemma-2b train_4k's flops a device over the model's
 # the processes this script starts, stopped at its end whatever happens
 STARTED = []
 
@@ -4427,27 +4572,22 @@ def par_serve(seed, dev, mesh):
         def settled(b):
             # the card idle before each traced run; in a whole script's
             # run the first profiler session of a run still often records
-            # no kernel (the retries below), where the phase alone does
+            # no kernel (``traced_check`` retakes it), where the phase
+            # alone records them
             torch.cuda.synchronize()
             time.sleep(PAR_SETTLE_S)
             return cm.run_sharded(b, mesh)
 
         for b in batches:
-            # one profiler session a bucket run; a session whose trace
-            # misses kernel records is taken again, up to PAR_TRACES
-            # times, and every session's count is reported
-            counts = []
-            for _ in range(PAR_TRACES):
-                zero_resnet_launches()
-                logits, r, _ = traced_launches(lambda: settled(b))
-                counts.append({k: v for k, v in r.items() if v})
-                if all(r[k] == per_run.get(k, 0) for k in r):
-                    break
-            check_traced(r, resnet_launches(), per_run, 1,
-                         f"run_sharded {backend} at {b.shape[0]} images")
+            # one profiler session a bucket run (stateless, so a retake
+            # runs it again), every session's count reported
+            logits, _, _, counts = traced_check(
+                lambda: settled(b), zero_resnet_launches, resnet_launches,
+                lambda out, _: per_run,
+                f"run_sharded {backend} at {b.shape[0]} images")
             got.append(logits)
-            seen.append(counts)
-            for k, v in r.items():
+            seen.append([{k: v for k, v in r.items() if v} for r in counts])
+            for k, v in counts[-1].items():
                 ran[k] = ran.get(k, 0) + v
         for g, r, b in zip(got, refs, batches):
             check(tuple(g.shape) == tuple(r.shape) and
@@ -4671,13 +4811,18 @@ def par_dryrun_checks(dry, train):
         if name.endswith("train_4k"):
             check(sum(r["collective_counts"].values()) > 0,
                   f"{name}: no collective counted")
+            over = 1 / r["useful_flops_ratio"]
+            check(over < SPLIT_MAX and r["fits_hbm"],
+                  f"{name}: {over:.2f}x its model flops a device (want "
+                  f"under {SPLIT_MAX}x), fits {r['fits_hbm']}")
         prod[name] = {k: r[k] for k in (
             "chips", "grad_accum", "fits_hbm", "hbm_required_bytes",
             "argument_bytes_per_device", "temp_bytes_per_device",
             "flops_per_device", "model_flops_per_device",
-            "useful_flops_ratio", "collective_bytes_per_device",
-            "collective_counts", "bottleneck", "an_bottleneck", "an_step_s",
-            "host_seconds")}
+            "useful_flops_ratio",
+            "collective_bytes_per_device", "collective_detail",
+            "collective_counts", "model_split", "bottleneck",
+            "an_bottleneck", "an_step_s", "host_seconds")}
     emit("parallel_dryrun", step_1x1=step, production=prod)
     return dict(step_1x1=step, production=prod)
 
@@ -4721,6 +4866,76 @@ def parallel_phase(seed, dev, dryruns):
                     "idle_share_sharded", "idle_share_unsharded",
                     "launches_sharded", "launches_unsharded")},
                 dryrun=dry, collectives=coll, **ranks)
+
+
+# ---------------------------------------------------------------------------
+# examples: the twins of the JAX package's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RUNS = (
+    ("quickstart", []),
+    ("train_resnet_cifar", ["--steps", "60", "--qat-steps", "20",
+                            "--eval-n", "512"]),
+    ("serve_lm", []),
+    ("serve_lm", ["--int8-kv"]),
+)
+
+
+def examples_phase():
+    """Phase 11: each twin's ``main`` on the card, its printed lines
+    checked as ``tests/test_torch_examples.py`` checks them on the CPU."""
+    import contextlib
+    import importlib
+    import io
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        ck_dir = tempfile.mkdtemp(prefix="repro-example-")
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv + (["--ckpt-dir", ck_dir]
+                                       if name == "train_resnet_cifar"
+                                       else []))
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        seconds = time.perf_counter() - t1
+        text = buf.getvalue()
+        key = name + ("_int8_kv" if "--int8-kv" in argv else "")
+        if name == "quickstart":
+            check("[graph] residual Adds: 3 -> 0" in text and
+                  "R_sc = 0.50" in text and res["bit_exact"] and
+                  res["served"] == 12 and
+                  "bit-exact with the integer graph (torch-int): True"
+                  in text and text.count("[ilp] resnet8 on") == 2,
+                  f"quickstart printed:\n{text}")
+            rec = dict(train=res["train"], int8_acc=res["int8_acc"],
+                       bit_exact=res["bit_exact"],
+                       ilp={k: v[0] for k, v in res["ilp"].items()})
+        elif name == "train_resnet_cifar":
+            check(res["export"]["bit_exact"] and
+                  res["export"]["backends"] == ("cuda", "cuda-stream",
+                                                "torch-int") and
+                  res["retraces"] == 1 and "eval[" in text,
+                  f"train_resnet_cifar printed:\n{text[-3000:]}")
+            rec = {k: res[k] for k in ("float_metrics", "source", "eval_n",
+                                       "float_top1", "int8_top1", "fps",
+                                       "retraces")}
+        else:
+            check(res["tokens"] == 72 and text.startswith(
+                f"llama3.2-3b{' (int8 KV)' if res['int8_kv'] else ''}: "
+                f"72 tokens / "), f"serve_lm printed:\n{text}")
+            rec = dict(ticks=res["ticks"], tokens=res["tokens"],
+                       tokens_per_s=res["tokens"] / res["seconds"])
+        out[key] = dict(rec, seconds=seconds, lines=text.count("\n"))
+        emit("examples", example=key, **out[key])
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    emit("examples_phase", seconds=out["phase_s"])
+    return out
 
 
 def main(argv=None):
@@ -4823,6 +5038,8 @@ def main(argv=None):
     finally:
         stop_started()
         shutil.rmtree(dry_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    examples = examples_phase()
     torch.cuda.empty_cache()
 
     conv_launches = sum(d["conv2d_int8"] for d in (
@@ -4949,6 +5166,7 @@ def main(argv=None):
                     "profile": {k: v["ms_per_forward"]
                                 for k, v in lm_tune["profile"].items()}},
         "lm_float": lm_float, "lm_train": lm_train, "parallel": parallel,
+        "examples": examples,
         "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

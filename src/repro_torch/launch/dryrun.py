@@ -20,14 +20,18 @@ shard shapes.  It measures the traced step:
   the local ops;
 * ``collective_bytes_per_device`` / ``collective_detail`` /
   ``collective_counts``: the result bytes of every ``_c10d_functional``
-  collective, under the reference's five keys (its definition: result
-  bytes of the per-device program);
+  collective and of DTensor's shard-to-shard all-to-all, under the
+  reference's five keys (its definition: result bytes of the per-device
+  program);
 * ``bytes_per_device``: operand plus result bytes of every local op (the
   reference's "bytes accessed");
 * ``argument_bytes_per_device``: the local bytes of params, optimizer
   state and batch; ``temp_bytes_per_device``: the peak of live storage
   above them (a tracker of the port's own: a weak reference on every
-  storage an op makes).
+  storage an op makes);
+* ``model_split``: the layer kinds that split their compute over 'model'
+  (tensor parallelism: GQA heads, the MLP's width, the vocabulary) and
+  those every 'model' rank computes whole (``parallel.ctx.split_kinds``).
 
 The rest (``hbm_required_bytes``, ``fits_hbm``, ``bottleneck``,
 ``model_flops``, ``useful_flops_ratio``, the ``analytic_terms`` fields)
@@ -70,7 +74,13 @@ _C10D = {
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
 }
+# DTensor's own op for a move from one sharded dim to another on a mesh dim
+# (e.g. a stored column shard to the row shard a row-parallel matmul
+# reads): one all-to-all, issued outside ``_c10d_functional`` on the GPU
+# (a CPU mesh falls back to an all-gather and a chunk)
+_SHARD_TO_SHARD = ("_dtensor", "shard_dim_alltoall")
 
 
 def _nbytes(x) -> int:
@@ -116,7 +126,8 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace == "_c10d_functional":
+        if func.namespace == "_c10d_functional" or \
+                (func.namespace, func._opname) == _SHARD_TO_SHARD:
             name = func._opname
             if name in _C10D:
                 self.coll[_C10D[name]] += _nbytes(out)
@@ -296,8 +307,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         arg_b = counter.live
         counter.peak = arg_b
         flops = FlopCounterMode(display=False)
+        ctx.split_kinds(reset=True)
         with ctx.mesh_context(mesh), counter, flops:
             out = run()
+        split = ctx.split_kinds(reset=True)
         out_b = 0 if shape.kind == "train" else _local_bytes(out)
         del out
     flops_dev = float(flops.get_total_flops())
@@ -330,6 +343,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         model_flops_per_device=model_fl / n_chips,
         useful_flops_ratio=(model_fl / n_chips / flops_dev
                             if flops_dev else None),
+        model_split=split,
         memory_analysis=memory,
         temp_bytes_per_device=tmp_b,
         argument_bytes_per_device=arg_b,

@@ -62,12 +62,16 @@ def _mamba_block(p, h, cfg, state=None):
     return (m if cfg.residual_fusion else h + m), ns
 
 
-def _shared_block(p, h, cfg, cache=None, pos=None):
-    p = ctx.gather_tree(p)            # gathered again at every call site
+def _shared_block(p, h, cfg, cache=None, pos=None, cache_out=None):
+    # gathered again at every call site (attention and MLP gather or split
+    # their own weights)
+    p = {k: v if k in ("attn", "mlp") else ctx.gather_tree(v)
+         for k, v in p.items()}
     skip = h
     a, kv = L.gqa_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
                         cache=cache, pos=pos,
-                        acc_init=skip if cfg.residual_fusion else None)
+                        acc_init=skip if cfg.residual_fusion else None,
+                        cache_out=cache_out)
     h = a if cfg.residual_fusion else h + a
     skip = h
     m = L.mlp_apply(p["mlp"], L.norm(h, p["ln2"], cfg), cfg,
@@ -75,49 +79,50 @@ def _shared_block(p, h, cfg, cache=None, pos=None):
     return (m if cfg.residual_fusion else h + m), kv
 
 
-def _run(params, cfg, h, *, states=None, kv=None, pos=None):
+def _run(params, cfg, h, *, states=None, kv=None, pos=None, out=None):
     """states (dict ssm, conv, each (L, ...)) / kv (dict k, v, each
-    (n_groups, ...)): None for train/prefill; the decode state otherwise.
-    Returns (h, new states, new kv).  Without a decode state, each group
-    (its Mamba2 layers and the shared block) is rematerialized under
-    autograd per ``cfg.remat_policy``, and each tail layer with nothing
-    saved (the reference's plain ``jax.checkpoint``)."""
+    (n_groups, ...)): None for train/prefill; the decode state otherwise,
+    whose new values each layer writes once into ``out`` (stacked buffers
+    of the same keys and shapes).  Returns h.  Without a decode state,
+    each group (its Mamba2 layers and the shared block) is
+    rematerialized under autograd per ``cfg.remat_policy``, and each tail
+    layer with nothing saved (the reference's plain ``jax.checkpoint``)."""
     period = cfg.shared_block_period
     decode = states is not None
-    new_states, new_kv = [], []
 
     def mamba(h, p, l):
         st = None if not decode else {k: v[l] for k, v in states.items()}
-        return _mamba_block(p, h, cfg, state=st)
+        h, ns = _mamba_block(p, h, cfg, state=st)
+        if decode:
+            for k, v in ns.items():
+                out[k][l].copy_(v)
+        return h
 
-    def group(h, layer_params, first, gkv):
+    def group(h, layer_params, first, g):
         h = ctx.constrain(h, ctx.batch_axes(), None, None)
-        sts = []
         for j, p in enumerate(layer_params):
-            h, ns = mamba(h, p, first + j)
-            sts.append(ns)
-        h, nkv = _shared_block(params["shared"], h, cfg, cache=gkv, pos=pos)
-        return h, sts, nkv
+            h = mamba(h, p, first + j)
+        gkv = kv_out = None
+        if decode:
+            gkv = {k: v[g] for k, v in kv.items()}
+            kv_out = {k: out[k][g] for k in kv}
+        h, _ = _shared_block(params["shared"], h, cfg, cache=gkv, pos=pos,
+                             cache_out=kv_out)
+        return h
 
     tail = mamba
     if not decode:
         group = L.remat(group, cfg.remat, cfg.remat_policy)
         tail = L.remat(mamba, cfg.remat, "nothing")
+    n = 0
     for g, gp in enumerate(L.layers(params["groups"])):
-        gkv = None if not decode else {k: v[g] for k, v in kv.items()}
-        h, sts, nkv = group(h, L.layers(gp), g * period, gkv)
-        new_states += sts
-        new_kv.append(nkv)
+        layer_params = L.layers(gp)
+        h = group(h, layer_params, n, g)
+        n += len(layer_params)
     if "tail" in params:
-        first = len(new_states)
         for j, p in enumerate(L.layers(params["tail"])):
-            h, ns = tail(h, p, first + j)
-            new_states.append(ns)
-    if not decode:
-        return h, None, None
-    stack = lambda parts: {k: torch.stack([s[k] for s in parts])  # noqa: E731
-                           for k in parts[0]}
-    return h, stack(new_states), stack(new_kv)
+            h = tail(h, p, n + j)
+    return h
 
 
 def _embed(params, cfg, tokens):
@@ -125,15 +130,15 @@ def _embed(params, cfg, tokens):
 
 
 def hidden_states(params, cfg, tokens, extra=None):
-    h, _, _ = _run(params, cfg, _embed(params, cfg, tokens))
+    h = _run(params, cfg, _embed(params, cfg, tokens))
     return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
 def loss_fn(params, cfg, batch):
     h = hidden_states(params, cfg, batch["tokens"])
-    emb = ctx.constrain(ctx.gather(params["unembed"]).T.to(
-        cfg.compute_dtype), "model", None)
-    s, cnt = L.chunked_xent(h, emb, batch["labels"], cfg.loss_chunk)
+    emb, v0 = L.vocab_part(params["unembed"], 1)
+    s, cnt = L.chunked_xent(h, emb.to(cfg.compute_dtype), batch["labels"],
+                            cfg.loss_chunk, v0=v0)
     loss = s / torch.clamp_min(cnt, 1)
     return loss, dict(loss=loss, tokens=cnt)
 
@@ -143,13 +148,17 @@ def prefill(params, cfg, tokens, extra=None):
     return torch.matmul(h[:, -1:], ctx.gather(params["unembed"]).to(h.dtype))
 
 
-def decode_step(params, cfg, tokens, pos, cache):
-    h, new_states, new_kv = _run(
-        params, cfg, _embed(params, cfg, tokens),
-        states=dict(ssm=cache["ssm_state"], conv=cache["conv_state"]),
-        kv=dict(k=cache["k"], v=cache["v"]), pos=pos)
+def decode_step(params, cfg, tokens, pos, cache, *, donate=False):
+    """One token a row; each layer writes its new states and the shared
+    block's new K/V once, into stacked buffers allocated here or, with
+    ``donate``, into ``cache``'s own tensors (see
+    ``transformer.decode_step``)."""
+    new = {k: v if donate else torch.empty_like(v) for k, v in cache.items()}
+    h = _run(params, cfg, _embed(params, cfg, tokens),
+             states=dict(ssm=cache["ssm_state"], conv=cache["conv_state"]),
+             kv=dict(k=cache["k"], v=cache["v"]), pos=pos,
+             out=dict(ssm=new["ssm_state"], conv=new["conv_state"],
+                      k=new["k"], v=new["v"]))
     h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
     logits = torch.matmul(h, ctx.gather(params["unembed"]).to(h.dtype))
-    return logits, dict(ssm_state=new_states["ssm"],
-                        conv_state=new_states["conv"],
-                        k=new_kv["k"], v=new_kv["v"])
+    return logits, new

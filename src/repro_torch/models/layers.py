@@ -27,6 +27,7 @@ times ``1/sqrt(fan_in)``, cast to the parameter dtype) is the same.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -90,10 +91,15 @@ def stack_init(fn, draw: Draw, n: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _fq8(x):
-    """Power-of-two-scale int8 fake quantization with dynamic range."""
+def _fq8(x, parts=False):
+    """Power-of-two-scale int8 fake quantization with dynamic range.
+    ``parts``: ``x`` is this rank's part over 'model' (a split weight or a
+    row-parallel input), whose range is that of the whole over 'model'."""
     # the whole batch's range under a mesh (each rank holds its rows)
-    amax = torch.clamp_min(ctx.batch_max(x.detach().abs().max()), 1e-8)
+    amax = ctx.batch_max(x.detach().abs().max())
+    if parts:
+        amax = ctx.model_max(amax)
+    amax = torch.clamp_min(amax, 1e-8)
     e = torch.ceil(torch.log2(amax / 127.0))
     scale = torch.exp2(e).to(x.dtype)
     spec_like = x / scale
@@ -118,21 +124,40 @@ def slice_expert(w, e):
     return w[e]
 
 
-def dense(x, w, b=None, *, cfg=None, acc_init=None):
+def dense(x, w, b=None, *, cfg=None, acc_init=None, parts=False):
     """x @ w (+ b) (+ acc_init).
 
     ``acc_init`` is the paper's add-fold (Fig. 13): the skip stream enters as
-    the accumulator initializer of this matmul."""
+    the accumulator initializer of this matmul.  ``parts``: ``x`` and ``w``
+    are this rank's parts of a matmul split over 'model', whose
+    fake-quantization ranges are those of the whole tensors."""
     w = getw(w, x.dtype)
     if cfg is not None and cfg.quant == "qat":
-        x = _fq8(x)
-        w = _fq8(w)
+        x = _fq8(x, parts)
+        w = _fq8(w, parts)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b
     if acc_init is not None:
         y = y + acc_init
     return y
+
+
+def row_parallel(x, w, *, cfg, acc_init=None, split=False, keep=True):
+    """``dense(x, w, acc_init=acc_init)``; ``split``: ``x`` and ``w`` are
+    this rank's rows of a matmul split over 'model' (its input columns and
+    the weight's rows), whose partial products are summed over 'model'
+    before the add-fold's ``acc_init`` is added, once.  ``keep=False``: a
+    rank that computed another rank's rows again enters zeros (and so
+    passes back a zero gradient)."""
+    if not split:
+        return dense(x, w, cfg=cfg, acc_init=acc_init)
+    y = dense(x, w, cfg=cfg, parts=True)
+    if not keep:
+        y = torch.where(torch.zeros((), dtype=torch.bool, device=y.device),
+                        y, 0.0)
+    y = ctx.model_sum(y)
+    return y if acc_init is None else y + acc_init
 
 
 # ---------------------------------------------------------------------------
@@ -280,16 +305,24 @@ def gqa_init(draw: Draw, cfg, d, dtype):
     )
 
 
-def update_at(c, u, start):
-    """Per batch row ``b``: ``c[b, start[b]:start[b] + S] = u[b]`` on a copy
-    of ``c`` (``jax.lax.dynamic_update_slice_in_dim`` along axis 1 under
-    ``vmap``).  As there, the start is clamped so that the whole update
-    lands in range: a write at ``start >= S_c`` goes to the last slots."""
+def update_at(c, u, start, out=None):
+    """Per batch row ``b``: ``c[b, start[b]:start[b] + S] = u[b]`` written
+    into ``out`` (``jax.lax.dynamic_update_slice_in_dim`` along axis 1
+    under ``vmap``).  As there, the start is clamped so that the whole
+    update lands in range: a write at ``start >= S_c - S`` goes to the last
+    slots.  ``out`` is where the new cache goes: ``None`` makes a copy of
+    ``c`` (the functional form); a buffer of ``c``'s shape (a layer's slice
+    of the decode step's stacked new cache) is filled from ``c`` first,
+    unless it is ``c``'s own memory (a donated cache), which is written in
+    place."""
     B, S_c = c.shape[:2]
     S = u.shape[1]
     start = torch.clamp(start.to(torch.long), 0, S_c - S)
     rows = start[:, None] + torch.arange(S, device=c.device)
-    out = c.clone()
+    if out is None:
+        out = c.clone()
+    elif not out.is_set_to(c):
+        out.copy_(c)
     out[torch.arange(B, device=c.device)[:, None], rows] = u
     return out
 
@@ -301,23 +334,92 @@ def positions(pos, S, device):
     return ar[None, :] if pos is None else pos[:, None] + ar[None, :]
 
 
-def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
-              acc_init=None):
-    """GQA attention over x.  If ``cache=(k,v)`` is given (decode), append at
-    ``pos`` and attend over the cache.  ``xattn_kv`` replaces self K/V with
-    encoder states (whisper cross-attention).  Returns (out, new_cache)."""
-    B, S, d = x.shape
+def gqa_split(p, cfg):
+    """How GQA splits its heads over 'model': ``(w, H, KV, keep)``, the
+    weights of this rank's query heads and of the K/V heads they read,
+    their counts, and whether this rank's partial product enters the
+    reduce after ``wo``; ``None`` where the block repeats whole on every
+    'model' rank.
+
+    The heads split ``s = gcd(num_heads, tp)`` ways (Megatron's split when
+    ``s == tp``): the ranks of group ``j = rank // (tp / s)`` compute query
+    heads ``[j H/s, (j+1) H/s)``, and each group's first rank alone adds
+    them into the reduce (the others' products are zeroed, so their
+    gradients are too).  The K/V heads go with them where their count
+    divides ``s``, or, where a rank's query heads all read one K/V head,
+    that head.  With ``s == tp`` the weights arrive column-parallel
+    (``wq`` / ``wk`` / ``wv``) and row-parallel (``wo``) by
+    ``ctx.model_part``; otherwise each is gathered whole
+    (``ctx.gather_for_parts``) and the group's slice taken."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"], cfg=cfg).reshape(B, S, H, hd)
+    tp = ctx.model_size()
+    s = math.gcd(H, tp)
+    if s == 1 or not ctx.on_model(p["wq"]):
+        return None
+    Hl, G = H // s, H // KV
+    if KV % s and G % Hl:
+        return None
+    copies = tp // s
+    j = ctx.model_rank() // copies
+    kv0, nkv = (j * KV // s, KV // s) if KV % s == 0 else (j * Hl // G, 1)
+    q_cols, kv_cols = (slice(j * Hl * hd, (j + 1) * Hl * hd),
+                       slice(kv0 * hd, (kv0 + nkv) * hd))
+    if copies == 1:
+        w = dict(wq=ctx.model_part(p["wq"], 1), wo=ctx.model_part(p["wo"], 0))
+    else:
+        w = dict(wq=ctx.gather_for_parts(p["wq"])[:, q_cols],
+                 wo=ctx.gather_for_parts(p["wo"])[q_cols])
+    for k in ("wk", "wv"):
+        w[k] = (ctx.model_part(p[k], 1) if copies == 1 and KV % s == 0
+                else ctx.gather_for_parts(p[k])[:, kv_cols])
+    return w, Hl, nkv, ctx.model_rank() % copies == 0
+
+
+def cross_kv(w, enc_out, cfg, KV=None, parts=False):
+    """Cross-attention K/V over the encoder states ``enc_out`` from the
+    weights ``w`` (``wk`` / ``wv`` of ``KV`` heads, all of them by default;
+    ``parts``: this rank's heads, see ``dense``)."""
+    B, hd = enc_out.shape[0], cfg.head_dim
+    KV = cfg.num_kv_heads if KV is None else KV
+    return dict(
+        k=dense(enc_out, w["wk"], cfg=cfg, parts=parts).reshape(B, -1, KV, hd),
+        v=dense(enc_out, w["wv"], cfg=cfg, parts=parts).reshape(B, -1, KV, hd))
+
+
+def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
+              enc_out=None, acc_init=None, cache_out=None):
+    """GQA attention over x.  If ``cache=(k,v)`` is given (decode), append at
+    ``pos`` (into ``cache_out``'s buffers where given, see ``update_at``)
+    and attend over the cache.  ``xattn_kv`` replaces self K/V with encoder
+    states' K/V (whisper cross-attention from its cache), ``enc_out`` with
+    K/V computed here from the encoder states.  Without a cache the heads
+    split over 'model' where they divide it (``gqa_split``): this rank's
+    heads, then ``wo`` row-parallel.  Returns (out, new_cache)."""
+    B, S, d = x.shape
+    hd = cfg.head_dim
+    split = None
+    if cache is None and xattn_kv is None:
+        split = gqa_split(p, cfg)
+    ctx.note("attention", cfg.num_heads // split[1] if split else 1)
+    keep = True
+    if split is None:
+        w, H, KV = ctx.gather_tree(p), cfg.num_heads, cfg.num_kv_heads
+    else:
+        (w, H, KV, keep), x = split, ctx.to_model(x)
+        enc_out = None if enc_out is None else ctx.to_model(enc_out)
+    parts = split is not None
+    q = dense(x, w["wq"], cfg=cfg, parts=parts).reshape(B, S, H, hd)
+    if enc_out is not None:
+        xattn_kv = cross_kv(w, enc_out, cfg, KV, parts=parts)
     if xattn_kv is not None:
         kx = xattn_kv["k"]
         vx = xattn_kv["v"]
         o = attention(q, kx.to(q.dtype), vx.to(q.dtype), causal=False,
                       chunk=cfg.attn_chunk)
-        return dense(o.reshape(B, S, H * hd), p["wo"], cfg=cfg,
-                     acc_init=acc_init), None
-    k = dense(x, p["wk"], cfg=cfg).reshape(B, S, KV, hd)
-    v = dense(x, p["wv"], cfg=cfg).reshape(B, S, KV, hd)
+        return row_parallel(o.reshape(B, S, H * hd), w["wo"], cfg=cfg,
+                            acc_init=acc_init, split=parts, keep=keep), None
+    k = dense(x, w["wk"], cfg=cfg, parts=parts).reshape(B, S, KV, hd)
+    v = dense(x, w["wv"], cfg=cfg, parts=parts).reshape(B, S, KV, hd)
     if cfg.use_rope:
         qpos = positions(pos, S, x.device)
         q = rope(q, qpos, cfg.rope_theta)
@@ -325,17 +427,16 @@ def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
     new_cache = None
     window = cfg.sliding_window
     if cache is not None:
+        out = cache_out or {}
         ck, cv = cache["k"], cache["v"]
         S_kv = ck.shape[1]
         if window and window < S_kv:
             S_kv = window
         # ring-buffer update for SWA; linear append otherwise
         slot = (pos % S_kv) if window else pos
-        ck = update_at(ck, _maybe_quant_kv(k, cfg), slot)
-        cv = update_at(cv, _maybe_quant_kv(v, cfg), slot)
+        ck = update_at(ck, _maybe_quant_kv(k, cfg), slot, out.get("k"))
+        cv = update_at(cv, _maybe_quant_kv(v, cfg), slot, out.get("v"))
         new_cache = dict(k=ck, v=cv)
-        kf = _maybe_dequant_kv(ck, cfg).to(q.dtype)
-        vf = _maybe_dequant_kv(cv, cfg).to(q.dtype)
         ar = torch.arange(S_kv, device=x.device)[None]
         # positions of cache slots (ring for SWA)
         if window:
@@ -344,19 +445,34 @@ def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
             valid = kpos >= 0
         else:
             valid = ar.expand(B, S_kv) <= pos[:, None]
-        o = _decode_attn(q, kf, vf, valid, cfg)
+        o = _decode_attn(q, ck, cv, valid, cfg)
     else:
         o = attention(q, k, v, causal=causal, window=window,
                       chunk=cfg.attn_chunk, softcap=cfg.logit_softcap)
-    out = dense(o.reshape(B, S, H * hd), p["wo"], cfg=cfg, acc_init=acc_init)
+    out = row_parallel(o.reshape(B, S, H * hd), w["wo"], cfg=cfg,
+                       acc_init=acc_init, split=parts, keep=keep)
     return out, new_cache
+
+
+# the float32 K/V bytes a decode step upcasts at once: a longer cache is
+# attended a few batch rows at a time, so a step never holds a whole
+# layer's float32 copy beside its new cache
+DECODE_UPCAST_BYTES = 1 << 28
 
 
 def _decode_attn(q, k, v, valid, cfg):
     """Single-query attention against a (possibly ring) cache with per-batch
-    validity mask (B, Skv).  q: (B,1,H,hd), k/v: (B,Skv,KV,hd)."""
-    return _grouped_attn(q, k, v, valid[:, None, None, None, :],
-                         cfg.logit_softcap)
+    validity mask (B, Skv).  q: (B,1,H,hd), k/v: (B,Skv,KV,hd) as the cache
+    stores them, dequantized and upcast ``DECODE_UPCAST_BYTES`` at a time
+    (whole batch rows; each row's arithmetic is the same either way)."""
+    rows = max(1, DECODE_UPCAST_BYTES // (8 * k[0].numel()))
+    outs = [_grouped_attn(q[i:i + rows],
+                          _maybe_dequant_kv(k[i:i + rows], cfg).to(q.dtype),
+                          _maybe_dequant_kv(v[i:i + rows], cfg).to(q.dtype),
+                          valid[i:i + rows, None, None, None, :],
+                          cfg.logit_softcap)
+            for i in range(0, q.shape[0], rows)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 KV_SPEC = Q.QSpec(8, True, -3)
@@ -397,7 +513,13 @@ def mla_init(draw: Draw, cfg, d, dtype):
     )
 
 
-def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None):
+def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None,
+              cache_out=None):
+    """MLA (deepseek-v3) over x, its weights whole on every 'model' rank;
+    decode writes the latent cache into ``cache_out``'s buffers where
+    given (``update_at``)."""
+    ctx.note("mla", 1)
+    p = ctx.gather_tree(p)
     B, S, d = x.shape
     H = cfg.num_heads
     dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
@@ -428,8 +550,11 @@ def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None):
                     acc_init=acc_init)
         return out, None
     # decode: absorbed attention over the compressed latent cache
-    cc = update_at(cache["ckv"], _maybe_quant_kv(ckv, cfg), pos)
-    ckr = update_at(cache["krope"], _maybe_quant_kv(k_rope, cfg), pos)
+    out = cache_out or {}
+    cc = update_at(cache["ckv"], _maybe_quant_kv(ckv, cfg), pos,
+                   out.get("ckv"))
+    ckr = update_at(cache["krope"], _maybe_quant_kv(k_rope, cfg), pos,
+                    out.get("krope"))
     S_kv = cc.shape[1]
     new_cache = dict(ckv=cc, krope=ckr)
     ccf = _maybe_dequant_kv(cc, cfg).to(f32)
@@ -465,12 +590,25 @@ def mlp_init(draw: Draw, cfg, d, d_ff, dtype):
 
 
 def mlp_apply(p, x, cfg, acc_init=None):
+    """Dense or gated MLP.  Where its width divides the 'model' axis
+    (``ctx.splits``), ``w_gate`` / ``w_up`` are column-parallel and
+    ``w_down`` row-parallel, summed over 'model' before ``acc_init``."""
     a = act_fn(cfg.mlp_type)
-    if cfg.mlp_type in ("silu", "geglu"):
-        h = a(dense(x, p["w_gate"], cfg=cfg)) * dense(x, p["w_up"], cfg=cfg)
+    split = ctx.splits(p["w_up"])
+    ctx.note("mlp", ctx.model_size() if split else 1)
+    if split:
+        x = ctx.to_model(x)
+        p = {k: ctx.model_part(w, 0 if k == "w_down" else 1)
+             for k, w in p.items()}
     else:
-        h = a(dense(x, p["w_up"], cfg=cfg))
-    return dense(h, p["w_down"], cfg=cfg, acc_init=acc_init)
+        p = ctx.gather_tree(p)
+    if cfg.mlp_type in ("silu", "geglu"):
+        h = a(dense(x, p["w_gate"], cfg=cfg, parts=split)) * \
+            dense(x, p["w_up"], cfg=cfg, parts=split)
+    else:
+        h = a(dense(x, p["w_up"], cfg=cfg, parts=split))
+    return row_parallel(h, p["w_down"], cfg=cfg, acc_init=acc_init,
+                        split=split)
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +663,7 @@ def moe_apply(p, x, cfg, acc_init=None):
     # routing and capacity are global: under a mesh every rank routes the
     # rows of all ranks (with the weights' gradients then alike on every
     # rank) and keeps its own rows' outputs
+    ctx.note("moe", 1)
     axes = ctx.split_axes()
     x_all = ctx.all_rows(x)
     with ctx.rows_split_over(()):
@@ -663,6 +802,7 @@ def selective_scan_chunked(u, dt, A, Bc, Cc, D, h0=None, chunk=256):
 
 def mamba_apply(p, x, cfg, *, state=None, acc_init=None):
     """Falcon-Mamba block.  state = dict(ssm, conv) for decode."""
+    ctx.note("mamba1", 1)
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     f32 = torch.float32
     xz = dense(x, p["in_proj"], cfg=cfg)
@@ -755,6 +895,7 @@ def ssd_chunked(xh, dt, A, Bc, Cc, h0=None, chunk=128):
 
 
 def mamba2_apply(p, x, cfg, *, state=None, acc_init=None):
+    ctx.note("mamba2", 1)
     B, S, d = x.shape
     di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
     nh = di // hd
@@ -794,23 +935,54 @@ def mamba2_apply(p, x, cfg, *, state=None, acc_init=None):
 # ---------------------------------------------------------------------------
 
 
-def chunked_xent(h, emb, labels, chunk=1024, logit_softcap=0.0):
+def vocab_part(w, vdim: int):
+    """The (V, d) logits weight from its stored leaf (``(V, d)`` with
+    ``vdim`` 0, ``(d, V)`` with 1) and the first vocabulary id it holds:
+    this rank's V/tp rows where the vocabulary divides the 'model' axis
+    (``ctx.splits``), else the whole table and ``None``."""
+    V = w.shape[vdim]
+    split = ctx.splits(w, V)
+    ctx.note("logits", ctx.model_size() if split else 1)
+    if not split:
+        w = ctx.gather(w)
+        return (w if vdim == 0 else w.T), None
+    w = ctx.model_part(w, vdim)
+    v0 = ctx.model_rank() * (V // ctx.model_size())
+    return (w if vdim == 0 else w.T), v0
+
+
+def chunked_xent(h, emb, labels, chunk=1024, logit_softcap=0.0, v0=None):
     """h: (B,S,d), emb: (V,d), labels: (B,S) int (-100 = ignore).
-    Returns (sum_nll, count)."""
+    Returns (sum_nll, count).  With ``v0`` (``vocab_part``), ``emb`` is
+    this rank's rows of the vocabulary from id ``v0`` on: each rank
+    computes its logits, and the log-sum-exp's max and sum and the gold
+    logit (from the rank that holds it) are reduced over 'model'."""
     B, S, d = h.shape
     c = min(chunk, S)
     assert S % c == 0, (S, c)
     s = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    if v0 is not None:
+        h = ctx.to_model(h)
     w = emb.T.to(h.dtype)
     for c0 in range(0, S, c):
         hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
         logits = torch.matmul(hc, w).to(torch.float32)
         if logit_softcap:
             logits = torch.tanh(logits / logit_softcap) * logit_softcap
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            torch.clamp(lc, min=0).to(torch.long)[..., None])[..., 0]
+        if v0 is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, torch.clamp(lc, min=0).to(
+                torch.long)[..., None])[..., 0]
+        else:
+            m = ctx.model_max(logits.amax(dim=-1))
+            lse = m + torch.log(ctx.model_sum(
+                torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+            idx = lc.to(torch.long) - v0
+            mine = (idx >= 0) & (idx < logits.shape[-1])
+            g = torch.gather(logits, -1, torch.clamp(
+                idx, 0, logits.shape[-1] - 1)[..., None])[..., 0]
+            gold = ctx.model_sum(torch.where(mine, g, 0.0))
         valid = lc >= 0
         nll = torch.where(valid, lse - gold, 0.0)
         s = s + torch.sum(nll)

@@ -88,8 +88,11 @@ def prefill(params, cfg, tokens, extra=None):
     return _mod(cfg).prefill(params, cfg, tokens, extra)
 
 
-def decode_step(params, cfg, tokens, pos, cache):
-    return _mod(cfg).decode_step(params, cfg, tokens, pos, cache)
+def decode_step(params, cfg, tokens, pos, cache, *, donate=False):
+    """One decode step; ``donate``: write the new cache into ``cache``'s
+    own tensors (the caller never reads the old one again)."""
+    return _mod(cfg).decode_step(params, cfg, tokens, pos, cache,
+                                 donate=donate)
 
 
 def init_cache(cfg, B, S, device=None) -> dict:

@@ -55,9 +55,9 @@ def hidden_states(params, cfg, tokens, extra=None):
 
 def loss_fn(params, cfg, batch):
     h = hidden_states(params, cfg, batch["tokens"])
-    emb = ctx.constrain(ctx.gather(params["unembed"]).T.to(
-        cfg.compute_dtype), "model", None)
-    s, cnt = L.chunked_xent(h, emb, batch["labels"], cfg.loss_chunk)
+    emb, v0 = L.vocab_part(params["unembed"], 1)
+    s, cnt = L.chunked_xent(h, emb.to(cfg.compute_dtype), batch["labels"],
+                            cfg.loss_chunk, v0=v0)
     loss = s / torch.clamp_min(cnt, 1)
     return loss, dict(loss=loss, tokens=cnt)
 
@@ -67,15 +67,18 @@ def prefill(params, cfg, tokens, extra=None):
     return torch.matmul(h[:, -1:], ctx.gather(params["unembed"]).to(h.dtype))
 
 
-def decode_step(params, cfg, tokens, pos, cache):
+def decode_step(params, cfg, tokens, pos, cache, *, donate=False):
+    """One token a row against the Mamba1 states; each layer writes its new
+    states once, into stacked buffers allocated here or, with ``donate``,
+    into ``cache``'s own tensors (see ``transformer.decode_step``)."""
     h = _embed(params, cfg, tokens)
-    ssm, conv = [], []
+    new = {k: cache[k] if donate else torch.empty_like(cache[k])
+           for k in ("ssm_state", "conv_state")}
     for i, p in enumerate(L.layers(params["blocks"])):
         h, ns = _block(p, h, cfg, state=dict(ssm=cache["ssm_state"][i],
                                              conv=cache["conv_state"][i]))
-        ssm.append(ns["ssm"])
-        conv.append(ns["conv"])
+        new["ssm_state"][i].copy_(ns["ssm"])
+        new["conv_state"][i].copy_(ns["conv"])
     h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
     logits = torch.matmul(h, ctx.gather(params["unembed"]).to(h.dtype))
-    return logits, dict(ssm_state=torch.stack(ssm),
-                        conv_state=torch.stack(conv))
+    return logits, new

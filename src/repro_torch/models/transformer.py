@@ -6,8 +6,10 @@ init lays them out, and run by a Python loop over the layers (the
 reference's ``lax.scan``), each checkpointed under autograd as the
 reference remats it.
 Under a mesh (``parallel.ctx``) the forward computes this rank's rows with
-each layer's weights all-gathered at their use, inside the layer's
-rematerialized body.
+each layer's weights gathered at their use, inside the layer's
+rematerialized body: over the batch axes only where GQA heads, the MLP's
+width or the vocabulary split over 'model' (Megatron's tensor
+parallelism), whole elsewhere.
 The residual stream uses the paper's add-fold: the block output matmul
 receives the skip stream as its accumulator initializer (``acc_init``)
 instead of a separate Add node (``cfg.residual_fusion``).
@@ -94,30 +96,37 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the sub-trees whose layer function gathers its own weights (GQA, the MLP
+# and the MoE split or gather them at their use)
+_GATHERS_OWN = ("attn", "xattn", "mlp", "moe")
+
+
 def _apply_block(p, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
-                 enc_out=None, xattn_cache=None):
-    """One pre-norm block with add-fold residuals.  Returns (h, new_cache)."""
-    # the layer's weights gathered at their use (the MoE gathers its own,
-    # inside the region where every rank computes every row)
-    p = {k: v if k == "moe" else ctx.gather_tree(v) for k, v in p.items()}
+                 enc_out=None, xattn_cache=None, cache_out=None):
+    """One pre-norm block with add-fold residuals.  ``cache_out``: the
+    buffers a decode writes the layer's new cache into.  Returns (h,
+    new_cache)."""
+    # the norms' weights gathered at their use
+    p = {k: v if k in _GATHERS_OWN else ctx.gather_tree(v)
+         for k, v in p.items()}
     fuse = cfg.residual_fusion
     skip = h
     if cfg.attn_type == "mla":
         a, new_kv = L.mla_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
                                 cache=cache, pos=pos,
-                                acc_init=skip if fuse else None)
+                                acc_init=skip if fuse else None,
+                                cache_out=cache_out)
     else:
         a, new_kv = L.gqa_apply(p["attn"], L.norm(h, p["ln1"], cfg), cfg,
                                 causal=causal, cache=cache, pos=pos,
-                                acc_init=skip if fuse else None)
+                                acc_init=skip if fuse else None,
+                                cache_out=cache_out)
     h = a if fuse else h + a
     if enc_out is not None or xattn_cache is not None:
         skip = h
-        kv = xattn_cache
-        if kv is None:
-            kv = cross_kv(p["xattn"], enc_out, cfg)
         x, _ = L.gqa_apply(p["xattn"], L.norm(h, p["ln_x"], cfg), cfg,
-                           xattn_kv=kv, acc_init=skip if fuse else None)
+                           xattn_kv=xattn_cache, enc_out=enc_out,
+                           acc_init=skip if fuse else None)
         h = x if fuse else h + x
     skip = h
     hn = L.norm(h, p["ln2"], cfg)
@@ -129,40 +138,32 @@ def _apply_block(p, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
     return h, new_kv
 
 
-def cross_kv(p_xattn, enc_out, cfg):
-    """One decoder block's cross-attention K/V over the encoder states."""
-    B = enc_out.shape[0]
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    return dict(
-        k=L.dense(enc_out, p_xattn["wk"], cfg=cfg).reshape(B, -1, KV, hd),
-        v=L.dense(enc_out, p_xattn["wv"], cfg=cfg).reshape(B, -1, KV, hd))
-
-
 def _scan_blocks(stack, h, cfg, *, use_moe, causal=True, cache=None, pos=None,
-                 enc_out=None, xattn_cache=None):
+                 enc_out=None, xattn_cache=None, cache_out=None):
     """Run a stacked block over the layer axis, rematerialized per layer
     under autograd (``cfg.remat``, ``cfg.remat_policy``).  ``cache`` /
-    ``xattn_cache`` are stacked along the same axis; returns (h, stacked
-    new caches or None)."""
-    def body(h, p, kv, xkv):
+    ``xattn_cache`` are stacked along the same axis; a decode (``cache``)
+    writes layer ``i``'s new cache into ``cache_out[k][i]`` (stacked
+    buffers of ``cache``'s shapes: the reference's scan outputs).
+    Returns h."""
+    def body(h, p, kv, xkv, kv_out):
         # pin the residual stream: batch over (pod,data), d replicated
         h = ctx.constrain(h, ctx.batch_axes(),
                           "model" if cfg.seq_shard else None, None)
         return _apply_block(p, h, cfg, use_moe=use_moe, causal=causal,
                             cache=kv, pos=pos, enc_out=enc_out,
-                            xattn_cache=xkv)
+                            xattn_cache=xkv, cache_out=kv_out)
 
     body = L.remat(body, cfg.remat, cfg.remat_policy)
-    new = []
     for i, p in enumerate(L.layers(stack)):
-        kv = None if cache is None else {k: v[i] for k, v in cache.items()}
+        kv = kv_out = None
+        if cache is not None:
+            kv = {k: v[i] for k, v in cache.items()}
+            kv_out = {k: v[i] for k, v in cache_out.items()}
         xkv = (None if xattn_cache is None
                else {k: v[i] for k, v in xattn_cache.items()})
-        h, nkv = body(h, p, kv, xkv)
-        new.append(nkv)
-    if new[0] is None:
-        return h, None
-    return h, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+        h, _ = body(h, p, kv, xkv, kv_out)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +185,8 @@ def _encode(params, cfg, frames):
     """Whisper encoder over stub frame embeddings (conv frontend is a stub)."""
     h = frames.to(cfg.compute_dtype) + \
         ctx.gather(params["enc_pos"])[None, :frames.shape[1]]
-    h, _ = _scan_blocks(params["enc_blocks"], h, cfg, use_moe=False,
-                        causal=False)
+    h = _scan_blocks(params["enc_blocks"], h, cfg, use_moe=False,
+                     causal=False)
     return L.norm(h, ctx.gather_tree(params["enc_norm"]), cfg)
 
 
@@ -195,7 +196,7 @@ def encoder_cache(params, cfg: ModelConfig, frames) -> dict:
     decoder reads at every step after a prefill (the reference's decode
     reads them from the cache and has no function that fills them)."""
     enc_out = _encode(params, cfg, frames)
-    kvs = [cross_kv(ctx.gather_tree(p["xattn"]), enc_out, cfg)
+    kvs = [L.cross_kv(ctx.gather_tree(p["xattn"]), enc_out, cfg)
            for p in L.layers(params["blocks"])]
     return dict(xk=torch.stack([kv["k"] for kv in kvs]),
                 xv=torch.stack([kv["v"] for kv in kvs]))
@@ -217,11 +218,11 @@ def hidden_states(params, cfg: ModelConfig, tokens, extra=None):
         h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
     if cfg.family == "moe":
         if cfg.first_dense_layers:
-            h, _ = _scan_blocks(params["blocks"], h, cfg, use_moe=False)
-        h, _ = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True)
+            h = _scan_blocks(params["blocks"], h, cfg, use_moe=False)
+        h = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True)
     else:
-        h, _ = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
-                            enc_out=enc_out)
+        h = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
+                         enc_out=enc_out)
     return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
@@ -232,14 +233,16 @@ def unembed_weight(params, cfg):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Next-token cross entropy (chunked over sequence)."""
+    """Next-token cross entropy (chunked over sequence; the vocabulary
+    split over 'model' where it divides the axis, ``layers.vocab_part``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     extra = {k: v for k, v in batch.items() if k in ("frames", "patches")}
     h = hidden_states(params, cfg, tokens, extra)
-    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
-    # vocab-sharded view for the logits matmul (param is stored d-sharded)
-    emb = ctx.constrain(emb, "model", None)
-    s, cnt = L.chunked_xent(h, emb, labels, cfg.loss_chunk, cfg.logit_softcap)
+    emb, v0 = (L.vocab_part(params["embed"], 0) if cfg.tie_embeddings
+               else L.vocab_part(params["unembed"], 1))
+    emb = emb.to(cfg.compute_dtype)
+    s, cnt = L.chunked_xent(h, emb, labels, cfg.loss_chunk, cfg.logit_softcap,
+                            v0=v0)
     loss = s / torch.clamp_min(cnt, 1)
     if cfg.mtp_depth:
         # deepseek MTP: one extra depth predicting t+2 from the trunk states
@@ -251,7 +254,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
         lab2 = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
                          dim=1)
         s2, c2 = L.chunked_xent(hm, emb, lab2, cfg.loss_chunk,
-                                cfg.logit_softcap)
+                                cfg.logit_softcap, v0=v0)
         loss = loss + 0.3 * s2 / torch.clamp_min(c2, 1)
     return loss, dict(loss=loss, tokens=cnt)
 
@@ -269,43 +272,43 @@ def prefill(params, cfg: ModelConfig, tokens, extra=None):
 # ---------------------------------------------------------------------------
 
 
-def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache, *,
+                donate=False):
     """tokens (B,1), pos (B,), cache per configs.base.cache_specs.
-    Returns (logits (B,1,V), new_cache)."""
+    Returns (logits (B,1,V), new_cache).  Each layer writes its new cache
+    once, into one stacked buffer a cache entry allocated here, or, with
+    ``donate`` (a caller that never reads the old cache again, as the
+    reference's donated buffer), into ``cache``'s own tensors."""
     h = _embed(params, cfg, tokens)
     if cfg.family == "audio":
         h = h + ctx.gather(params["dec_pos"])[pos.to(torch.long)][:, None].to(
             h.dtype)
+    keys = [k for k in ("k", "v", "ckv", "krope") if k in cache]
+    new_cache = dict(cache)
+    for k in keys:
+        new_cache[k] = cache[k] if donate else torch.empty_like(cache[k])
 
     if cfg.family == "moe":
-        nd = cfg.first_dense_layers
-        new_cache = dict(cache)
-        keys = ("ckv", "krope") if cfg.attn_type == "mla" else ("k", "v")
-        parts = {k: [] for k in keys}
+        nd, nl = cfg.first_dense_layers, cfg.num_layers
         if nd:
-            h, kv_d = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
-                                   cache={k: cache[k][:nd] for k in keys},
-                                   pos=pos)
-            for k in keys:
-                parts[k].append(kv_d[k])
-        h, kv_m = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True,
-                               cache={k: cache[k][nd:cfg.num_layers]
-                                      for k in keys}, pos=pos)
-        for k in keys:
-            new_cache[k] = torch.cat(parts[k] + [kv_m[k]], dim=0)
+            h = _scan_blocks(params["blocks"], h, cfg, use_moe=False,
+                             cache={k: cache[k][:nd] for k in keys},
+                             pos=pos,
+                             cache_out={k: new_cache[k][:nd] for k in keys})
+        h = _scan_blocks(params["moe_blocks"], h, cfg, use_moe=True,
+                         cache={k: cache[k][nd:nl] for k in keys}, pos=pos,
+                         cache_out={k: new_cache[k][nd:nl] for k in keys})
     else:
         xattn_cache = None
         if cfg.family == "audio":
             xattn_cache = dict(
                 k=cache["xk"].to(cfg.compute_dtype),
                 v=cache["xv"].to(cfg.compute_dtype))
-        layer_cache = {k: v for k, v in cache.items()
-                       if k in ("k", "v", "ckv", "krope")}
-        h, kvs = _scan_blocks(
-            params["blocks"], h, cfg, use_moe=False, cache=layer_cache,
-            pos=pos, xattn_cache=xattn_cache)
-        new_cache = dict(cache)
-        new_cache.update(kvs)
+        h = _scan_blocks(
+            params["blocks"], h, cfg, use_moe=False,
+            cache={k: cache[k] for k in keys}, pos=pos,
+            xattn_cache=xattn_cache,
+            cache_out={k: new_cache[k] for k in keys})
     h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
     emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
     emb = ctx.constrain(emb, "model", None)

@@ -11,7 +11,20 @@ tensors; DTensor carries the parameters and every collective:
   them again): the DTensor redistributed to ``Replicate`` on every mesh
   dim, then its local tensor, whose gradient is declared ``Partial`` over
   the mesh dims that split the batch rows, so the backward reduce-scatters
-  it onto the weight's own placements.
+  it onto the weight's own placements.  The ranks of 'model' then compute
+  the same thing.
+* Tensor parallelism (Megatron's split) where a layer's width divides
+  the 'model' axis (``splits``) or its heads share a factor with it:
+  ``model_part(w, dim)`` gathers a
+  weight over the batch axes only and keeps this rank's 1/tp of ``dim`` on
+  'model' (column-parallel by the output dim, row-parallel by the input
+  dim; a stored placement on another dim is moved by an all-to-all);
+  ``to_model(x)`` is the identity whose backward all-reduces ``x``'s
+  gradient over 'model' (the input of a column-parallel block) and
+  ``model_sum(y)`` the all-reduce over 'model' after a row-parallel
+  matmul, whose backward hands each rank the gradient as it is.  Each
+  layer kind notes how many ways it split (``note`` / ``split_kinds``),
+  which the dry-run reports.
 * ``local_rows(batch)`` / ``rows_split_over(axes)``: the rows this rank
   computes and the mesh dims that split them (every batch axis when the
   rows divide over them, else none: each rank then computes all rows).
@@ -220,6 +233,145 @@ def whole_along(w, dim: int):
 def gather_tree(tree):
     """``gather`` at every leaf (a layer's weights at its use)."""
     return T.tree_map(gather, tree)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over 'model'
+# ---------------------------------------------------------------------------
+
+# the layer kinds that ran since ``split_kinds(reset=True)``: kind -> the
+# set of ways each call split it over 'model' (1: computed whole on every
+# 'model' rank)
+_KINDS: dict = {}
+
+
+def model_size() -> int:
+    """The ambient mesh's 'model' extent (1 without a mesh or the axis)."""
+    if _MESH is None or "model" not in _names(_MESH):
+        return 1
+    return _MESH.size(_model_index(_MESH))
+
+
+def model_rank() -> int:
+    """This rank's coordinate on 'model' (0 without the axis)."""
+    if model_size() == 1:
+        return 0
+    return _MESH.get_coordinate()[_model_index(_MESH)]
+
+
+def splits(w, n=None) -> bool:
+    """Whether a layer whose weight ``w`` has ``n`` heads (or vocabulary
+    rows; by default ``w``'s last dim, its columns) splits them over
+    'model': ``w`` a DTensor (a weight gathered already, e.g. inside the
+    MoE's every-row region, does not) and a 'model' axis of more than one
+    rank that divides ``n``."""
+    if not on_model(w):
+        return False
+    return (w.shape[-1] if n is None else n) % model_size() == 0
+
+
+def on_model(w) -> bool:
+    """``w`` a DTensor under a 'model' axis of more than one rank."""
+    return model_size() > 1 and _is_dtensor(w)
+
+
+def note(kind: str, ways: int) -> None:
+    """Record that a layer of ``kind`` split its compute ``ways`` ways over
+    'model' (1: whole on every rank; only under a 'model' axis of more
+    than one rank)."""
+    if model_size() > 1:
+        _KINDS.setdefault(kind, set()).add(int(ways))
+
+
+def split_kinds(reset: bool = False) -> dict:
+    """``{"split": {kind: ways}, "repeat": [kinds]}`` of the layers noted
+    since the last reset (a kind that did both is in both; ``ways`` the
+    fewest it split)."""
+    out = dict(split={k: min(w for w in v if w > 1)
+                      for k, v in sorted(_KINDS.items()) if max(v) > 1},
+               repeat=sorted(k for k, v in _KINDS.items() if 1 in v))
+    if reset:
+        _KINDS.clear()
+    return out
+
+
+def _model_index(mesh) -> int:
+    return _names(mesh).index("model")
+
+
+def model_part(w, dim: int) -> torch.Tensor:
+    """This rank's 1/tp of weight ``w`` along ``dim`` on 'model', whole
+    over the other mesh dims: the DTensor redistributed to ``Shard(dim)``
+    on 'model' and ``Replicate`` elsewhere (from the stored placements: a
+    gather over the batch axes and, where 'model' holds another dim, an
+    all-to-all), then its local tensor, whose gradient is ``Partial`` over
+    the mesh dims that split the rows and ``Shard(dim)`` on 'model', so
+    that the backward sends it back to the stored placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    dim = dim % w.ndim
+    mi = _model_index(mesh)
+    want = [Shard(dim) if i == mi else Replicate() for i in range(mesh.ndim)]
+    if tuple(w.placements) != tuple(want):
+        w = w.redistribute(mesh, want)
+    grad_pl = _grad_placements(mesh)
+    grad_pl[mi] = Shard(dim)
+    return w.to_local(grad_placements=grad_pl)
+
+
+def gather_for_parts(w) -> torch.Tensor:
+    """``w`` whole on this rank, for a layer whose 'model' ranks each read
+    a different part of it (the K/V heads of their own query heads): its
+    gradient is ``Partial`` over 'model' as over the split rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = w.device_mesh
+    if not all(p.is_replicate() for p in w.placements):
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad_pl = _grad_placements(mesh)
+    grad_pl[_model_index(mesh)] = Partial()
+    return w.to_local(grad_placements=grad_pl)
+
+
+def _on_model(p) -> list:
+    """Placements: ``p`` on 'model', ``Replicate`` on every other mesh dim
+    (which these collectives leave as they are)."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate()] * _MESH.ndim
+    pl[_model_index(_MESH)] = p
+    return pl
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, the input of a column-parallel block: the backward
+    sums its gradient over 'model' (each rank's columns add their part)."""
+    if model_size() == 1:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    return DTensor.from_local(x, _MESH, _on_model(Replicate()),
+                              run_check=False).to_local(
+        grad_placements=_on_model(Partial()))
+
+
+def model_sum(y: torch.Tensor) -> torch.Tensor:
+    """``y`` summed over 'model' (the partial products of a row-parallel
+    matmul), the same on every 'model' rank; the backward hands each rank
+    the gradient of the sum as it is."""
+    if model_size() == 1:
+        return y
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    return DTensor.from_local(y, _MESH, _on_model(Partial()),
+                              run_check=False).redistribute(
+        _MESH, _on_model(Replicate())).to_local()
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (no gradient) maxed over 'model'."""
+    if model_size() == 1:
+        return x.detach()
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    return DTensor.from_local(x.detach(), _MESH, _on_model(Partial("max")),
+                              run_check=False).redistribute(
+        _MESH, _on_model(Replicate())).to_local()
 
 
 # ---------------------------------------------------------------------------

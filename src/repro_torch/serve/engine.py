@@ -82,11 +82,13 @@ class Engine:
 
     def _step(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """One ``decode_step`` over every slot; returns the logits (slots, 1,
-        V) on the device and keeps the new cache."""
+        V) on the device and keeps the new cache, written into the
+        engine's own (donated: nothing reads the old one again)."""
         with torch.no_grad():
             logits, self.cache = M.decode_step(
                 self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(pos).to(self.device), self.cache)
+                torch.from_numpy(pos).to(self.device), self.cache,
+                donate=True)
         self.steps += 1
         return logits
 

@@ -368,3 +368,184 @@ def train_world(rank, world, inp):
               for a in inp["params"] for q in (False, True)]
     pairs += [("checkpoint", checkpoint), ("refuses_int8", refuses_int8)]
     return checks(pairs)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp.py
+# ---------------------------------------------------------------------------
+
+
+def tp_world(rank, world, inp):
+    """Tensor parallelism over 'model' on a (data, model) mesh of
+    ``inp["mesh"]``: train steps and QAT gradients against the unsharded
+    ones, the add-fold counted once, the vocabulary-parallel cross entropy
+    against the whole-vocabulary one, and one MLP block's flops a rank."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import base as cb
+    from repro_torch.core import tree as T
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.loop import value_and_grad
+
+    D, Mo = inp["mesh"]
+    mesh = mesh_lib.make_local_mesh(D, Mo, "cpu")
+    kw = dict(min_size_fsdp=2 ** 10)
+
+    def host(x):
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        return None if x is None else x.detach().numpy()
+
+    def steps(arch, int8):
+        def run():
+            cfg = cb.get_smoke_config(arch)
+            p = inp["params"][arch]
+            opt = opt_lib.adamw(**dict(inp["hp"], int8_state=int8))
+            step = S.make_train_step(cfg, opt, grad_accum=2)
+            pu = T.tree_map(lambda t: t.clone(), p)
+            su = opt.init(pu)
+            ps = shd.distribute_tree(p, shd.params_shardings(p, mesh, **kw))
+            ss = opt.init(ps)
+            losses, ulosses = [], []
+            ctx.split_kinds(reset=True)
+            for i in range(2):
+                batch = _lm_batch(cfg, 10 + i, 8, 16)
+                pu, su, mu = step(pu, su, i, batch)
+                with ctx.mesh_context(mesh):
+                    ps, ss, ms = step(ps, ss, i, batch)
+                ulosses.append(float(mu["loss"]))
+                losses.append(float(ms["loss"]))
+            return dict(losses=losses, ulosses=ulosses,
+                        uparams=[host(t) for t in T.leaves(pu)],
+                        params=[host(t) for t in T.leaves(ps)],
+                        kinds=ctx.split_kinds(reset=True))
+        return run
+
+    def grads(arch, **over):
+        def run():
+            cfg = cb.get_smoke_config(arch).with_(**over)
+            p = M.init_params(cfg, 0, "cpu")
+            batch = _lm_batch(cfg, 1, 4, 16)
+            (l0, _), g0 = value_and_grad(
+                lambda q: M.loss_fn(q, cfg, batch), p)
+            pd = shd.distribute_tree(p, shd.params_shardings(p, mesh, **kw))
+            ctx.split_kinds(reset=True)
+            with ctx.mesh_context(mesh):
+                rows, axes = ctx.local_rows(batch)
+                with ctx.rows_split_over(axes):
+                    (l1, _), g1 = value_and_grad(
+                        lambda q: M.loss_fn(q, cfg, rows), pd)
+            return dict(loss=(float(l0), float(l1)),
+                        grads=[host(t) for t in T.leaves(g0)],
+                        sharded=[host(t) for t in T.leaves(g1)],
+                        kinds=ctx.split_kinds(reset=True))
+        return run
+
+    def layer_weights(arch, zero):
+        """A smoke config's first block: its weights whole and on the
+        mesh, ``zero`` (wo / w_down) set to 0."""
+        cfg = cb.get_smoke_config(arch)
+        blk = T.tree_map(lambda t: t[0], M.init_params(cfg, 0, "cpu")["blocks"])
+        for sub, name in zero:
+            blk[sub][name] = torch.zeros_like(blk[sub][name])
+        on = shd.distribute_tree(blk, shd.params_shardings(blk, mesh))
+        return cfg, blk, on
+
+    def add_fold():
+        """``acc_init`` enters once: with the block's output weight zero its
+        output is the skip stream itself, and otherwise the unsharded
+        block's (MLP and GQA attention, gemma-2b's smoke config)."""
+        out = {}
+        gen = torch.Generator().manual_seed(3)
+        for zero in (True, False):
+            cfg, blk, on = layer_weights(
+                "gemma-2b", [("mlp", "w_down"), ("attn", "wo")] if zero
+                else [])
+            x = torch.randn((2, 8, cfg.d_model), generator=gen)
+            skip = torch.randn((2, 8, cfg.d_model), generator=gen)
+            want_m = L.mlp_apply(blk["mlp"], x, cfg, acc_init=skip)
+            want_a, _ = L.gqa_apply(blk["attn"], x, cfg, acc_init=skip)
+            ctx.split_kinds(reset=True)
+            with ctx.mesh_context(mesh):
+                got_m = L.mlp_apply(on["mlp"], x, cfg, acc_init=skip)
+                got_a, _ = L.gqa_apply(on["attn"], x, cfg, acc_init=skip)
+            out["zero" if zero else "whole"] = dict(
+                skip=skip.numpy(), mlp=(host(want_m), host(got_m)),
+                attn=(host(want_a), host(got_a)),
+                kinds=ctx.split_kinds(reset=True))
+        return out
+
+    def vocab_xent():
+        """``chunked_xent`` over the vocabulary split on 'model' (tied
+        (V, d) table and untied (d, V) leaf, with a softcap, ignored
+        labels) against the whole table: value and gradients."""
+        gen = torch.Generator().manual_seed(5)
+        V, d, B, Sq = 512, 32, 4, 8
+        h0 = torch.randn((B, Sq, d), generator=gen)
+        labels = torch.randint(0, V, (B, Sq), generator=gen)
+        labels[0, :3] = -100
+        tab = torch.randn((V, d), generator=gen)
+        out = {}
+        for name, leaf, vdim, cap in (("tied", tab, 0, 0.0),
+                                      ("untied", tab.T.contiguous(), 1, 30.0)):
+            def loss(p, hh, lab):
+                emb, v0 = L.vocab_part(p["w"], vdim)
+                s, c = L.chunked_xent(hh, emb, lab, 4, cap, v0=v0)
+                return s, dict(c=c)
+            h = h0.clone().requires_grad_(True)
+            (s0, m0), g0 = value_and_grad(
+                lambda p: loss(p, h, labels), dict(w=leaf))
+            (gh0,) = torch.autograd.grad(loss(dict(w=leaf), h, labels)[0], h)
+            on = shd.distribute_tree(dict(w=leaf), shd.params_shardings(
+                dict(w=leaf), mesh, min_size_fsdp=2 ** 10))
+            with ctx.mesh_context(mesh):
+                rows, axes = ctx.local_rows(dict(h=h0, labels=labels))
+                with ctx.rows_split_over(axes):
+                    hr = rows["h"].clone().requires_grad_(True)
+                    (s1, m1), g1 = value_and_grad(
+                        lambda p: loss(p, hr, rows["labels"]), on)
+                    (gh1,) = torch.autograd.grad(
+                        loss(on, hr, rows["labels"])[0], hr)
+                    v0 = L.vocab_part(on["w"], vdim)[1]
+            nr = rows["h"].shape[0]
+            lo = ctx._rows_index(mesh, axes)[0] * nr if axes else 0
+            out[name] = dict(
+                loss=(float(s0), float(s1)), count=(int(m0["c"]),
+                                                    int(m1["c"])),
+                grad=(host(g0["w"]), host(g1["w"])),
+                grad_h=(gh0.numpy()[lo:lo + nr], gh1.numpy()), v0=v0)
+        return out
+
+    def mlp_flops():
+        """Each rank's flops of one MLP block (forward and backward) at
+        the mesh's 'model' extent against the whole block's."""
+        cfg, blk, on = layer_weights("granite-8b", [])
+        x = torch.randn((2, 16, cfg.d_model))
+        for t in T.leaves(blk["mlp"]) + T.leaves(on["mlp"]):
+            t.requires_grad_(True)
+
+        def count(p, mesh_):
+            fl = FlopCounterMode(display=False)
+            with ctx.mesh_context(mesh_), fl:
+                xx = x.clone().requires_grad_(True)
+                y = L.mlp_apply(p, xx, cfg)
+                y.sum().backward()
+            return fl.get_total_flops()
+        return dict(whole=count(blk["mlp"], None),
+                    rank=count(on["mlp"], mesh), tp=Mo)
+
+    if "partial" in inp:
+        # heads that share a factor with 'model' but do not divide it
+        return checks([(f"partial/{a}", grads(a, **over))
+                       for a, over in inp["partial"].items()])
+    pairs = [(f"steps/{a}/{'int8' if q else 'float'}", steps(a, q))
+             for a in inp["params"] for q in (False, True)]
+    pairs += [(f"qat/{a}", grads(a, quant="qat")) for a in inp["qat"]]
+    pairs += [("add_fold", add_fold), ("vocab_xent", vocab_xent),
+              ("mlp_flops", mlp_flops)]
+    return checks(pairs)

@@ -127,6 +127,80 @@ def test_collective_bytes_closed_form():
                              "collective-permute": 0}
 
 
+def test_tensor_parallel_mlp_closed_form():
+    """On a fake (1, 4) ("data", "model") mesh: gemma-2b's smoke MLP
+    (GeGLU, d 64, d_ff 128) on its stored placements (the last dim on
+    'model'), forward over 8 rows.  By hand, per device: a quarter of the
+    whole block's flops (2 * 8 * 64 * 128 for each of gate and up, the
+    same for down: 393,216 in all, 98,304 a rank) and one all-reduce of
+    the (8, 64) float32 output after the row-parallel ``w_down``
+    (2,048 bytes); the MLP noted as split 4 ways."""
+    out = _python("""
+        import json, torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.configs import base as cb
+        from repro_torch.launch import dryrun, mesh as mesh_lib
+        from repro_torch.models import layers as L
+        from repro_torch.parallel import ctx, sharding as shd
+        dryrun._fake_group(4)
+        mesh = mesh_lib.make_local_mesh(1, 4, "cpu")
+        cfg = cb.get_smoke_config("gemma-2b")
+        shapes = L.mlp_init(L.Draw(None, "meta"), cfg, 64, 128,
+                            torch.float32)
+        counter = dryrun.StepCounter()
+        with FakeTensorMode():
+            p = {k: dryrun._dtensor(tuple(v.shape), torch.float32,
+                                    shd.NamedSharding(mesh, shd.param_spec(
+                                        "blocks/mlp/" + k, tuple(v.shape),
+                                        mesh, min_size_fsdp=2 ** 10)),
+                                    "cpu") for k, v in shapes.items()}
+            x = torch.empty(1, 8, 64)
+            fl = FlopCounterMode(display=False)
+            ctx.split_kinds(reset=True)
+            with ctx.mesh_context(mesh), counter, fl:
+                y = L.mlp_apply(p, x, cfg)
+        print(json.dumps(dict(flops=fl.get_total_flops(),
+                              reduce=counter.coll["all-reduce"],
+                              n_reduce=counter.counts["all-reduce"],
+                              shape=list(y.shape),
+                              kinds=ctx.split_kinds())))
+    """)
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["flops"] == 3 * 2 * 8 * 64 * 128 // 4
+    assert (res["reduce"], res["n_reduce"]) == (8 * 64 * 4, 1)
+    assert res["shape"] == [1, 8, 64]
+    assert res["kinds"] == {"split": {"mlp": 4}, "repeat": []}
+
+
+def test_shard_to_shard_counts_as_all_to_all():
+    """DTensor's shard-to-shard move on a GPU mesh (``_dtensor::
+    shard_dim_alltoall``, the stored column shard of a weight to the row
+    shard a row-parallel matmul reads) counts as one all-to-all of its
+    result bytes: (16, 8) float32 on 4 ranks to (4, 32), 512 bytes."""
+    out = _python("""
+        import json, torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.launch import dryrun, mesh as mesh_lib
+        dryrun._fake_group(4)
+        mesh = mesh_lib.make_local_mesh(1, 4, "cpu")
+        counter = dryrun.StepCounter()
+        with FakeTensorMode():
+            x = torch.empty(16, 8)
+            with counter:
+                y = torch.ops._dtensor.shard_dim_alltoall(
+                    x, 1, 0, mesh.get_group(1).group_name)
+        print(json.dumps(dict(shape=list(y.shape), coll=counter.coll,
+                              counts=counter.counts)))
+    """)
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["shape"] == [4, 32]
+    assert res["coll"]["all-to-all"] == 4 * 32 * 4
+    assert res["counts"] == {"all-reduce": 0, "all-gather": 0,
+                             "reduce-scatter": 0, "all-to-all": 1,
+                             "collective-permute": 0}
+
+
 def test_memory_tracker_counts_new_storage_only():
     from torch._subclasses.fake_tensor import FakeTensorMode
     counter = dryrun.StepCounter()

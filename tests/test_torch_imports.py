@@ -29,8 +29,8 @@ sys.exit(1 if bad else 0)
 # the submodules of each slice, so that a new one cannot be missed by the
 # walk (the serving-at-scale and tuning slice, the training and
 # quantization slice, the traffic and health slice, the compile-smoke CLI,
-# the float LMs with their server, LM training and the parallel layer with
-# the dry-run, among them)
+# the float LMs with their server, LM training, the parallel layer with
+# the dry-run and the examples' twins, among them)
 EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.tune.space", "repro_torch.tune.cost",
             "repro_torch.tune.search", "repro_torch.tune.cache",
@@ -62,7 +62,11 @@ EXPECTED = {"repro_torch.serve.sched", "repro_torch.serve.engine",
             "repro_torch.launch.analytic", "repro_torch.launch.mesh",
             "repro_torch.parallel.sharding", "repro_torch.parallel.ctx",
             "repro_torch.parallel.collectives", "repro_torch.parallel.pp",
-            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all"}
+            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.train_resnet_cifar",
+            "repro_torch.examples.serve_lm",
+            "repro_torch.examples.multipod_dryrun"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

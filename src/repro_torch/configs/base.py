@@ -8,8 +8,10 @@ decode_32k / long_500k) are ``ShapeSpec``s; ``input_specs()`` and
 allocating: each entry is made by a factory ``sds(shape, dtype, axes)``,
 by default a ``TensorSpec`` (shape, torch dtype).  ``axes`` names the
 logical axes of each dimension, as the JAX package hands them to its
-sharding rules; the port does not shard yet and the default factory drops
-them.  ``model.init_cache`` passes a factory that allocates zeros.
+sharding rules (the port's are ``parallel.sharding``); the default factory
+drops them.  ``model.init_cache`` passes a factory that allocates zeros.
+``per_rank_cache()`` names the cache entries a rank holds at its own
+'model' shard.
 """
 from __future__ import annotations
 
@@ -253,3 +255,23 @@ def cache_specs(cfg: ModelConfig, B: int, S: int, sds) -> dict:
         out["xv"] = sds((L, B, cfg.encoder_len, cfg.num_kv_heads, cfg.head_dim),
                         kv_dt, (None, "batch", "seq", "heads", None))
     return out
+
+
+def per_rank_cache(cfg: ModelConfig, tp: int) -> tuple:
+    """The decode cache entries that hold this rank's heads or channels
+    only on a 'model' axis of ``tp`` ranks: those that ``cache_specs``
+    place by ``"heads"`` on a dim that ``tp`` divides (where
+    ``parallel.sharding.input_sharding_factory`` puts 'model'), but
+    Mamba2's conv state, whose packed ``[x | B | C]`` channels shard no
+    rank's own heads: it stays whole on every rank.  A layer writes and
+    reads these at its own shard and every other entry whole; the dry-run
+    keeps exactly these at their 'model' shard."""
+    if tp <= 1:
+        return ()
+
+    def sds(shape, dtype, axes):
+        return shape, axes
+    return tuple(
+        k for k, (shape, axes) in cache_specs(cfg, 1, 1, sds).items()
+        if not (cfg.family == "hybrid" and k == "conv_state")
+        and any(a == "heads" and n % tp == 0 for n, a in zip(shape, axes)))

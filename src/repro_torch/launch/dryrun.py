@@ -26,12 +26,16 @@ shard shapes.  It measures the traced step:
 * ``bytes_per_device``: operand plus result bytes of every local op (the
   reference's "bytes accessed");
 * ``argument_bytes_per_device``: the local bytes of params, optimizer
-  state and batch; ``temp_bytes_per_device``: the peak of live storage
-  above them (a tracker of the port's own: a weak reference on every
-  storage an op makes);
+  state and batch (``cache_bytes_per_device`` those of a decode cell's
+  cache); ``temp_bytes_per_device``: the peak of live storage above them
+  (a tracker of the port's own: a weak reference on every storage an op
+  makes);
 * ``model_split``: the layer kinds that split their compute over 'model'
-  (tensor parallelism: GQA heads, the MLP's width, the vocabulary) and
-  those every 'model' rank computes whole (``parallel.ctx.split_kinds``).
+  (tensor parallelism: GQA and MLA heads, the MLP's and the experts'
+  width, the Mamba mixers' channels or heads, the vocabulary) and those
+  every 'model' rank computes whole (``parallel.ctx.split_kinds``).  A
+  decode cell's cache entries that a layer reads per rank keep their
+  'model' shard (``local_inputs``, ``configs.base.per_rank_cache``).
 
 The rest (``hbm_required_bytes``, ``fits_hbm``, ``bottleneck``,
 ``model_flops``, ``useful_flops_ratio``, the ``analytic_terms`` fields)
@@ -176,27 +180,35 @@ def _dtensor(shape, dtype, sharding, device):
                               .stride())
 
 
-def _local_rows(batch, mesh):
-    """A serve cell's inputs as this rank's rows: each DTensor keeps its
-    batch dim split over the batch axes and gathers every other split
-    dim.  Returns (rows, the axes that split them)."""
+def local_placements(batch, mesh, cfg) -> dict:
+    """Path -> the placements of a serve cell's input leaf as this rank
+    computes it: the batch dim kept split over the batch axes, every other
+    split dim gathered, but the cache entries that ``cfg``'s layers read
+    at this rank's heads or channels only (``cbase.per_rank_cache``) keep
+    their 'model' shard too."""
     from torch.distributed.tensor import Replicate
 
-    axes = ctx.batch_axes()
-    split = ()
-
-    def one(path, x):
-        nonlocal split
+    names = tuple(mesh.mesh_dim_names)
+    keep = cbase.per_rank_cache(cfg, shd.axis_size(mesh, "model"))
+    out = {}
+    for path, x in T.flatten_with_path(batch):
         bdim = 1 if path.startswith("cache/") else 0
-        pl = [p if p.is_shard(bdim) else Replicate() for p in x.placements]
-        if path == "tokens":
-            split = tuple(a for a, p in zip(mesh.mesh_dim_names, pl)
-                          if p.is_shard())
-        return x.redistribute(mesh, pl).to_local()
+        own = path.startswith("cache/") and path.split("/")[-1] in keep
+        out[path] = [p if p.is_shard(bdim) or (own and a == "model") else
+                     Replicate() for a, p in zip(names, x.placements)]
+    return out
 
+
+def local_inputs(batch, mesh, cfg):
+    """A serve cell's inputs (DTensors) as this rank's local tensors, on
+    ``local_placements``.  Returns (rows, the axes that split them)."""
+    pls = local_placements(batch, mesh, cfg)
     pairs = T.flatten_with_path(batch)
-    rows = T.unflatten(batch, [one(p, x) for p, x in pairs])
-    return rows, split if set(split) <= set(axes) else ()
+    rows = T.unflatten(batch, [x.redistribute(mesh, pls[p]).to_local()
+                               for p, x in pairs])
+    split = tuple(a for a, p in zip(mesh.mesh_dim_names, pls["tokens"])
+                  if p.is_shard())
+    return rows, split if set(split) <= set(ctx.batch_axes()) else ()
 
 
 def _shape(shape_name, batch=None, seq=None):
@@ -258,9 +270,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         step = (make_prefill_step(cfg) if shape.kind == "prefill"
                 else make_serve_step(cfg))
         args = (params, batch)
+        if "cache" in batch:
+            meta["cache_bytes"] = _local_bytes(batch["cache"])
 
         def run():
-            rows, axes = _local_rows(batch, mesh)
+            rows, axes = local_inputs(batch, mesh, cfg)
             with ctx.rows_split_over(axes):
                 return step(params, rows)
     return mesh, cfg, shape, run, args, meta
@@ -347,6 +361,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         memory_analysis=memory,
         temp_bytes_per_device=tmp_b,
         argument_bytes_per_device=arg_b,
+        cache_bytes_per_device=meta.get("cache_bytes"),
     )
     # the peak above the arguments holds the outputs still live at the end
     result["hbm_required_bytes"] = arg_b + tmp_b

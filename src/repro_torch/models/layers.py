@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.configs.base import per_rank_cache
 from repro_torch.core import quant as Q
 from repro_torch.core import tree as T
 from repro_torch.parallel import ctx
@@ -335,11 +336,13 @@ def positions(pos, S, device):
 
 
 def gqa_split(p, cfg):
-    """How GQA splits its heads over 'model': ``(w, H, KV, keep)``, the
-    weights of this rank's query heads and of the K/V heads they read,
-    their counts, and whether this rank's partial product enters the
-    reduce after ``wo``; ``None`` where the block repeats whole on every
-    'model' rank.
+    """How GQA splits its heads over 'model': ``(w, H, KV, keep, kv0,
+    src)``, the weights of this rank's query heads and of the K/V heads
+    they read, their counts, whether this rank's partial product enters
+    the reduce after ``wo``, the first of its K/V heads, and where each
+    K/V head lies in the ranks' K/V heads gathered over 'model'
+    (``ctx.model_gather``); ``None`` where the block repeats whole on
+    every 'model' rank.
 
     The heads split ``s = gcd(num_heads, tp)`` ways (Megatron's split when
     ``s == tp``): the ranks of group ``j = rank // (tp / s)`` compute query
@@ -360,8 +363,16 @@ def gqa_split(p, cfg):
     if KV % s and G % Hl:
         return None
     copies = tp // s
+
+    def first_kv(j):
+        return j * KV // s if KV % s == 0 else j * Hl // G
+    nkv = KV // s if KV % s == 0 else 1
     j = ctx.model_rank() // copies
-    kv0, nkv = (j * KV // s, KV // s) if KV % s == 0 else (j * Hl // G, 1)
+    kv0 = first_kv(j)
+    src = {}
+    for rank in range(tp):
+        for t in range(nkv):
+            src.setdefault(first_kv(rank // copies) + t, rank * nkv + t)
     q_cols, kv_cols = (slice(j * Hl * hd, (j + 1) * Hl * hd),
                        slice(kv0 * hd, (kv0 + nkv) * hd))
     if copies == 1:
@@ -372,7 +383,15 @@ def gqa_split(p, cfg):
     for k in ("wk", "wv"):
         w[k] = (ctx.model_part(p[k], 1) if copies == 1 and KV % s == 0
                 else ctx.gather_for_parts(p[k])[:, kv_cols])
-    return w, Hl, nkv, ctx.model_rank() % copies == 0
+    return (w, Hl, nkv, ctx.model_rank() % copies == 0, kv0,
+            [src[i] for i in range(KV)])
+
+
+def _own_heads(t, kv0, n, whole):
+    """``t``'s K/V heads (dim 2) ``[kv0, kv0 + n)``: a cache entry that
+    holds every head (``whole``), sliced; one that holds this rank's as it
+    is."""
+    return t[:, :, kv0:kv0 + n] if whole else t
 
 
 def cross_kv(w, enc_out, cfg, KV=None, parts=False):
@@ -392,28 +411,35 @@ def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
     ``pos`` (into ``cache_out``'s buffers where given, see ``update_at``)
     and attend over the cache.  ``xattn_kv`` replaces self K/V with encoder
     states' K/V (whisper cross-attention from its cache), ``enc_out`` with
-    K/V computed here from the encoder states.  Without a cache the heads
-    split over 'model' where they divide it (``gqa_split``): this rank's
-    heads, then ``wo`` row-parallel.  Returns (out, new_cache)."""
+    K/V computed here from the encoder states.  The heads split over
+    'model' where they share a factor with it (``gqa_split``): this rank's
+    heads, then ``wo`` row-parallel.  A decode cache that holds every K/V
+    head (the same on every 'model' rank) gets the new token's K/V of
+    every rank (gathered over 'model') and is attended at this rank's
+    heads; one that holds this rank's heads (``configs.base.per_rank_cache``
+    names it) gets its own.  Returns (out, new_cache)."""
     B, S, d = x.shape
     hd = cfg.head_dim
-    split = None
-    if cache is None and xattn_kv is None:
-        split = gqa_split(p, cfg)
+    split = gqa_split(p, cfg)
     ctx.note("attention", cfg.num_heads // split[1] if split else 1)
     keep = True
     if split is None:
         w, H, KV = ctx.gather_tree(p), cfg.num_heads, cfg.num_kv_heads
     else:
-        (w, H, KV, keep), x = split, ctx.to_model(x)
+        (w, H, KV, keep, kv0, src), x = split, ctx.to_model(x)
         enc_out = None if enc_out is None else ctx.to_model(enc_out)
     parts = split is not None
+    own = per_rank_cache(cfg, ctx.model_size())
     q = dense(x, w["wq"], cfg=cfg, parts=parts).reshape(B, S, H, hd)
     if enc_out is not None:
         xattn_kv = cross_kv(w, enc_out, cfg, KV, parts=parts)
     if xattn_kv is not None:
         kx = xattn_kv["k"]
         vx = xattn_kv["v"]
+        if parts:
+            whole = "xk" not in own
+            kx, vx = (_own_heads(kx, kv0, KV, whole),
+                      _own_heads(vx, kv0, KV, whole))
         o = attention(q, kx.to(q.dtype), vx.to(q.dtype), causal=False,
                       chunk=cfg.attn_chunk)
         return row_parallel(o.reshape(B, S, H * hd), w["wo"], cfg=cfg,
@@ -434,9 +460,20 @@ def gqa_apply(p, x, cfg, *, causal=True, cache=None, pos=None, xattn_kv=None,
             S_kv = window
         # ring-buffer update for SWA; linear append otherwise
         slot = (pos % S_kv) if window else pos
-        ck = update_at(ck, _maybe_quant_kv(k, cfg), slot, out.get("k"))
-        cv = update_at(cv, _maybe_quant_kv(v, cfg), slot, out.get("v"))
+        kn, vn = _maybe_quant_kv(k, cfg), _maybe_quant_kv(v, cfg)
+        whole = "k" not in own
+        if parts and whole:
+            # every rank's new K/V heads, so that the cache stays whole
+            kn, vn = ctx.model_gather(kn, 2), ctx.model_gather(vn, 2)
+            if src != list(range(kn.shape[2])):
+                idx = torch.tensor(src, device=x.device)
+                kn, vn = kn.index_select(2, idx), vn.index_select(2, idx)
+        ck = update_at(ck, kn, slot, out.get("k"))
+        cv = update_at(cv, vn, slot, out.get("v"))
         new_cache = dict(k=ck, v=cv)
+        if parts:
+            ck, cv = (_own_heads(ck, kv0, KV, whole),
+                      _own_heads(cv, kv0, KV, whole))
         ar = torch.arange(S_kv, device=x.device)[None]
         # positions of cache slots (ring for SWA)
         if window:
@@ -515,25 +552,42 @@ def mla_init(draw: Draw, cfg, d, dtype):
 
 def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None,
               cache_out=None):
-    """MLA (deepseek-v3) over x, its weights whole on every 'model' rank;
-    decode writes the latent cache into ``cache_out``'s buffers where
-    given (``update_at``)."""
-    ctx.note("mla", 1)
-    p = ctx.gather_tree(p)
-    B, S, d = x.shape
+    """MLA (deepseek-v3) over x; decode writes the latent cache into
+    ``cache_out``'s buffers where given (``update_at``).  Where the heads
+    divide the 'model' axis (``ctx.splits``) each rank computes its
+    ``H / tp`` heads: ``wq_b`` / ``wkv_b`` (head-major) column-parallel,
+    ``wo`` row-parallel; ``wq_a``, ``wkv_a`` and the norms whole on every
+    rank, their outputs the input of the split (``ctx.to_model``).  Decode
+    attends the whole latent cache with this rank's heads; every rank
+    writes the same new latent row."""
     H = cfg.num_heads
+    split = ctx.splits(p["wq_b"], H)
+    ctx.note("mla", ctx.model_size() if split else 1)
+    if split:
+        part = ctx.to_model
+        H //= ctx.model_size()
+        p = dict(ctx.gather_tree({k: p[k] for k in ("wq_a", "q_norm",
+                                                     "wkv_a", "kv_norm")}),
+                 wq_b=ctx.model_part(p["wq_b"], 1),
+                 wkv_b=ctx.model_part(p["wkv_b"], 1),
+                 wo=ctx.model_part(p["wo"], 0))
+    else:
+        def part(t):
+            return t
+        p = ctx.gather_tree(p)
+    B, S, d = x.shape
     dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                       cfg.kv_lora_rank)
     f32 = torch.float32
-    q = dense(norm(dense(x, p["wq_a"], cfg=cfg), p["q_norm"], cfg), p["wq_b"],
-              cfg=cfg).reshape(B, S, H, dn + dr)
+    q = dense(part(norm(dense(x, p["wq_a"], cfg=cfg), p["q_norm"], cfg)),
+              p["wq_b"], cfg=cfg, parts=split).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     kv_a = dense(x, p["wkv_a"], cfg=cfg)
     ckv, k_rope = kv_a[..., :dc], kv_a[..., dc:]
-    ckv = norm(ckv, p["kv_norm"], cfg)
+    ckv = part(norm(ckv, p["kv_norm"], cfg))
     qpos = positions(pos, S, x.device)
     q_rope = rope(q_rope, qpos, cfg.rope_theta)
-    k_rope = rope(k_rope[:, :, None, :], qpos, cfg.rope_theta)[:, :, 0]
+    k_rope = part(rope(k_rope[:, :, None, :], qpos, cfg.rope_theta)[:, :, 0])
 
     wkv_b = getw(p["wkv_b"], x.dtype).reshape(dc, H, dn + dv)
     wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
@@ -546,8 +600,8 @@ def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None,
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         o = attention(qq, k, v, causal=True, chunk=cfg.attn_chunk)
-        out = dense(o.reshape(B, S, H * dv), p["wo"], cfg=cfg,
-                    acc_init=acc_init)
+        out = row_parallel(o.reshape(B, S, H * dv), p["wo"], cfg=cfg,
+                           acc_init=acc_init, split=split)
         return out, None
     # decode: absorbed attention over the compressed latent cache
     out = cache_out or {}
@@ -570,8 +624,8 @@ def mla_apply(p, x, cfg, *, cache=None, pos=None, acc_init=None,
     pr = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhst,btc->bshc", pr, ccf)
     o = torch.einsum("bshc,chv->bshv", o_lat, wv_b.to(f32))
-    out = dense(o.reshape(B, S, H * dv).to(x.dtype), p["wo"], cfg=cfg,
-                acc_init=acc_init)
+    out = row_parallel(o.reshape(B, S, H * dv).to(x.dtype), p["wo"],
+                       cfg=cfg, acc_init=acc_init, split=split)
     return out, new_cache
 
 
@@ -659,19 +713,84 @@ def moe_apply(p, x, cfg, acc_init=None):
     order, each on a static ``cap``-row slice from its start (so an
     expert's spill past its own rows is overwritten by the next experts,
     and rows past capacity are zeroed after), as the reference's scan
-    does."""
-    # routing and capacity are global: under a mesh every rank routes the
-    # rows of all ranks (with the weights' gradients then alike on every
-    # rank) and keeps its own rows' outputs
-    ctx.note("moe", 1)
-    axes = ctx.split_axes()
-    x_all = ctx.all_rows(x)
-    with ctx.rows_split_over(()):
-        y = _moe_rows(ctx.gather_tree(p), x_all, cfg)
-    y = ctx.own_rows(y, axes)
+    does.  Routing and capacity are global: where the rows split over the
+    mesh, or the experts' width over 'model', the experts' segments split
+    over the ranks that split the rows and their width over 'model'
+    (``_moe_split``; on a mesh of 'model' extent 1 that splits the rows,
+    then, within float rounding of the unsplit block, not bitwise).  The
+    dense dispatch, which has no capacity, reads only its own rows."""
+    over_model = ctx.splits(p["w_up"])
+    if cfg.moe_impl != "dense" and (over_model or ctx.row_share()[1] > 1):
+        ctx.note("moe", ctx.model_size() if over_model else 1)
+        y = _moe_split(p, x, cfg, over_model)
+    else:
+        ctx.note("moe", 1)
+        y = _moe_rows(ctx.gather_tree(p), x, cfg)
     if acc_init is not None:
         y = y + acc_init
     return y
+
+
+def _moe_split(p, x, cfg, over_model):
+    """``_moe_rows`` with its work split over the mesh.  Each rank routes
+    its own rows; the expert ids and gates are gathered over the ranks
+    that split the rows (``n``), and the global stable sort, ``cap`` and
+    ``starts`` are the reference's.  Rank ``r`` computes rows ``[r c, (r +
+    1) c)`` of every expert's ``cap``-row segment (``c = ceil(cap / n)``,
+    read from ``ctx.all_rows`` of the rows), through this rank's
+    ``moe_d_ff / tp`` columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down`` where ``over_model``.  A computed row enters only where it
+    is the expert's own slot within capacity (a spill row, which the
+    reference's next expert overwrites, and the padding enter zeros), so
+    each kept slot is counted once; its gated output is added into its
+    token's row, and the ranks' parts are summed onto each row's own
+    rank by one reduce-scatter (``ctx.sum_own_rows``).  The shared experts
+    run on this rank's rows through ``mlp_apply``."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    r, n = ctx.row_share()
+    parts = ctx.split_axes() + (("model",) if over_model else ())
+    x2d = x.reshape(B * S, d)
+    topg, topi = _route(ctx.gather_tree({"router": p["router"]}), x2d, cfg)
+    x_all = ctx.all_rows(x2d, parts)
+    g_all = ctx.all_rows(topg.to(x.dtype), parts).reshape(-1)
+    flat_e = ctx.all_rows(topi).reshape(-1)
+    T_ = B * S * n
+    order = torch.argsort(flat_e, stable=True)
+    cap = int(np.ceil(T_ * k / E * cfg.moe_capacity_factor))
+    cap = max(8, min(cap, T_ * k))
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    c = -(-cap // n)
+    j = r * c + torch.arange(c, device=x.device)   # slots of a segment
+    pad = torch.zeros(n * c, dtype=torch.long, device=x.device)
+    tok = torch.cat([order // k, pad])
+    gate = torch.cat([g_all[order], g_all.new_zeros(n * c)])
+    if over_model:
+        w = dict(w_gate=ctx.model_part(p["w_gate"], 2),
+                 w_up=ctx.model_part(p["w_up"], 2),
+                 w_down=ctx.model_part(p["w_down"], 1))
+    else:
+        w = ctx.gather_tree({q: p[q] for q in ("w_gate", "w_up", "w_down")})
+    a = act_fn(cfg.mlp_type)
+    rows, outs = [], []
+    for e, we in enumerate(layers(w)):
+        slot = starts[e] + j
+        rows.append(tok[slot])
+        seg = x_all[rows[-1]]
+        h = a(seg @ getw(we["w_gate"], seg.dtype)) * \
+            (seg @ getw(we["w_up"], seg.dtype))
+        own = (j < cap) & (j < counts[e])
+        outs.append(torch.where(own[:, None], h @ getw(we["w_down"],
+                                                       seg.dtype), 0.0)
+                    * gate[slot][:, None])
+    y = x_all.new_zeros((T_, d)).index_add(0, torch.cat(rows),
+                                            torch.cat(outs))
+    y = ctx.sum_own_rows(y, parts)
+    if cfg.num_shared_experts:
+        y = y + mlp_apply(p["shared"], x2d, cfg)
+    return y.reshape(B, S, d)
 
 
 def _moe_rows(p, x, cfg):
@@ -801,18 +920,48 @@ def selective_scan_chunked(u, dt, A, Bc, Cc, D, h0=None, chunk=256):
 
 
 def mamba_apply(p, x, cfg, *, state=None, acc_init=None):
-    """Falcon-Mamba block.  state = dict(ssm, conv) for decode."""
-    ctx.note("mamba1", 1)
+    """Falcon-Mamba block.  state = dict(ssm, conv) for decode.  Where
+    ``d_inner`` divides the 'model' axis (``ctx.splits``) each rank runs
+    its ``d_inner / tp`` channels: its columns of both halves of
+    ``in_proj`` (``[x | z]``: the weight gathered whole, then sliced),
+    ``conv_*``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` by channel,
+    ``x_proj`` row-parallel (its ``R + 2N`` outputs summed over 'model'),
+    the scan on its channels, ``out_proj`` row-parallel.  A decode state
+    then holds this rank's channels: ``configs.base.per_rank_cache`` (the
+    reference's ``"heads"`` placement) names both states exactly where
+    ``d_inner`` divides the axis."""
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     f32 = torch.float32
-    xz = dense(x, p["in_proj"], cfg=cfg)
+    split = ctx.splits(p["in_proj"], di)
+    ctx.note("mamba1", ctx.model_size() if split else 1)
+    if split:
+        di //= ctx.model_size()
+        c0 = ctx.model_rank() * di
+        w_in = ctx.gather_for_parts(p["in_proj"])
+        cd = cfg.d_inner
+        p = dict({k: ctx.model_part(p[k], 0) for k in (
+                      "conv_b", "x_proj", "dt_bias", "A_log", "D",
+                      "out_proj")},
+                 conv_w=ctx.model_part(p["conv_w"], 1),
+                 dt_proj=ctx.model_part(p["dt_proj"], 1),
+                 in_proj=torch.cat([w_in[:, c0:c0 + di],
+                                    w_in[:, cd + c0:cd + c0 + di]], dim=1))
+        x = ctx.to_model(x)
+    else:
+        p = ctx.gather_tree(p)
+    xz = dense(x, p["in_proj"], cfg=cfg, parts=split)
     xin, z = xz[..., :di], xz[..., di:]
     conv_state = None if state is None else state["conv"]
     xc, new_conv = _causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
     xc = silu(xc)
-    proj = dense(xc, p["x_proj"], cfg=cfg)
+    proj = dense(xc, p["x_proj"], cfg=cfg, parts=split)
+    if split:
+        # dt, B and C are read by every channel: summed over 'model', and
+        # their gradients (each rank's channels' part) summed back
+        proj = ctx.to_model(ctx.model_sum(proj))
     dt_in, Bc, Cc = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
-    dt = softplus(dense(dt_in, p["dt_proj"], cfg=cfg).to(f32) + p["dt_bias"])
+    dt = softplus(dense(dt_in, p["dt_proj"], cfg=cfg, parts=split).to(f32)
+                  + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     if state is None:
         y, _ = selective_scan_chunked(xc, dt, A, Bc, Cc, p["D"])
@@ -827,7 +976,8 @@ def mamba_apply(p, x, cfg, *, state=None, acc_init=None):
         y = (y + p["D"] * xc[:, 0].to(f32))[:, None]
         new_state = dict(ssm=h, conv=new_conv)
     y = y.to(x.dtype) * silu(z)
-    out = dense(y, p["out_proj"], cfg=cfg, acc_init=acc_init)
+    out = row_parallel(y, p["out_proj"], cfg=cfg, acc_init=acc_init,
+                       split=split)
     return out, new_state
 
 
@@ -894,18 +1044,68 @@ def ssd_chunked(xh, dt, A, Bc, Cc, h0=None, chunk=128):
     return torch.cat(ys, dim=1), h
 
 
+def _mamba2_split(p, cfg):
+    """This rank's weights of a Mamba2 block whose heads split over
+    'model': of the packed ``in_proj`` (``[z | x | B | C | dt]``) its
+    columns of z, x and dt and the whole B and C (read by every head); of
+    ``conv_*`` (``[x | B | C]``) its x channels and the whole B and C; the
+    per-head and per-channel leaves by head; ``out_proj`` row-parallel.
+    Returns (weights, the first of its ``d_inner`` channels)."""
+    di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
+    tp, r = ctx.model_size(), ctx.model_rank()
+    dl, hl = di // tp, di // hd // tp
+    c0 = r * dl
+    w_in = ctx.gather_for_parts(p["in_proj"])
+    t0 = 2 * di + 2 * N + r * hl
+    w = dict(in_proj=torch.cat([w_in[:, c0:c0 + dl],
+                                w_in[:, di + c0:di + c0 + dl],
+                                w_in[:, 2 * di:2 * di + 2 * N],
+                                w_in[:, t0:t0 + hl]], dim=1))
+    for k in ("conv_w", "conv_b"):
+        cw = ctx.gather_for_parts(p[k])
+        w[k] = torch.cat([cw[..., c0:c0 + dl], cw[..., di:]], dim=-1)
+    w.update({k: ctx.model_part(p[k], 0) for k in (
+        "dt_bias", "A_log", "D", "norm_scale", "out_proj")})
+    return w, c0
+
+
 def mamba2_apply(p, x, cfg, *, state=None, acc_init=None):
-    ctx.note("mamba2", 1)
+    """Zamba2's Mamba2 (SSD) block.  Where its heads divide the 'model'
+    axis each rank runs its ``nh / tp`` heads (``_mamba2_split``); the
+    gated RMSNorm's mean square is summed over 'model'.  Decode, as
+    ``configs.base.per_rank_cache`` has it wherever the heads divide the
+    axis: the SSM state holds this rank's heads; the conv state (``[x | B
+    | C]``, whose contiguous 'model' shard is not a rank's channels) is
+    whole on every rank, and its new row is the new token's inputs
+    gathered whole."""
     B, S, d = x.shape
     di, N, hd = cfg.d_inner, cfg.ssm_state, cfg.mamba_headdim
     nh = di // hd
     f32 = torch.float32
-    zxbcdt = dense(x, p["in_proj"], cfg=cfg)
+    split = ctx.splits(p["in_proj"], nh)
+    ctx.note("mamba2", ctx.model_size() if split else 1)
+    conv_state = None if state is None else state["conv"]
+    if split:
+        p, c0 = _mamba2_split(p, cfg)
+        di, nh = di // ctx.model_size(), nh // ctx.model_size()
+        x = ctx.to_model(x)
+        if conv_state is not None:
+            conv_state = torch.cat([conv_state[..., c0:c0 + di],
+                                    conv_state[..., cfg.d_inner:]], dim=-1)
+    else:
+        p = ctx.gather_tree(p)
+    zxbcdt = dense(x, p["in_proj"], cfg=cfg, parts=split)
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + di + 2 * N]
     dt_in = zxbcdt[..., -nh:]
-    conv_state = None if state is None else state["conv"]
     xBC, new_conv = _causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
+    if split and state is not None and new_conv is not None:
+        # the new conv state whole: the last inputs, this token's x
+        # channels gathered from every rank
+        u = zxbcdt[..., di:di + di + 2 * N]
+        u = torch.cat([ctx.model_gather(u[..., :di], -1), u[..., di:]], -1)
+        new_conv = torch.cat([state["conv"].to(u.dtype), u],
+                             dim=1)[:, -(cfg.conv_kernel - 1):]
     xBC = silu(xBC)
     xin = xBC[..., :di].reshape(B, S, nh, hd)
     Bc = xBC[..., di:di + N]
@@ -925,8 +1125,19 @@ def mamba2_apply(p, x, cfg, *, state=None, acc_init=None):
         new_state = dict(ssm=h, conv=new_conv)
     y = y + p["D"][:, None] * xin.to(f32)
     y = y.reshape(B, S if state is None else 1, di)
-    y = rmsnorm(y.to(x.dtype) * silu(z[:, :y.shape[1]]), p["norm_scale"])
-    out = dense(y, p["out_proj"], cfg=cfg, acc_init=acc_init)
+    g = y.to(x.dtype) * silu(z[:, :y.shape[1]])
+    if split:
+        # the gated RMSNorm over all d_inner channels: each rank's sum of
+        # squares summed over 'model' (and its gradient summed back)
+        gf = g.to(f32)
+        ss = ctx.to_model(ctx.model_sum(torch.sum(gf * gf, -1,
+                                                  keepdim=True)))
+        y = (gf * torch.rsqrt(ss / cfg.d_inner + 1e-6)
+             * (1.0 + p["norm_scale"].to(f32))).to(g.dtype)
+    else:
+        y = rmsnorm(g, p["norm_scale"])
+    out = row_parallel(y, p["out_proj"], cfg=cfg, acc_init=acc_init,
+                       split=split)
     return out, new_state
 
 
@@ -949,6 +1160,47 @@ def vocab_part(w, vdim: int):
     w = ctx.model_part(w, vdim)
     v0 = ctx.model_rank() * (V // ctx.model_size())
     return (w if vdim == 0 else w.T), v0
+
+
+def logits(h, w, vdim: int, dtype):
+    """``h`` times the (V, d) logits table in ``dtype`` (stored as ``w``,
+    ``(V, d)`` with ``vdim`` 0, ``(d, V)`` with 1): the whole (B, S, V) on
+    every rank.  Under a 'model' axis the product splits along the dim
+    the table is stored split on: a table stored with d on 'model' (the
+    tied embedding) gives each rank its d/tp columns' partial logits (in
+    float32), summed over 'model', so no part of the table moves; else
+    the vocabulary splits where it divides the axis (``vocab_part``: this
+    rank's V/tp logits, then one all-gather over 'model').  Where neither
+    holds, the table is whole on every rank, as the reference leaves it,
+    but gathered, cast and multiplied ``DECODE_UPCAST_BYTES`` of float32
+    rows at a time, so that no step holds the whole table beside the
+    cache."""
+    if not ctx.on_model(w):
+        emb = ctx.gather(w)
+        emb = emb if vdim == 0 else emb.T
+        return torch.matmul(h, emb.to(dtype).T.to(h.dtype))
+    V, d = w.shape[vdim], w.shape[1 - vdim]
+    tp = ctx.model_size()
+    if ctx.model_dim(w) == 1 - vdim:
+        ctx.note("logits", tp)
+        emb = ctx.model_part(w, 1 - vdim)
+        emb = emb if vdim == 0 else emb.T
+        c0 = ctx.model_rank() * (d // tp)
+        part = torch.matmul(ctx.to_model(h)[..., c0:c0 + d // tp].to(
+            torch.float32), emb.to(dtype).T.to(torch.float32))
+        return ctx.model_sum(part).to(h.dtype)
+    if ctx.splits(w, V):
+        emb, _ = vocab_part(w, vdim)
+        return ctx.model_gather(
+            torch.matmul(h, emb.to(dtype).T.to(h.dtype)), -1)
+    ctx.note("logits", 1)
+    rows = max(1, DECODE_UPCAST_BYTES // (4 * d))
+    outs = []
+    for v0 in range(0, V, rows):
+        part = w[v0:v0 + rows] if vdim == 0 else w[:, v0:v0 + rows].T
+        outs.append(torch.matmul(h, ctx.gather(part).to(dtype).T.to(
+            h.dtype)))
+    return torch.cat(outs, dim=-1)
 
 
 def chunked_xent(h, emb, labels, chunk=1024, logit_softcap=0.0, v0=None):

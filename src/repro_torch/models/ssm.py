@@ -27,7 +27,8 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 
 
 def _block(p, h, cfg, state=None):
-    p = ctx.gather_tree(p)            # the layer's weights, at their use
+    # the norm's weights at their use (the mixer splits or gathers its own)
+    p = dict(ln=ctx.gather_tree(p["ln"]), mamba=p["mamba"])
     skip = h
     m, new_state = L.mamba_apply(
         p["mamba"], L.norm(h, p["ln"], cfg), cfg, state=state,
@@ -64,7 +65,7 @@ def loss_fn(params, cfg, batch):
 
 def prefill(params, cfg, tokens, extra=None):
     h = hidden_states(params, cfg, tokens, extra)
-    return torch.matmul(h[:, -1:], ctx.gather(params["unembed"]).to(h.dtype))
+    return L.logits(h[:, -1:], params["unembed"], 1, h.dtype)
 
 
 def decode_step(params, cfg, tokens, pos, cache, *, donate=False):
@@ -80,5 +81,4 @@ def decode_step(params, cfg, tokens, pos, cache, *, donate=False):
         new["ssm_state"][i].copy_(ns["ssm"])
         new["conv_state"][i].copy_(ns["conv"])
     h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
-    logits = torch.matmul(h, ctx.gather(params["unembed"]).to(h.dtype))
-    return logits, new
+    return L.logits(h, params["unembed"], 1, h.dtype), new

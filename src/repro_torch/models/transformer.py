@@ -7,9 +7,10 @@ reference's ``lax.scan``), each checkpointed under autograd as the
 reference remats it.
 Under a mesh (``parallel.ctx``) the forward computes this rank's rows with
 each layer's weights gathered at their use, inside the layer's
-rematerialized body: over the batch axes only where GQA heads, the MLP's
-width or the vocabulary split over 'model' (Megatron's tensor
-parallelism), whole elsewhere.
+rematerialized body: over the batch axes only where GQA or MLA heads, the
+MLP's or the experts' width or the vocabulary split over 'model'
+(Megatron's tensor parallelism), whole elsewhere; the MoE's expert
+segments also split over the ranks that split the rows.
 The residual stream uses the paper's add-fold: the block output matmul
 receives the skip stream as its accumulator initializer (``acc_init``)
 instead of a separate Add node (``cfg.residual_fusion``).
@@ -96,8 +97,8 @@ def init_params(cfg: ModelConfig, draw: L.Draw) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# the sub-trees whose layer function gathers its own weights (GQA, the MLP
-# and the MoE split or gather them at their use)
+# the sub-trees whose layer function gathers its own weights (GQA, MLA, the
+# MLP and the MoE split or gather them at their use)
 _GATHERS_OWN = ("attn", "xattn", "mlp", "moe")
 
 
@@ -226,10 +227,12 @@ def hidden_states(params, cfg: ModelConfig, tokens, extra=None):
     return L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
 
 
-def unembed_weight(params, cfg):
-    """The (V, d) logits weight, whole on this rank."""
-    return ctx.gather(params["embed"]) if cfg.tie_embeddings \
-        else ctx.gather(params["unembed"]).T
+def logits(params, cfg, h):
+    """``h``'s logits (B, S, V), whole on every rank (the vocabulary split
+    over 'model' where it divides the axis, ``layers.logits``)."""
+    if cfg.tie_embeddings:
+        return L.logits(h, params["embed"], 0, cfg.compute_dtype)
+    return L.logits(h, params["unembed"], 1, cfg.compute_dtype)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -262,9 +265,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def prefill(params, cfg: ModelConfig, tokens, extra=None):
     """Prefill forward: last-position logits (B, 1, V)."""
     h = hidden_states(params, cfg, tokens, extra)
-    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
-    emb = ctx.constrain(emb, "model", None)
-    return torch.matmul(h[:, -1:], emb.T.to(h.dtype))
+    return logits(params, cfg, h[:, -1:])
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +311,4 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache, *,
             xattn_cache=xattn_cache,
             cache_out={k: new_cache[k] for k in keys})
     h = L.norm(h, ctx.gather_tree(params["final_norm"]), cfg)
-    emb = unembed_weight(params, cfg).to(cfg.compute_dtype)
-    emb = ctx.constrain(emb, "model", None)
-    logits = torch.matmul(h, emb.T.to(h.dtype))
-    return logits, new_cache
+    return logits(params, cfg, h), new_cache

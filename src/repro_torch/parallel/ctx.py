@@ -32,8 +32,12 @@ tensors; DTensor carries the parameters and every collective:
   token count), an all-reduce whose backward hands each rank its own
   gradient; ``batch_max(x)`` the largest value over them (QAT's dynamic
   exponent).
-* ``all_rows`` / ``own_rows``: the rows of every rank and back, around
-  what mixes rows (MoE routing with its global capacity).
+* ``all_rows`` / ``sum_own_rows``: the rows of every rank, read by what
+  mixes rows (the MoE's segments under its global capacity, split over
+  the ranks), and the way back for a result every rank holds a part of:
+  one reduce-scatter.
+* ``model_gather(x, dim)``: the parts of ``x`` the 'model' ranks
+  computed (heads, vocabulary), whole on every rank.
 * ``constrain(x, *spec)`` redistributes a DTensor to the reference's spec
   (the identity on a plain tensor, which is what the models carry between
   layers: the local rows are the reference's ``(batch, None, None)``).
@@ -176,29 +180,47 @@ def batch_max(x: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(x, _MESH, pl, run_check=False).full_tensor()
 
 
-def all_rows(x: torch.Tensor) -> torch.Tensor:
-    """The rows of every rank, concatenated in rank order (the global
-    batch's order); its gradient goes back to the rows' own rank."""
+def row_share() -> tuple:
+    """(this rank's index among the ranks that split the rows, their
+    count): ``(0, 1)`` where no mesh dim splits them."""
     if _MESH is None or not _SPLIT:
+        return 0, 1
+    return _rows_index(_MESH, _SPLIT)
+
+
+def all_rows(x: torch.Tensor, parts=()) -> torch.Tensor:
+    """The rows of every rank, concatenated in rank order (the global
+    batch's order); its gradient goes back to the rows' own rank.
+    ``parts``: the mesh dims (the row axes, 'model') whose ranks each
+    compute a different part of what reads these rows, so that each
+    rank's gradient is a part of the whole: it is summed over them first
+    (a reduce-scatter over the row axes, an all-reduce over 'model').
+    Without ``parts`` every rank computed alike and its gradient is
+    taken as it is."""
+    if _MESH is None or not (_SPLIT or parts):
         return x
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     rep = [Replicate()] * _MESH.ndim
+    grad_pl = [Partial() if a in parts else Replicate()
+               for a in _names(_MESH)]
     d = DTensor.from_local(x, _MESH, _rows_placements(_MESH),
                            run_check=False)
-    return d.redistribute(_MESH, rep).to_local(grad_placements=rep)
+    return d.redistribute(_MESH, rep).to_local(grad_placements=grad_pl)
 
 
-def own_rows(x: torch.Tensor, axes) -> torch.Tensor:
-    """The inverse of ``all_rows`` for rows split over ``axes``: this
-    rank's share of rows that every rank computed alike."""
-    if _MESH is None or not axes:
-        return x
-    from torch.distributed.tensor import DTensor, Replicate
-    with rows_split_over(axes):
-        rows = _rows_placements(_MESH)
-    d = DTensor.from_local(x, _MESH, [Replicate()] * _MESH.ndim,
-                           run_check=False)
-    return d.redistribute(_MESH, rows).to_local()
+def sum_own_rows(y: torch.Tensor, parts) -> torch.Tensor:
+    """The inverse of ``all_rows(x, parts)`` for a result that is a sum of
+    the ranks' parts: ``y`` (the rows of every rank, this rank's part of
+    each) summed over the mesh dims ``parts``, and this rank's own rows of
+    the sum.  One redistribute of a ``Partial``: a reduce-scatter over the
+    row axes (an all-reduce over 'model' where it is in ``parts``); the
+    backward hands every rank the gradient of every row (an all-gather)."""
+    if _MESH is None or not (_SPLIT or parts):
+        return y
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial() if a in parts else Replicate() for a in _names(_MESH)]
+    return DTensor.from_local(y, _MESH, pl, run_check=False).redistribute(
+        _MESH, _rows_placements(_MESH)).to_local()
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +295,13 @@ def splits(w, n=None) -> bool:
 def on_model(w) -> bool:
     """``w`` a DTensor under a 'model' axis of more than one rank."""
     return model_size() > 1 and _is_dtensor(w)
+
+
+def model_dim(w):
+    """The dim of DTensor ``w`` that its placement splits over 'model'
+    (``None`` where 'model' holds it whole)."""
+    p = w.placements[_model_index(w.device_mesh)]
+    return p.dim if p.is_shard() else None
 
 
 def note(kind: str, ways: int) -> None:
@@ -370,6 +399,19 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
         return x.detach()
     from torch.distributed.tensor import DTensor, Partial, Replicate
     return DTensor.from_local(x.detach(), _MESH, _on_model(Partial("max")),
+                              run_check=False).redistribute(
+        _MESH, _on_model(Replicate())).to_local()
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim`` and every other 'model'
+    rank's, concatenated in rank order (an all-gather over 'model': the
+    heads or vocabulary a split layer computed, whole on every rank)."""
+    if model_size() == 1:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dim = dim % x.dim()
+    return DTensor.from_local(x, _MESH, _on_model(Shard(dim)),
                               run_check=False).redistribute(
         _MESH, _on_model(Replicate())).to_local()
 

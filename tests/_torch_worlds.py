@@ -549,3 +549,320 @@ def tp_world(rank, world, inp):
     pairs += [("add_fold", add_fold), ("vocab_xent", vocab_xent),
               ("mlp_flops", mlp_flops)]
     return checks(pairs)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp_kinds.py
+# ---------------------------------------------------------------------------
+
+
+def kind_steps(cfg, p, hp, mesh=None):
+    """Two ``make_train_step`` steps (``grad_accum=2``) of ``cfg`` from
+    the parameters ``p`` (left as they are): on ``mesh`` (the parameters
+    distributed, the layer kinds noted from a reset) or, without one, on
+    this process.  Returns (params, losses)."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optimizer as opt_lib
+
+    opt = opt_lib.adamw(**hp)
+    step = S.make_train_step(cfg, opt, grad_accum=2)
+    p = T.tree_map(lambda t: t.clone(), p)
+    if mesh is not None:
+        p = shd.distribute_tree(p, shd.params_shardings(
+            p, mesh, min_size_fsdp=2 ** 10))
+    st = opt.init(p)
+    losses = []
+    ctx.split_kinds(reset=True)
+    for i in range(2):
+        batch = _lm_batch(cfg, 10 + i, 8, 16)
+        with ctx.mesh_context(mesh):
+            p, st, m = step(p, st, i, batch)
+        losses.append(float(m["loss"]))
+    return p, losses
+
+
+def serve_tokens(cfg, B, Sq):
+    """The prompt (and a vlm's patches, an audio model's frames) that
+    ``tp_kinds_world`` serves, as numpy arrays: (tokens, extra)."""
+    rng = np.random.default_rng(2)
+    tok = rng.integers(0, cfg.vocab_size, (B, Sq)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = rng.standard_normal(
+            (B, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    return tok, extra
+
+
+class _Axes:
+    """A cache entry's logical axes, as one leaf of ``core.tree``."""
+
+    def __init__(self, axes):
+        self.axes = axes
+
+
+def tp_kinds_world(rank, world, inp):
+    """The layer kinds split over 'model' since the MLP (MoE experts by
+    rows and width, MLA heads, Mamba1 channels, Mamba2 heads, decode
+    attention heads, the logits) on a (data, model) mesh of
+    ``inp["mesh"]``: train steps (``kind_steps``; the MoE's also on a
+    mesh of 'model' extent 1 that splits the rows), a capacity-dropping
+    MoE's gradients, sharded prefill and decode against the unsharded ones
+    computed on each rank (of ``inp["params"]`` where it has the arch),
+    the flops of one MoE and one Mamba1 block a rank, the ``ctx`` helpers,
+    and the layers bitwise with and without a 'model' extent of 1."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import base as cb
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.loop import value_and_grad
+
+    D, Mo = inp["mesh"]
+    mesh = mesh_lib.make_local_mesh(D, Mo, "cpu")
+    # 'model' extent 1, the rows split over all ranks
+    m1 = mesh_lib.make_local_mesh(D * Mo, 1, "cpu")
+    kw = dict(min_size_fsdp=2 ** 10)
+    # a small upcast bound: an undivided vocabulary's logits then take
+    # several chunks (and decode attention several row groups) at smoke size
+    L.DECODE_UPCAST_BYTES = 4 * 64 * 100
+
+    def host(x):
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        return None if x is None else x.detach().numpy()
+
+    def placed(p):
+        return shd.distribute_tree(p, shd.params_shardings(p, mesh, **kw))
+
+    def steps(arch, on=mesh):
+        def run():
+            cfg = cb.get_smoke_config(arch)
+            ps, ms = kind_steps(cfg, inp["params"][arch], inp["hp"], on)
+            return dict(losses=ms, params=[host(t) for t in T.leaves(ps)],
+                        kinds=ctx.split_kinds(reset=True))
+        return run
+
+    def grads(arch, **over):
+        def run():
+            cfg = cb.get_smoke_config(arch).with_(**over)
+            p = M.init_params(cfg, 0, "cpu")
+            batch = _lm_batch(cfg, 1, 4, 16)
+            (l0, _), g0 = value_and_grad(
+                lambda q: M.loss_fn(q, cfg, batch), p)
+            pd = placed(p)
+            ctx.split_kinds(reset=True)
+            with ctx.mesh_context(mesh):
+                rows, axes = ctx.local_rows(batch)
+                with ctx.rows_split_over(axes):
+                    (l1, _), g1 = value_and_grad(
+                        lambda q: M.loss_fn(q, cfg, rows), pd)
+            return dict(loss=(float(l0), float(l1)),
+                        grads=[host(t) for t in T.leaves(g0)],
+                        sharded=[host(t) for t in T.leaves(g1)],
+                        kinds=ctx.split_kinds(reset=True))
+        return run
+
+    def on_mesh(whole, cfg, kind, B, Sq):
+        """``whole`` (a serve batch) as DTensors placed as the dry-run
+        places a cell's inputs."""
+        axes = cb.input_specs(cfg, cb.ShapeSpec("t", Sq, B, kind),
+                              lambda s, dt, ax: _Axes(ax))
+        fac = shd.input_sharding_factory(mesh)
+        flat = dict(T.flatten_with_path(axes))
+        return T.unflatten(whole, [
+            shd.distribute(x, shd.NamedSharding(
+                mesh, fac(tuple(x.shape), flat[path].axes)))
+            for path, x in T.flatten_with_path(whole)])
+
+    def whole_of(local, pls):
+        """Outputs of ``local_placements``' placements, whole."""
+        pairs = T.flatten_with_path(local)
+        return T.unflatten(local, [
+            DTensor.from_local(x, mesh, pls[path], run_check=False)
+            .full_tensor().numpy() for path, x in pairs])
+
+    def serve(arch, **over):
+        """Prefill of 4 x 8 tokens, then two decode steps against a
+        16-deep cache, sharded (the cache placed as the dry-run places
+        it) and unsharded."""
+        def run():
+            cfg = cb.get_smoke_config(arch).with_(**over)
+            p = None if over else inp["params"].get(arch)
+            p = M.init_params(cfg, 0, "cpu") if p is None else p
+            ps = placed(p)
+            B, Sq = 4, 8
+            tok, extra = serve_tokens(cfg, B, Sq)
+            tok = torch.from_numpy(tok)
+            extra = {k: torch.from_numpy(v) for k, v in extra.items()}
+            want = host(M.prefill(p, cfg, tok, extra))
+            pre = on_mesh(dict(tokens=tok, **extra), cfg, "prefill", B, Sq)
+            ctx.split_kinds(reset=True)
+            with ctx.mesh_context(mesh):
+                pl = dryrun.local_placements(pre, mesh, cfg)
+                rows, axes = dryrun.local_inputs(pre, mesh, cfg)
+                with ctx.rows_split_over(axes):
+                    got = S.make_prefill_step(cfg)(ps, rows)
+            out = dict(prefill=(want, whole_of(dict(tokens=got), pl)
+                                ["tokens"]))
+            cache = M.init_cache(cfg, B, 16, "cpu")
+            pos = torch.zeros(B, dtype=torch.int32)
+            with torch.no_grad():
+                if cfg.family == "audio":
+                    cache.update(TR.encoder_cache(p, cfg, extra["frames"]))
+                for t in range(3):
+                    _, cache = M.decode_step(p, cfg, tok[:, t:t + 1],
+                                             pos + t, cache)
+            for t in (3, 4):
+                batch = dict(tokens=tok[:, t:t + 1], pos=pos + t,
+                             cache=cache)
+                with torch.no_grad():
+                    wl, wc = M.decode_step(p, cfg, batch["tokens"],
+                                           batch["pos"], cache)
+                dist_b = on_mesh(batch, cfg, "decode", B, 16)
+                with ctx.mesh_context(mesh):
+                    pls = dryrun.local_placements(dist_b, mesh, cfg)
+                    rows, axes = dryrun.local_inputs(dist_b, mesh, cfg)
+                    shapes = {k: (tuple(rows["cache"][k].shape),
+                                  tuple(cache[k].shape)) for k in cache}
+                    with ctx.rows_split_over(axes):
+                        gl, gc = S.make_serve_step(cfg)(ps, rows)
+                got = whole_of(dict(tokens=gl, cache=gc), pls)
+                out[f"decode{t}"] = dict(
+                    logits=(host(wl), got["tokens"]),
+                    cache={k: (host(wc[k]), got["cache"][k]) for k in wc},
+                    shapes=shapes)
+                cache = wc
+            out["kinds"] = ctx.split_kinds(reset=True)
+            return out
+        return run
+
+    def block_flops(kind):
+        """Each rank's flops of one MoE (mixtral) or Mamba1 (falcon-mamba)
+        block, forward and backward, against the whole block's."""
+        def run():
+            arch, key, fn = dict(
+                moe=("mixtral-8x22b", "moe_blocks", L.moe_apply),
+                mamba1=("falcon-mamba-7b", "blocks", None))[kind]
+            cfg = cb.get_smoke_config(arch)
+            blk = T.tree_map(lambda t: t[0],
+                             M.init_params(cfg, 0, "cpu")[key])
+            blk = blk["moe"] if kind == "moe" else blk["mamba"]
+            on = placed(blk)
+            x = torch.randn((4, 16, cfg.d_model),
+                            generator=torch.Generator().manual_seed(4))
+
+            def apply(q, xx):
+                if kind == "moe":
+                    return fn(q, xx, cfg)
+                return L.mamba_apply(q, xx, cfg)[0]
+
+            def count(q, mesh_, xx):
+                fl = FlopCounterMode(display=False)
+                with ctx.mesh_context(mesh_), fl:
+                    xx = xx.clone().requires_grad_(True)
+                    apply(q, xx).sum().backward()
+                return fl.get_total_flops()
+            for t in T.leaves(blk) + T.leaves(on):
+                t.requires_grad_(True)
+            whole = count(blk, None, x)
+            with ctx.mesh_context(mesh):
+                rows, axes = ctx.local_rows(dict(x=x))
+            with ctx.rows_split_over(axes):
+                mine = count(on, mesh, rows["x"])
+            return dict(whole=whole, rank=mine, ranks=D * Mo)
+        return run
+
+    def helpers():
+        """``row_share``, ``all_rows(x, parts)`` / ``sum_own_rows``
+        (value and gradient), ``model_gather`` and ``model_dim`` on the
+        mesh."""
+        r = torch.distributed.get_rank()
+        x0 = torch.arange(24, dtype=torch.float32).reshape(8, 3)
+        with ctx.mesh_context(mesh):
+            rows, axes = ctx.local_rows(dict(x=x0))
+            with ctx.rows_split_over(axes):
+                share = ctx.row_share()
+                parts = axes + ("model",)
+                x = rows["x"].clone().requires_grad_(True)
+                y = ctx.sum_own_rows(ctx.all_rows(x, parts) * (1.0 + r),
+                                     parts)
+                y.sum().backward()
+            gathered = ctx.model_gather(
+                torch.full((2, 1), float(ctx.model_rank())), 1)
+            sq = torch.zeros(4, 4)
+            w = shd.distribute(sq, shd.NamedSharding(mesh, shd.P(None,
+                                                                 "model")))
+            w0 = shd.distribute(sq, shd.NamedSharding(mesh, shd.P()))
+            placed_ = (ctx.model_dim(w), ctx.model_dim(w0))
+        return dict(share=share, n=D, x=rows["x"].numpy(), y=host(y),
+                    grad=x.grad.numpy(), total=float(sum(
+                        1.0 + q for q in range(world))),
+                    gathered=gathered.numpy(), tp=Mo, placed=placed_)
+
+    def bitwise():
+        """Each layer kind on a mesh of 'model' extent 1 ((D * Mo, 1), the
+        rows not split) with its weights DTensors, bitwise its output
+        without a mesh; the MoE without a mesh bitwise ``_moe_rows``."""
+        gen = torch.Generator().manual_seed(6)
+        out = {}
+        for arch, key, sub in (("mixtral-8x22b", "moe_blocks", "moe"),
+                               ("deepseek-v3-671b", "moe_blocks", "attn"),
+                               ("falcon-mamba-7b", "blocks", "mamba"),
+                               ("zamba2-7b", "groups", "mamba")):
+            cfg = cb.get_smoke_config(arch)
+            blk = M.init_params(cfg, 0, "cpu")[key]
+            blk = T.tree_map(lambda t: t[0], blk)
+            if key == "groups":
+                blk = T.tree_map(lambda t: t[0], blk)
+            blk = blk[sub]
+            on = shd.distribute_tree(blk, shd.params_shardings(blk, m1,
+                                                               **kw))
+            x = torch.randn((2, 8, cfg.d_model), generator=gen)
+            fn = dict(moe=lambda q: L.moe_apply(q, x, cfg, acc_init=x),
+                      attn=lambda q: L.mla_apply(q, x, cfg, acc_init=x)[0],
+                      mamba=lambda q: (L.mamba2_apply if key == "groups"
+                                       else L.mamba_apply)(q, x, cfg)[0])
+            plain = fn[sub](blk)
+            with ctx.mesh_context(m1):
+                got = fn[sub](on)
+            out[f"{arch}/{sub}"] = (plain.numpy(), got.numpy())
+            if sub == "moe":
+                out["moe_rows"] = (plain.numpy(), (L._moe_rows(
+                    blk, x, cfg) + x).numpy())
+        for name, vdim in (("tied", 0), ("untied", 1)):
+            w = torch.randn((96, 64) if vdim == 0 else (64, 96),
+                            generator=gen)
+            h = torch.randn((2, 1, 64), generator=gen)
+            on = shd.distribute_tree(dict(w=w), shd.params_shardings(
+                dict(w=w), m1, min_size_fsdp=2 ** 10))["w"]
+            plain = L.logits(h, w, vdim, torch.float32)
+            want = torch.matmul(h, (w if vdim == 0 else w.T).T)
+            with ctx.mesh_context(m1):
+                got = L.logits(h, on, vdim, torch.float32)
+            out[f"logits/{name}"] = (plain.numpy(), got.numpy(),
+                                     want.numpy())
+        return out
+
+    pairs = [(f"steps/{a}", steps(a)) for a in inp["params"]]
+    pairs += [(f"rows_only/{a}", steps(a, m1)) for a in inp["params"]
+              if cb.get_smoke_config(a).num_experts]
+    pairs += [("capacity", grads("mixtral-8x22b", moe_capacity_factor=0.28))]
+    pairs += [(f"serve/{a}", serve(a.split("/")[0], **over))
+              for a, over in inp["serve"].items()]
+    pairs += [("flops/moe", block_flops("moe")),
+              ("flops/mamba1", block_flops("mamba1")),
+              ("helpers", helpers), ("bitwise", bitwise)]
+    return checks(pairs)

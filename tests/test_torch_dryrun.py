@@ -264,3 +264,77 @@ def test_sweep_order_and_shapes_equal_reference():
     assert list(dryrun_all.cells(["a"], None)) == \
         list(jall.cells(["a"], None))
     assert sorted(dryrun_all.ORDER) == sorted(cb.ARCH_IDS)
+
+
+# the smoke configs' widths as overrides of the published configs (the
+# dry-run's CLI takes a published config and ``--override``)
+SMOKE_WIDTHS = {
+    "mixtral-8x22b": dict(num_layers=2, d_model=64, num_heads=4,
+                          num_kv_heads=2, head_dim=16, d_ff=128,
+                          vocab_size=512, num_experts=4, top_k=2,
+                          moe_d_ff=128),
+    "falcon-mamba-7b": dict(num_layers=2, d_model=64, d_inner=128,
+                            dt_rank=8, ssm_state=4, vocab_size=512),
+}
+
+
+@pytest.mark.parametrize("arch,kind", [("mixtral-8x22b", "moe"),
+                                       ("falcon-mamba-7b", "mamba1")])
+def test_fake_4x2_train_cell_splits_the_kind(tmp_path, arch, kind):
+    """On a fake (4, 2) ("data", "model") mesh, a width-cut train_4k
+    cell (8 x 64 tokens) splits its MoE experts / Mamba1 channels over
+    'model' (two ways) and repeats no kind."""
+    out = tmp_path / "cell.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh-data", "4", "--mesh-model", "2",
+         "--batch", "8", "--seq", "64", "--device", "cpu", "--override",
+         json.dumps(SMOKE_WIDTHS[arch]), "--out", str(out)],
+        capture_output=True, text=True, env=ENV, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["chips"] == 8
+    assert res["model_split"]["split"][kind] == 2, res["model_split"]
+    assert res["model_split"]["repeat"] == [], res["model_split"]
+
+
+def test_decode_cell_reads_the_ssm_states_model_shard():
+    """A falcon-mamba-7b decode cell (width-cut, 8 x 64) on a fake (4, 2)
+    mesh: the SSM and conv states reach the layers as this rank's 'model'
+    shard (half the channels; the other entries' split dims gathered),
+    the arguments count that shard, and Mamba1 and the logits split."""
+    over = json.dumps(json.dumps(SMOKE_WIDTHS["falcon-mamba-7b"]))
+    out = _python(f"""
+        import json, torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.launch import dryrun, mesh as mesh_lib
+        from repro_torch.parallel import ctx
+        dryrun._fake_group(8)
+        mesh = mesh_lib.make_local_mesh(4, 2, "cpu")
+        with FakeTensorMode():
+            mesh, cfg, shape, run, args, meta = dryrun.build_cell(
+                "falcon-mamba-7b", "decode_32k", False, json.loads({over}),
+                "cpu", mesh, batch=8, seq=64)
+            batch = args[1]
+            with ctx.mesh_context(mesh):
+                rows, axes = dryrun.local_inputs(batch, mesh, cfg)
+                ctx.split_kinds(reset=True)
+                run()
+                kinds = ctx.split_kinds(reset=True)
+            got = {{k: list(v.shape) for k, v in rows["cache"].items()}}
+            stored = {{k: list(v.to_local().shape)
+                      for k, v in batch["cache"].items()}}
+        print(json.dumps(dict(rows=got, stored=stored, axes=list(axes),
+                              cache_bytes=meta["cache_bytes"],
+                              kinds=kinds, tokens=list(rows["tokens"].shape))))
+    """)
+    res = json.loads(out.strip().splitlines()[-1])
+    L, B, di, N, K = 2, 8 // 4, 128, 4, 4
+    assert res["rows"] == {"ssm_state": [L, B, di // 2, N],
+                           "conv_state": [L, B, K - 1, di // 2]}
+    assert res["rows"] == res["stored"]
+    assert res["cache_bytes"] == 4 * L * B * (di // 2) * N + \
+        2 * L * B * (K - 1) * (di // 2)
+    assert res["axes"] == ["data"] and res["tokens"] == [B, 1]
+    assert res["kinds"] == {"split": {"logits": 2, "mamba1": 2},
+                            "repeat": []}

@@ -89,7 +89,10 @@ def test_multipod_dryrun_prints_the_cell():
     assert lines[1].startswith("  compute  ") and "->" in lines[1]
     assert lines[2].startswith("  collectives: {'all-reduce': ")
     assert "flops/device over model flops/device: " in lines[3]
-    assert "split over 'model': {'mlp': 16}" in lines[3]
+    # the decode step's attention splits gcd(14 heads, 16) = 2 ways, its
+    # MLP and (tied table by its d shard) logits 16; nothing repeats
+    assert "split over 'model': {'attention': 2, 'logits': 16, 'mlp': 16}, " \
+        "whole on every 'model' rank: []" in lines[3]
     assert lines[4].startswith("  fits 80G HBM: True (temp ")
 
 

@@ -42,6 +42,12 @@ The port's counterpart of the JAX package's ahead-of-time executables:
     launches in Python, which a replay does not run: the capture records
     what one forward launched (``kernels.common.launch_delta``) and every
     replay adds it; warm-up and capture leave the counters as they were.
+  * **Call spans.**  With an obs session installed, each bucket run
+    records a host span ``call`` with children ``copy_in``, ``replay`` and
+    ``clone`` on a graph, and on a CUDA device a span of the call's device
+    interval from CUDA events, on the session's clock
+    (``compile/calltrace.py``).  With none, a run reads the switch once
+    and records nothing.
   * **Tuning.**  ``compile_model(tune=...)`` stamps a per-task
     ``KernelConfig`` table onto the graph (``lowering.annotate_tuning``),
     so the kernels' launches take the tuned decomposition
@@ -70,7 +76,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.compile import lowering
+from repro_torch.compile import calltrace, lowering
 from repro_torch.compile.backends import Backend, get_backend
 from repro_torch.compile.params import ensure_typed
 from repro_torch.kernels.common import add_launches, capture_graph
@@ -160,6 +166,20 @@ class GraphExecutable:
         add_launches(self.launches)
         return self.static_out[:n].clone()
 
+    def traced(self, x: torch.Tensor, call) -> torch.Tensor:
+        """``self(x)`` with its phases as children of ``call`` (a
+        ``calltrace.Call``): ``copy_in``, ``replay``, ``clone``."""
+        n = x.shape[0]
+        with call.phase("copy_in"):
+            self.static_in[:n].copy_(x)
+            if n < self.batch:
+                self.static_in[n:].zero_()
+        with call.phase("replay"):
+            self.graph.replay()
+        add_launches(self.launches)
+        with call.phase("clone"):
+            return self.static_out[:n].clone()
+
 
 class EagerExecutable:
     """One bucket on the CPU: zero-pad ``x`` up to ``batch`` rows, run the
@@ -171,6 +191,10 @@ class EagerExecutable:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward(_pad_rows(x, self.batch))[:x.shape[0]]
+
+    def traced(self, x: torch.Tensor, call) -> torch.Tensor:
+        """``self(x)``: an eager forward records no phase under ``call``."""
+        return self(x)
 
 
 class ShardExecutable:
@@ -189,10 +213,17 @@ class ShardExecutable:
         self.rows = batch // mesh.size(d)
 
     def __call__(self, x: torch.Tensor):
+        return self._run(x, self.local)
+
+    def traced(self, x: torch.Tensor, call):
+        """``self(x)``, the local executable's phases under ``call``."""
+        return self._run(x, lambda rows: self.local.traced(rows, call))
+
+    def _run(self, x: torch.Tensor, local):
         from torch.distributed.tensor import DTensor, Replicate
         n = x.shape[0]
         r0 = self.index * self.rows
-        loc = self.local(_pad_rows(x, self.batch)[r0:r0 + self.rows])
+        loc = local(_pad_rows(x, self.batch)[r0:r0 + self.rows])
         shape = (self.batch,) + tuple(loc.shape[1:])
         out = DTensor.from_local(loc, self.mesh, self.placements,
                                  run_check=False, shape=torch.Size(shape),
@@ -465,11 +496,16 @@ class CompiledModel:
                                                 buckets)
                               for i in range(0, n, cap)], dim=0)
         bucket = next(b for b in buckets if b >= n)
-        self.run_counts[bucket] += 1
         ob = _obs.active()
-        if ob is not None:
-            # counters only: a replay returns before the device is done,
-            # so a span here would time the enqueue, not the work
+        if ob is None:
+            self.run_counts[bucket] += 1
+            return exe_for(bucket)(images)
+        # the host spans time the enqueue (a replay returns before the
+        # device is done); the device span, from CUDA events around the
+        # call, times the work (compile/calltrace.py)
+        with calltrace.tracer(ob).call(images.device, bucket=bucket,
+                                       backend=self.backend.name) as call:
+            self.run_counts[bucket] += 1
             ob.metrics.counter(
                 "model_runs_total", "bucket executions dispatched").inc(
                     bucket=str(bucket), backend=self.backend.name)
@@ -479,7 +515,7 @@ class CompiledModel:
                     "zero-pad rows added by bucket rounding").inc(
                         bucket - n, bucket=str(bucket),
                         backend=self.backend.name)
-        return exe_for(bucket)(images)
+            return exe_for(bucket).traced(images, call)
 
     def __call__(self, images) -> torch.Tensor:
         return self._run_batched(_as_input(self.cfg, images, self.device),

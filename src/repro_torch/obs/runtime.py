@@ -42,10 +42,21 @@ class Observability:
         self.trace = Trace(clock=clock)
         self.profiles: List = []          # TaskProfile rows (obs.profile)
         self.health = None                # HealthMonitor, when alerting is on
+        # compile.calltrace.CallTracer: the call spans and their CUDA
+        # events, made by the session's first traced bucket run
+        self.call_tracer = None
 
     def now(self) -> float:
         return self.clock.now() if self.clock is not None \
             else time.monotonic()
+
+    def flush(self) -> None:
+        """Record the call spans kept since the last flush, waiting until
+        the device has passed the last traced call: the call path neither
+        waits nor builds span objects, so call this before reading the
+        trace (``export`` does)."""
+        if self.call_tracer is not None:
+            self.call_tracer.flush()
 
     def set_clock(self, clock) -> None:
         """Re-bind the clock domain (a runner that builds its clock after
@@ -101,7 +112,9 @@ def export(ob: Observability, trace_out: Optional[str] = None,
            strip_volatile: bool = False) -> dict:
     """Write the session's artifacts; returns {kind: path} for what was
     written.  ``trace_out`` gets Chrome ``trace_event`` JSON (Perfetto),
-    ``jsonl_out`` the line-per-event log, ``metrics_out`` Prometheus text."""
+    ``jsonl_out`` the line-per-event log, ``metrics_out`` Prometheus text.
+    Flushes the session first."""
+    ob.flush()
     written = {}
     if trace_out:
         ob.trace.write_chrome(trace_out, strip_volatile=strip_volatile)

@@ -150,6 +150,22 @@ def parallel_world(rank, world, inp):
                     keys=sorted((k[0], k[1], k[2])
                                 for k in cm._shard_execs))
 
+    def sharded_traced():
+        # a sharded bucket run with a session on: one host span ``call``,
+        # the local eager executable no phase, the logits unchanged
+        from repro_torch import obs
+        cm = compile_model(R.RESNET8, qp, backend="torch-int",
+                           batch_sizes=(8,), device="cpu")
+        ob = obs.instrument()
+        try:
+            out = cm.run_sharded(imgs[:5], dp4)
+            ob.flush()
+        finally:
+            obs.disable()
+        return dict(five=out.full_tensor().numpy(),
+                    spans=[(e.name, e.args) for e in ob.trace.events
+                           if e.track == "calls"])
+
     def serve_errors():
         msgs = []
         cm = compile_model(R.RESNET8, qp, backend="torch-int",
@@ -177,6 +193,7 @@ def parallel_world(rank, world, inp):
         ("compressed_even", compressed("even")),
         ("compressed_ragged", compressed("ragged")),
         ("run_sharded", sharded_serve), ("run_sharded_errors", serve_errors),
+        ("run_sharded_traced", sharded_traced),
     ])
 
 

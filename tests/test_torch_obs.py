@@ -13,6 +13,7 @@ from test_torch_slice import images, np_qparams
 
 from repro.core import dataflow as jdf
 from repro.models import resnet as JR
+from repro_torch.compile import calltrace, compiler
 from repro_torch.compile import (compile_model, lm_config, lowering,
                                  optimized_graph, params_from_numpy, plan_lm)
 from repro_torch.configs import get_smoke_config
@@ -313,17 +314,327 @@ class _Poison:
         raise AssertionError(f"obs used while disabled (attribute {name!r})")
 
 
+class _StubGraph:
+    """A captured graph's stand-in on the CPU: ``replay()`` runs the eager
+    forward from the static input into the static output."""
+
+    def __init__(self, forward, static_in, static_out):
+        self.forward, self.static_in, self.static_out = \
+            forward, static_in, static_out
+
+    def replay(self):
+        self.static_out.copy_(self.forward(self.static_in))
+
+
+def _graph_model(qp, bucket=4):
+    """A CPU ``CompiledModel`` whose bucket runs through a
+    ``GraphExecutable`` around a stub graph (the GPU's serving path)."""
+    cm = compile_model(R.RESNET8, qp, backend="cuda", batch_sizes=(bucket,),
+                       device="cpu")
+    static_in = torch.zeros(cm.input_spec(bucket).shape)
+    static_out = torch.zeros(bucket, R.RESNET8.num_classes)
+    cm._execs[bucket] = compiler.GraphExecutable(
+        _StubGraph(cm._forward, static_in, static_out), static_in,
+        static_out, {})
+    return cm
+
+
 def test_disabled_serving_path_never_touches_the_session(qp8):
     """After disable(), a session captured earlier must be unreachable from
     the serving path: call sites read ``runtime.active()`` every time."""
     ob = prt.instrument()
     eng = ResNetEngine(R.RESNET8, qp8, batch=4, batch_sizes=(2, 4),
                        ab_backends=("torch-int",), device="cpu")
+    cm = _graph_model(qp8)
     prt.disable()
-    ob.metrics = ob.trace = _Poison()
+    ob.metrics = ob.trace = ob.call_tracer = _Poison()
     for i, im in enumerate(images(5, seed=2)):
         eng.submit(ImageRequest(rid=i, image=im))
     assert eng.run() == 2 and eng.served == 5
+    imgs = torch.from_numpy(images(4, seed=2))
+    assert torch.equal(cm(imgs[:3]), cm._forward(cm.pad(imgs[:3]))[:3])
+    assert cm.run_counts[4] == 1
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("the call path did more than read the switch")
+
+
+def test_disabled_call_path_reads_the_switch_once(qp8, monkeypatch):
+    """With no session a bucket run through a graph reads
+    ``obs.active()`` once and nothing else of the tracing: no clock read,
+    no span object, no CUDA event, no profiler call."""
+    cm = _graph_model(qp8)
+    imgs = torch.from_numpy(images(8, seed=3))
+    reads = []
+    monkeypatch.setattr(prt, "active", lambda: reads.append(1))
+    for mod in (compiler, calltrace):
+        monkeypatch.setattr(mod, "time", _Poison())
+    for owner, name in ((calltrace, "tracer"), (calltrace.Call, "__init__"),
+                        (calltrace.Phase, "__init__"), (torch.cuda, "Event"),
+                        (torch.autograd, "_profiler_enabled"),
+                        (torch.profiler, "record_function")):
+        monkeypatch.setattr(owner, name, _refuse)
+    out = cm(imgs)              # two bucket runs of 4
+    assert reads == [1, 1]
+    assert torch.equal(out[:4], cm._forward(imgs[:4]))
+
+
+def _by_call(events):
+    out = {}
+    for e in events:
+        if e.track == calltrace.TRACK:
+            out.setdefault(e.args["call"], []).append(e)
+    return out
+
+
+def test_graph_call_spans_one_tree(qp8):
+    """A graph's bucket run is one host span ``call`` over ``copy_in``,
+    ``replay`` and ``clone``, in that order and apart, all with the run's
+    number; the self time is what the children leave of ``call``.  An
+    eager bucket (``run_placed`` on the CPU) records ``call`` alone, and
+    the CPU has no device spans."""
+    cm = _graph_model(qp8)
+    imgs = torch.from_numpy(images(4, seed=1))
+    ob = prt.instrument()
+    out = cm(imgs[:3])
+    assert torch.equal(out, cm._forward(cm.pad(imgs[:3]))[:3])
+    cm(imgs)
+    cm.run_placed(imgs, "cpu")
+    assert not _by_call(ob.trace.events)    # kept until the flush
+    ob.flush()
+    calls = _by_call(ob.trace.events)
+    assert sorted(calls) == [1, 2, 3]
+    for n in (1, 2):
+        root, *kids = calls[n]
+        assert root.name == "call" and root.cat == "compile"
+        assert root.args == dict(call=n, bucket=4, backend="cuda")
+        assert [k.name for k in kids] == ["copy_in", "replay", "clone"]
+        assert all(k.args == dict(call=n, parent="call") for k in kids)
+        ends = [root.ts] + [x for k in kids for x in (k.ts, k.ts + k.dur)]
+        assert ends == sorted(ends) and ends[-1] <= root.ts + root.dur
+        self_s = root.dur - sum(k.dur for k in kids)
+        assert 0 <= self_s <= root.dur
+    assert [e.name for e in calls[3]] == ["call"]
+    assert not [e for e in ob.trace.events if e.cat == "kernel"]
+    assert ob.metrics.total("model_runs_total") == 3
+    n = len(ob.trace.events)
+    ob.flush()                   # a second flush records nothing again
+    assert len(ob.trace.events) == n
+
+
+def _fake_clock_run(qp):
+    ob = prt.instrument(clock=FakeClock(2.5))
+    cm = _graph_model(qp)
+    imgs = torch.from_numpy(images(4, seed=1))
+    cm(imgs[:2])
+    ob.clock.advance(0.5)
+    cm(imgs)
+    ob.clock.advance(0.25)
+    ob.flush()
+    prt.disable()
+    return ob
+
+
+def test_call_spans_under_a_fake_clock_strip_to_the_same_bytes(qp8):
+    """Under a ``FakeClock`` a span sits at the clock's time with no
+    duration and carries the measured one as ``wall_us``; two seeded runs
+    export the same bytes once the volatile args are stripped."""
+    a, b = _fake_clock_run(qp8), _fake_clock_run(qp8)
+    calls = _by_call(a.trace.events)
+    assert {e.ts for e in calls[1]} == {2.5} and \
+        {e.ts for e in calls[2]} == {3.0}
+    assert all(e.dur == 0.0 and e.args["wall_us"] >= 0.0
+               for es in calls.values() for e in es)
+    assert a.trace.jsonl(strip_volatile=True) == \
+        b.trace.jsonl(strip_volatile=True)
+    assert a.trace.chrome(strip_volatile=True) == \
+        b.trace.chrome(strip_volatile=True)
+
+
+class _StubEvent:
+    """A CUDA event's stand-in: ``t``, the device's time in ms when it
+    passed the event, and ``done``, set by the test as the device would."""
+
+    def __init__(self, t=None):
+        self.t, self.done, self.streams = t, False, []
+
+    def record(self, stream=None):
+        self.streams.append(stream)
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def _stub_streams(monkeypatch, ids):
+    """The current stream's id reads from ``ids`` (one value a call);
+    ``torch.cuda.current_stream`` counts its lookups in the result."""
+    looked = []
+    it = iter(ids)
+    monkeypatch.setattr(calltrace, "stream_id", lambda index: next(it))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index: looked.append(index) or
+                        f"s{len(looked)}")
+    return looked
+
+
+def test_device_spans_resolve_lazily_through_the_anchor(monkeypatch):
+    """A call's events are read at the read (the flush), oldest first,
+    waiting for each, and placed at the anchor's host time plus their
+    ``elapsed_time`` from the anchor; the stream is looked up in full only
+    when its id changed; a full ring leaves a call untimed, and a read
+    frees it."""
+    looked = _stub_streams(monkeypatch, [7, 7, 9, 9])
+    pairs = [(_StubEvent(), _StubEvent()) for _ in range(2)]
+    timer = calltrace.DeviceTimer(pairs, _StubEvent(t=1000.0),
+                                  anchor_host=50.0, uncertainty=20e-6)
+    for call in (1, 2):
+        timer.end(timer.begin(), call)
+    assert timer.begin() is None and timer.dropped == 1
+    assert looked == [0] and pairs[1][1].streams == ["s1"]
+    pairs[0][0].t, pairs[0][1].t = 1000.5, 1000.625
+    pairs[1][0].t, pairs[1][1].t = 1000.75, 1001.0
+    [(c1, a0, a1), (c2, b0, b1)] = timer.read()
+    assert (c1, c2) == (1, 2) and pairs[1][1].done
+    assert (a0, a1) == (pytest.approx(50.0005), pytest.approx(50.000625))
+    assert (b0, b1) == (pytest.approx(50.00075), pytest.approx(50.001))
+    assert timer.read() == []
+    assert timer.begin() == 0 and pairs[0][0].streams == ["s1", "s2"]
+    assert timer.begin() == 1 and looked == [0, 0]
+
+
+def test_reanchor_moves_the_placed_spans_onto_the_line():
+    """A second anchor that the first places 4 us late on the host clock
+    (the device's clock ran fast) moves each span placed through the first
+    in proportion to its distance from it, and the new anchor places what
+    follows."""
+    timer = calltrace.DeviceTimer([], _StubEvent(t=0.0), anchor_host=10.0,
+                                  uncertainty=0.0)
+    timer.placed = [PT.TraceEvent("X", "call", "kernel", "d", t, 1e-4)
+                    for t in (10.0, 10.5, 11.0)]
+    placed = timer.placed
+    timer.reanchor(_StubEvent(t=1000.0), anchor_host=11.0 - 4e-6,
+                   uncertainty=1e-5)
+    assert [e.ts for e in placed] == pytest.approx(
+        [10.0, 10.5 - 2e-6, 11.0 - 4e-6], abs=1e-9)
+    assert timer.placed == [] and timer.anchor_host == 11.0 - 4e-6
+
+
+def test_session_flush_places_device_spans_beside_the_host_spans(
+        monkeypatch):
+    """Through the session: a traced run on a CUDA device records its
+    events on the current stream, and ``flush()`` turns them into a
+    ``call`` span on the device's track with the run's number, which
+    ``strip_volatile`` zeroes as it does kernel times."""
+    dev = torch.device("cuda", 0)
+    pairs = [(_StubEvent(), _StubEvent()) for _ in range(4)]
+    ob = prt.instrument()
+    tracer = calltrace.tracer(ob)
+    assert calltrace.tracer(ob) is tracer
+    tracer.timers[dev] = calltrace.DeviceTimer(
+        pairs, _StubEvent(t=0.0), anchor_host=ob.now(), uncertainty=0.0)
+    _stub_streams(monkeypatch, [3])
+    monkeypatch.setattr(calltrace, "anchor_event", lambda d, now: (
+        _StubEvent(t=1.0), tracer.timers[dev].anchor_host + 1e-3, 2e-5))
+    with tracer.call(dev, bucket=8) as call:
+        with call.phase("copy_in"):
+            pass
+    with tracer.call(dev, bucket=8):
+        pass                    # no phase: untimed on the device
+    assert pairs[0][0].streams == pairs[0][1].streams == ["s1"]
+    assert pairs[1][0].streams == []
+    pairs[0][0].t, pairs[0][1].t = 0.25, 0.5
+    ob.flush()
+    [span] = [e for e in ob.trace.events
+              if e.cat == "kernel" and e.ph == "X"]
+    assert (span.name, span.track, span.args) == \
+        ("call", "device cuda:0", dict(call=1))
+    assert span.dur == pytest.approx(0.25e-3)
+    host, timer_span, copy_in = _by_call(ob.trace.events)[1]
+    # the flush's anchor, 1 ms after the first and placed there by it,
+    # shows no skew: the span stays at the first anchor + 0.25 ms
+    timer = ob.call_tracer.timers[dev]
+    assert span.ts == pytest.approx(timer.anchor_host - 1e-3 + 0.25e-3)
+    assert host.args == dict(call=1, bucket=8)
+    # the start event's record is a child of its own, before copy_in, so
+    # the call's self time holds none of the device timing
+    assert (timer_span.name, copy_in.name) == ("timer", "copy_in")
+    assert timer_span.args == dict(call=1, parent="call")
+    assert host.ts <= timer_span.ts <= timer_span.ts + timer_span.dur \
+        <= copy_in.ts
+    anchors = [e for e in ob.trace.events if e.name == "anchor"]
+    assert [e.args["wall_us"] for e in anchors] == [20.0]
+    stripped = PT.strip_volatile_events([span])[0]
+    assert stripped.ts == stripped.dur == 0.0
+
+
+def test_a_full_ring_leaves_the_call_untimed_until_the_flush(
+        monkeypatch):
+    """No call reads an event: once every pair of the ring holds a call,
+    the next goes untimed, and nothing waits; the flush reads the ring
+    and frees it for the calls after."""
+    dev = torch.device("cuda", 0)
+    (start, end), = pairs = [(_StubEvent(), _StubEvent())]
+    ob = prt.instrument()
+    tracer = calltrace.tracer(ob)
+    timer = tracer.timers[dev] = calltrace.DeviceTimer(
+        pairs, _StubEvent(t=0.0), anchor_host=0.0, uncertainty=0.0)
+    _stub_streams(monkeypatch, [5] * 3)
+    monkeypatch.setattr(calltrace, "anchor_event", lambda d, now: (
+        _StubEvent(t=3.0), 3e-3, 0.0))
+    monkeypatch.setattr(_StubEvent, "elapsed_time", _refuse)
+
+    def run():
+        with tracer.call(dev) as call:
+            with call.phase("copy_in"):
+                pass
+
+    run()
+    run()                       # the ring is full: call 2 untimed
+    assert timer.dropped == 1 and len(start.streams) == 1
+    assert not end.done         # nothing waited on the call path
+    monkeypatch.undo()
+    _stub_streams(monkeypatch, [5])
+    monkeypatch.setattr(calltrace, "anchor_event", lambda d, now: (
+        _StubEvent(t=3.0), 3e-3, 0.0))
+    start.t, end.t = 1.0, 2.0
+    ob.flush()
+    assert [e.args["call"] for e in ob.trace.events
+            if e.cat == "kernel" and e.ph == "X"] == [1]
+    run()                       # the flush freed the ring: call 3 timed
+    assert timer.pending == [(0, 3)] and len(start.streams) == 2
+
+
+def test_profiler_shows_the_call_phases(qp8):
+    """Under ``torch.profiler`` each host span is also a
+    ``record_function`` annotation: ``copy_in`` encloses the call's
+    ``aten::copy_`` and ``call`` encloses its three phases."""
+    from torch.profiler import ProfilerActivity, profile
+    cm = _graph_model(qp8)
+    imgs = torch.from_numpy(images(4, seed=1))
+    prt.instrument()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cm(imgs)
+    ev = prof.events()
+    one = {}
+    for name in ("call", "copy_in", "replay", "clone"):
+        [one[name]] = [e for e in ev if e.name == name]
+
+    def inside(e, outer):
+        return outer.time_range.start <= e.time_range.start and \
+            e.time_range.end <= outer.time_range.end
+
+    assert any(e.name == "aten::copy_" and inside(e, one["copy_in"])
+               for e in ev)
+    assert all(inside(one[k], one["call"])
+               for k in ("copy_in", "replay", "clone"))
 
 
 def _serve(qp, instrumented, backend="cuda", shadow="torch-int"):

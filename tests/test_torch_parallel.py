@@ -420,6 +420,16 @@ def test_run_sharded_bitwise(world):
     np.testing.assert_array_equal(v["full"], np.asarray(jcm(inp["imgs"])))
 
 
+def test_run_sharded_traced(world):
+    """A sharded bucket run under an obs session records its ``call``
+    span (bucket, backend) and returns the same logits."""
+    v = value(world[0], "run_sharded_traced")
+    np.testing.assert_array_equal(v["five"],
+                                  value(world[0], "run_sharded")["ref"][:5])
+    assert v["spans"] == [("call", dict(call=1, bucket=8,
+                                        backend="torch-int"))]
+
+
 def test_run_sharded_compile_counts(world):
     """The reference's cache keys: one lowering per (axis, devices), one
     executable per (bucket, axis, mesh shape, devices), each counted."""

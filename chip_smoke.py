@@ -11,7 +11,9 @@ Phases, one JSON line each:
                 block_chain, matmul_int8, flash_attention, selective_scan,
                 conv2d_int8) from ``src/repro_torch/kernels/csrc``, one
                 nvcc each, all started together; prints ptxas registers
-                and spills, and the IMMA (int8 tensor-core) and IDP (dp4a)
+                and spills (every instance of resblock_fused and
+                block_chain spill-free), and the IMMA (int8 tensor-core)
+                and IDP (dp4a)
                 instructions in the SASS of the block kernels and the two
                 conv kernels: IMMA in resblock_fused, block_chain and
                 conv2d_int8, no IDP in resblock_fused (block_chain keeps
@@ -24,8 +26,11 @@ Phases, one JSON line each:
                 the same way (the launch floor); resblock_fused at every
                 ResNet20 block shape for skip shifts > 0, = 0, < 0 at
                 buckets 1, 8, 32 and 256, each at the row band
-                ``tune.space.block_band_rows`` picks for the card's SMs;
-                block_chain on the
+                ``tune.space.block_band_rows`` picks for the card's SMs,
+                and at buckets 32 and 256 each launch's warp-item tiles
+                (``tune.space.block_tiles``), device time, counted path
+                and thread blocks an SM of the kernel's single and tiled
+                instances; block_chain on the
                 ResNet20 chain with the stem fused (N = 1, 8, 32 at
                 batch_tile 1 and 2, N = 256), the ResNet8 chain (N = 1, 8,
                 32) and the four narrow chains of tests/test_kernels.py at
@@ -432,7 +437,7 @@ from repro_torch.kernels.megakernel.ops import (  # noqa: E402
     ChainBlockSpec, ChainLaunch, block_chain_op)
 from repro_torch.kernels.megakernel.ref import block_chain_ref  # noqa: E402
 from repro_torch.kernels.resblock_fused.ops import (  # noqa: E402
-    ResblockLaunch, resblock_fused_op, smem_bytes)
+    ResblockLaunch, occupancy, resblock_fused_op, smem_bytes, tile_path)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref  # noqa: E402
 from repro_torch.kernels.selective_scan.ops import (  # noqa: E402
     scan_knobs, scan_smem_bytes, scan_threads, selective_scan_op)
@@ -603,8 +608,16 @@ def build_phase():
     check(sass["resblock_fused"]["IDP"] == 0,
           "resblock_fused: dp4a (IDP) left in its SASS")
     check(sass["conv_stem"]["IDP"] > 0, "conv_stem: no dp4a (IDP) in its SASS")
+    # every instance of the two block kernels, spill-free
+    instances = {k: ptxas_by_entry(k) for k in ("resblock_fused",
+                                                "block_chain")}
+    for k, entries in instances.items():
+        for entry, lines in entries.items():
+            check(any("0 bytes spill stores, 0 bytes spill loads" in ln
+                      for ln in lines), f"{k} {entry}: spills {lines}")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         per_kernel=secs, ptxas=ptxas, sass=sass)
+         per_kernel=secs, ptxas=ptxas, sass=sass,
+         block_kernel_instances=instances)
     return sass
 
 
@@ -730,6 +743,7 @@ def kernels_phase(rng, dev):
     tot = dict(ms=0.0, call_ms=0.0, op_ms=0.0, plain_ms=0.0, bytes=0,
                ops=0)
     grid = {n: [] for n in BUCKETS}
+    tiles = {BUCKET: [], 256: []}
     for (h, cin, cout, stride), count in RESNET20_BLOCKS:
         oh = h // stride
         for n in BUCKETS + (256,):
@@ -763,6 +777,9 @@ def kernels_phase(rng, dev):
                                       f"resblock_fused N={n} {h}x{h}")
                 grid[n].append(dict(band=band, blocks=blocks, sms=used,
                                     most=most))
+            if n in (BUCKET, 256):
+                tiles[n].append(block_tiles_record(ops, n, h, cin, cout,
+                                                   stride))
             if n == BUCKET:
                 main_ops = ops
         ops = main_ops
@@ -806,7 +823,38 @@ def kernels_phase(rng, dev):
                  by_bucket=occupancy, max_abs_err=err["resblock_fused"])
     emit("kernel", name="resblock_fused", n=BUCKET,
          per="ResNet20 forward (9 launches)", **block)
+    for n, recs in tiles.items():
+        emit("kernel", name="resblock_fused_tiles", n=n,
+             per_forward_ms=sum(count * r["ms"] for r, (_, count) in
+                                zip(recs, RESNET20_BLOCKS)), blocks=recs)
+    block["tiles"] = tiles
     return stem, block
+
+
+def block_tiles_record(ops, n, h, cin, cout, stride):
+    """One ResNet20 block shape at bucket n as the main path launches it:
+    the warp-item tiles of its two conv phases (``tune.space.block_tiles``
+    at the rule's band), the launch's device time (CUDA-graph replay), the
+    path its launch is counted on, and the thread blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the kernel's
+    single instance, (1, 1) in both phases, and of the instance the launch
+    takes."""
+    oh = h // stride
+    kw = dict(stride=stride, shift0=11, shift1=12, skip_shift=-2)
+    launch = ResblockLaunch(*ops[1:], **kw)
+    band, tile = launch.band_rows(n, oh), launch.tiles(n, oh, oh)
+    path = tile_path(tile)
+    before = dict(resblock_fused_op.launches_by_path)
+    check(torch.equal(launch(ops[0]), resblock_ref(*ops, **kw)),
+          f"resblock_fused N={n} {h}x{h} tiles {tile} differs from plain")
+    check(resblock_fused_op.launches_by_path[path] == before[path] + 1,
+          f"resblock_fused N={n} {h}x{h}: launch not counted as {path}")
+    occ = {p: occupancy(h, h, cin, cout, stride, stride == 2, band, p)
+           for p in ("single", "tiled")}
+    return dict(h=h, cin=cin, cout=cout, stride=stride, band=band,
+                tiles=tile, path=path,
+                ms=device_ms(lambda: launch(ops[0]), REPS),
+                blocks_per_sm=occ, blocks_per_sm_taken=occ[path])
 
 
 def fit_shift(acc):

@@ -14,8 +14,20 @@
 //   M = output pixels, in tiles of 16 (any run of pixels of the band, row
 //       after row; a ragged last tile repeats its last pixel and does not
 //       store it);
-//   N = output channels, in pairs of n8 tiles (16 channels a warp item);
+//   N = output channels, in pairs of n8 tiles (16 channels);
 //   K = the input channels of one tap, summed over the taps.
+// A warp item is a register tile of MT pixel tiles by NT channel pairs
+// (Tile<MT, NT>, MT * NT <= 4, from a fixed set of six): each K step loads
+// MT A fragments and NT B fragments and issues 2 MT NT mmas into as many
+// independent accumulators, each A fragment feeding NT pairs and each B
+// fragment MT tiles.  The items of a phase are its pixel-tile groups
+// times its channel-pair groups; a whole pixel tile past the band issues
+// no loads and no mmas.  Each conv phase takes the tile of its shape:
+// tune/space.py:warp_tile picks the largest that leaves every warp of the
+// thread block an item without lengthening the busiest warp's run, so a
+// phase with items to spare (a whole map a thread block) takes a large
+// tile and a short band keeps (1, 1).  Bias, skip and epilogue are the
+// (1, 1) item's, tile by tile.
 // A fragments come from ldmatrix on per-lane row addresses in a
 // zero-ringed plane: the row of lane l is the tap-shifted input pixel of
 // output pixel l, so the im2col is implicit.  B fragments come from the
@@ -189,16 +201,28 @@ __device__ inline void zero_ring_cols(uint8_t* p, int w, int pitch, int r_lo,
 // Tensor-core products
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+// The shared-memory address of p, as ldmatrix takes it.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// ldmatrix of four / two 8x8 b16 matrices at a shared-memory address, or
+// at a generic pointer into shared memory.
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+      : "r"(addr));
 }
-__device__ __forceinline__ void ldsm_x2(unsigned r[2], const void* p) {
+__device__ __forceinline__ void ldsm_x2(unsigned r[2], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
-               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned r[4], const void* p) {
+  ldsm_x4(r, smem_u32(p));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned r[2], const void* p) {
+  ldsm_x2(r, smem_u32(p));
 }
 
 // c += a (16 x 32 u8, row) * b (32 x 8 s8, col)
@@ -220,43 +244,108 @@ __device__ __forceinline__ void mma_k16(int c[4], const unsigned a[2],
       : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
-// acc[nt] += the product of one warp item over TAPS taps (3 x 3 or 1 x 1)
-// and K = KTS * KS bytes a tap: STEPS = TAPS * KTS mma steps, fully
-// unrolled so that every fragment address is a constant offset, with the
-// fragments of step s + 2 loaded while the mmas of step s issue.  arow:
-// this lane's ldmatrix row at tap (0, 0) (its k offset included);
-// row_step / px_step: bytes between input rows / pixels of the plane; wp:
-// the packed weights of the product at n-pair np of nps.
-template <int KS, int TAPS, int KTS>
-__device__ __forceinline__ void mma_taps(int acc[2][4], const uint8_t* arow,
+// A warp item's register tile: MT pixel tiles (16 output pixels each) by
+// NT channel pairs (16 output channels each).
+template <int MT_, int NT_>
+struct Tile {
+  static constexpr int MT = MT_, NT = NT_;
+};
+
+// The fixed set of tiles, MT * NT <= 4, with MT and NT at most kSide:
+// resblock_fused instantiates the whole set (kSide 4, tune/space.py:TILES)
+// and block_chain the tiles of sides up to 2 (CHAIN_TILES), the ones that
+// fit its 128 registers a thread beside the chain's own state.
+template <int kSide>
+__host__ __device__ constexpr bool tile_ok(int mt, int nt) {
+  return mt <= kSide && nt <= kSide &&
+         ((mt == 1 && (nt == 1 || nt == 2 || nt == 4)) ||
+          (mt == 2 && (nt == 1 || nt == 2)) || (mt == 4 && nt == 1));
+}
+
+// f(Tile<mt, nt>{}) for a tile of tile_ok<kSide>'s set; nothing for any
+// other.
+template <int kSide, class F>
+__device__ __forceinline__ void with_tile(int mt, int nt, F&& f) {
+  switch (4 * mt + nt) {
+    case 5: f(Tile<1, 1>{}); break;
+    case 6: f(Tile<1, 2>{}); break;
+    case 9: f(Tile<2, 1>{}); break;
+    case 10: f(Tile<2, 2>{}); break;
+    case 8: if constexpr (kSide >= 4) f(Tile<1, 4>{}); break;
+    case 17: if constexpr (kSide >= 4) f(Tile<4, 1>{}); break;
+    default: break;
+  }
+}
+
+// acc[i][j] += the product of pixel tile i and channel pair np0 + j of one
+// warp item over TAPS taps (3 x 3 or 1 x 1) and K = kts * KS bytes a tap,
+// for the first mv of the MT pixel tiles (a tile past the band issues no
+// loads and no mmas).  The steps run K slice by K slice (KS bytes of every
+// tap), the TAPS steps of a slice fully unrolled.  A (1, 1) tile loads the
+// fragments of step s + 2 while the mmas of step s issue (three register
+// stages); a larger tile loads each step's fragments just before its
+// 2 MT NT independent mmas, which hide one another's latency, so that its
+// accumulators fit two thread blocks an SM without spilling.
+// The loads walk the steps with one running A offset and one B pointer.
+// arow[i]: this lane's ldmatrix row of tile i at tap (0, 0), k offset
+// included, as a shared-memory address; row_step / px_step: bytes between
+// input rows / pixels of the plane; wp: the packed weights of the product,
+// nps channel pairs wide.
+template <int KS, int TAPS, int MT, int NT>
+__device__ __forceinline__ void mma_taps(int (&acc)[MT][NT][2][4],
+                                         const unsigned (&arow)[MT], int mv,
                                          int row_step, int px_step,
-                                         const uint8_t* wp, int np, int nps) {
+                                         const uint8_t* wp, int kts, int np0,
+                                         int nps) {
   using B = typename std::conditional<KS == 32, uint4, uint2>::type;
   constexpr int AR = KS / 8;  // A registers: 4 for k32, 2 for k16
-  constexpr int STEPS = TAPS * KTS, P = STEPS < 2 ? STEPS : 2;
-  const B* wb = reinterpret_cast<const B*>(wp) + np * 32 + (threadIdx.x & 31);
-  const int wstep = nps * 32;  // B fragments between consecutive steps
-  unsigned af[P + 1][AR];
-  B bf[P + 1];
-  auto load = [&](int s) {
-    const int tap = s / KTS, kt = s % KTS;
-    const uint8_t* a = arow + (tap / 3) * row_step + (tap % 3) * px_step + kt * KS;
-    if constexpr (KS == 32) ldsm_x4(af[s % (P + 1)], a);
-    else ldsm_x2(af[s % (P + 1)], a);
-    bf[s % (P + 1)] = wb[s * wstep];
+  constexpr int S = TAPS == 1 || MT * NT > 1 ? 1 : 3;  // register stages
+  const int tstep = kts * nps * 32;  // B fragments between taps of a slice
+  unsigned af[S][MT][AR];
+  B bf[S][NT];
+  // the next step to load: its A offset and B fragments
+  unsigned aoff = 0;
+  const B* wn = reinterpret_cast<const B*>(wp) + np0 * 32 + (threadIdx.x & 31);
+  auto load = [&](int st, int tap) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i > 0 && i >= mv) continue;
+      if constexpr (KS == 32) ldsm_x4(af[st][i], arow[i] + aoff);
+      else ldsm_x2(af[st][i], arow[i] + aoff);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) bf[st][j] = wn[32 * j];
+    if (tap + 1 < TAPS) {  // the next tap of the slice
+      aoff += tap % 3 == 2 ? row_step - 2 * px_step : px_step;
+      wn += tstep;
+    }
   };
+  auto mma = [&](int st) {
 #pragma unroll
-  for (int s = 0; s < P; ++s) load(s);
+    for (int i = 0; i < MT; ++i) {
+      if (i > 0 && i >= mv) continue;
 #pragma unroll
-  for (int s = 0; s < STEPS; ++s) {
-    if (s + P < STEPS) load(s + P);
-    const int i = s % (P + 1);
-    if constexpr (KS == 32) {
-      mma_k32(acc[0], af[i], bf[i].x, bf[i].y);
-      mma_k32(acc[1], af[i], bf[i].z, bf[i].w);
-    } else {
-      mma_k16(acc[0], af[i], bf[i].x);
-      mma_k16(acc[1], af[i], bf[i].y);
+      for (int j = 0; j < NT; ++j) {
+        if constexpr (KS == 32) {
+          mma_k32(acc[i][j][0], af[st][i], bf[st][j].x, bf[st][j].y);
+          mma_k32(acc[i][j][1], af[st][i], bf[st][j].z, bf[st][j].w);
+        } else {
+          mma_k16(acc[i][j][0], af[st][i], bf[st][j].x);
+          mma_k16(acc[i][j][1], af[st][i], bf[st][j].y);
+        }
+      }
+    }
+  };
+  const B* w0 = wn;
+  for (int kt = 0; kt < kts; ++kt) {
+    aoff = kt * KS;
+    wn = w0 + kt * nps * 32;
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) load(s, s);
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      if (tap + S - 1 < TAPS) load((tap + S - 1) % S, tap + S - 1);
+      mma(tap % S);
     }
   }
 }
@@ -265,31 +354,37 @@ __device__ __forceinline__ void mma_taps(int acc[2][4], const uint8_t* arow,
 // when kp is a multiple of 32, else m16n8k16.
 constexpr int kMaxK = 128;
 
-template <int TAPS>
-__device__ __forceinline__ void mma_product(int acc[2][4], const uint8_t* arow,
-                                            int row_step, int px_step,
-                                            const uint8_t* wp, int kp, int np,
+template <int TAPS, int MT, int NT>
+__device__ __forceinline__ void mma_product(int (&acc)[MT][NT][2][4],
+                                            const unsigned (&arow)[MT],
+                                            int mv, int row_step, int px_step,
+                                            const uint8_t* wp, int kp, int np0,
                                             int nps) {
-  switch (kp) {
-    case 16: return mma_taps<16, TAPS, 1>(acc, arow, row_step, px_step, wp, np, nps);
-    case 32: return mma_taps<32, TAPS, 1>(acc, arow, row_step, px_step, wp, np, nps);
-    case 48: return mma_taps<16, TAPS, 3>(acc, arow, row_step, px_step, wp, np, nps);
-    case 64: return mma_taps<32, TAPS, 2>(acc, arow, row_step, px_step, wp, np, nps);
-    case 80: return mma_taps<16, TAPS, 5>(acc, arow, row_step, px_step, wp, np, nps);
-    case 96: return mma_taps<32, TAPS, 3>(acc, arow, row_step, px_step, wp, np, nps);
-    case 112: return mma_taps<16, TAPS, 7>(acc, arow, row_step, px_step, wp, np, nps);
-    default: return mma_taps<32, TAPS, 4>(acc, arow, row_step, px_step, wp, np, nps);
-  }
+  if (kp % 32 == 0)
+    mma_taps<32, TAPS>(acc, arow, mv, row_step, px_step, wp, kp / 32, np0, nps);
+  else
+    mma_taps<16, TAPS>(acc, arow, mv, row_step, px_step, wp, kp / 16, np0, nps);
 }
 
-// Output pixel q of a band of `rows` rows from row oy0, ow wide, clamped to
-// the band's last pixel (a ragged tile's spare rows repeat it).
+// The output pixels of a band of `rows` rows from row oy0, ow wide, in
+// row-major order.  inv = ceil(2^32 / ow) (0 for ow = 1), so that q / ow
+// is the high word of q * inv, exactly for every q with q * ow < 2^32.
+struct Band {
+  int n_pix, oy0, ow;
+  unsigned inv;
+  __device__ __forceinline__ Band(int rows, int oy0_, int ow_)
+      : n_pix(rows * ow_), oy0(oy0_), ow(ow_), inv(0xffffffffu / ow_ + 1) {}
+};
+
+// Output pixel q of a band, clamped to the band's last pixel (a ragged
+// tile's spare rows repeat it).
 struct Pix {
   int y, x;
-  __device__ __forceinline__ Pix(int q, int n_pix, int oy0, int ow) {
-    q = min(q, n_pix - 1);
-    y = oy0 + q / ow;
-    x = q - (q / ow) * ow;
+  __device__ __forceinline__ Pix(int q, const Band& b) {
+    q = min(q, b.n_pix - 1);
+    const int r = b.inv ? static_cast<int>(__umulhi(q, b.inv)) : q;
+    y = b.oy0 + r;
+    x = q - r * b.ow;
   }
 };
 
@@ -304,7 +399,7 @@ __device__ __forceinline__ int lane_koff(int kp) {
   return kp % 32 ? 0 : 16 * ((threadIdx.x & 31) >> 4);
 }
 
-// Store one accumulator row (C rows g or g + 8) of a warp item: channels
+// Store one accumulator row (C rows g or g + 8) of a pixel tile: channels
 // 16 np + 8 nt + 2t, + 1 of pixel (y, x), requantized, as 16-bit stores;
 // channels at or past cout (the zero-padded n tiles) are not stored.
 __device__ __forceinline__ void store_row(const Map out, int y, int x,
@@ -323,102 +418,158 @@ __device__ __forceinline__ void store_row(const Map out, int y, int x,
   }
 }
 
-// out(oy, ox) = requant_u8(bias + sum over taps of in(oy * stride + kh,
-// ox * stride + kw) . w) for output rows [oy0, oy0 + rows), ox < ow.
-// w: the packed conv (w0 of a Packed), bias: np int32.
-__device__ inline void conv3x3_mma(const Map in, int cin, const uint8_t* w,
-                                   const int32_t* bias, int stride, int oy0,
-                                   int rows, int ow, int cout, int shift,
-                                   const Map out) {
-  const int kp = round16(cin), nps = round16(cout) / 16;
-  const int n_pix = rows * ow, items = (n_pix + 15) / 16 * nps;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
-    const int mt = it / nps, np = it - mt * nps;
-    const Pix a(16 * mt + lane_row(), n_pix, oy0, ow);
-    const uint8_t* arow = in.at(a.y * stride, a.x * stride) + lane_koff(kp);
-    int acc[2][4];
+// The epilogue of a warp item: every pixel of its first mv pixel tiles
+// (from tile m0) that lies in the band, each channel pair np0 + j.
+template <int MT, int NT>
+__device__ __forceinline__ void store_tile(const Map out,
+                                           const int (&acc)[MT][NT][2][4],
+                                           int m0, int mv, const Band& b,
+                                           int np0, int cout, int shift) {
+  const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int co = 16 * np + 8 * nt + 2 * t;
-      acc[nt][0] = acc[nt][2] = bias[co];
-      acc[nt][1] = acc[nt][3] = bias[co + 1];
-    }
-    mma_product<9>(acc, arow, in.pitch * in.c, in.c, w, kp, np, nps);
+  for (int i = 0; i < MT; ++i) {
+    if (i >= mv) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int q = 16 * mt + g + 8 * half;
-      if (q < n_pix) {
-        const Pix o(q, n_pix, oy0, ow);
-        store_row(out, o.y, o.x, acc, half, np, cout, shift);
+      const int q = 16 * (m0 + i) + g + 8 * half;
+      if (q < b.n_pix) {
+        const Pix o(q, b);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          store_row(out, o.y, o.x, acc[i][j], half, np0 + j, cout, shift);
       }
     }
   }
 }
 
-// The second half of a residual block for output rows [oy0, oy0 + rows):
-// the skip (identity, or the fused 1x1 downsample of the packed block) read
-// from x at (pad_lo + o * stride), shift-aligned, plus b1, starts conv1's
-// accumulator (the add-fold); conv1 runs over y0 (a Map in the coordinates
-// of its (1, 1)-padded input), then requant_u8.
+// acc[i][j] = v[channel pair np0 + j] in every row of every tile: the
+// accumulator init from a bias (np int32).
+template <int MT, int NT>
+__device__ __forceinline__ void init_bias(int (&acc)[MT][NT][2][4],
+                                          const int32_t* v, int np0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int co = 16 * (np0 + j) + 8 * nt + 2 * t;
+      const int v0 = v[co], v1 = v[co + 1];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        acc[i][j][nt][0] = acc[i][j][nt][2] = v0;
+        acc[i][j][nt][1] = acc[i][j][nt][3] = v1;
+      }
+    }
+}
+
+// out(oy, ox) = requant_u8(bias + sum over taps of in(oy * stride + kh,
+// ox * stride + kw) . w) for output rows [oy0, oy0 + rows), ox < ow, in
+// warp items of Tile<MT, NT>.  w: the packed conv (w0 of a Packed), bias:
+// np int32.
+template <int MT, int NT>
+__device__ inline void conv3x3_mma(const Map in, int cin, const uint8_t* w,
+                                   const int32_t* bias, int stride, int oy0,
+                                   int rows, int ow, int cout, int shift,
+                                   const Map out) {
+  const int kp = round16(cin), nps = round16(cout) / 16, ngs = nps / NT;
+  const Band band(rows, oy0, ow);
+  const int mts = (band.n_pix + 15) / 16, items = (mts + MT - 1) / MT * ngs;
+  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
+    const int m0 = it / ngs * MT, np0 = it % ngs * NT;
+    const int mv = min(MT, mts - m0);
+    unsigned arow[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const Pix a(16 * (m0 + i) + lane_row(), band);
+      arow[i] = smem_u32(in.at(a.y * stride, a.x * stride)) + lane_koff(kp);
+    }
+    int acc[MT][NT][2][4];
+    init_bias(acc, bias, np0);
+    mma_product<9>(acc, arow, mv, in.pitch * in.c, in.c, w, kp, np0, nps);
+    store_tile(out, acc, m0, mv, band, np0, cout, shift);
+  }
+}
+
+// The second half of a residual block for output rows [oy0, oy0 + rows),
+// in warp items of Tile<MT, NT>: the skip (identity, or the fused 1x1
+// downsample of the packed block) read from x at (pad_lo + o * stride),
+// shift-aligned, plus b1, starts conv1's accumulator (the add-fold); conv1
+// runs over y0 (a Map in the coordinates of its (1, 1)-padded input), then
+// requant_u8.
+template <int MT, int NT>
 __device__ inline void residual_mma(const Map x, int cin, int pad_lo,
                                     int stride, const Packed& pk, bool has_ds,
                                     int skip_shift, const Map y0, int oy0,
                                     int rows, int ow, int cout, int shift1,
                                     const Map out) {
   const int kp = round16(cin), np1 = round16(cout), nps = np1 / 16;
-  const int n_pix = rows * ow, items = (n_pix + 15) / 16 * nps;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ngs = nps / NT;
+  const Band band(rows, oy0, ow);
+  const int mts = (band.n_pix + 15) / 16, items = (mts + MT - 1) / MT * ngs;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
-    const int mt = it / nps, np = it - mt * nps;
-    const Pix a(16 * mt + lane_row(), n_pix, oy0, ow);
-    int acc[2][4];
+    const int m0 = it / ngs * MT, np0 = it % ngs * NT;
+    const int mv = min(MT, mts - m0);
+    int acc[MT][NT][2][4];
     if (has_ds) {
-      int accd[2][4];
+      unsigned xrow[MT];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int co = 16 * np + 8 * nt + 2 * t;
-        accd[nt][0] = accd[nt][2] = pk.bd[co];
-        accd[nt][1] = accd[nt][3] = pk.bd[co + 1];
+      for (int i = 0; i < MT; ++i) {
+        const Pix a(16 * (m0 + i) + lane_row(), band);
+        xrow[i] = smem_u32(x.at(pad_lo + a.y * stride, pad_lo + a.x * stride)) +
+                  lane_koff(kp);
       }
-      const uint8_t* xrow = x.at(pad_lo + a.y * stride, pad_lo + a.x * stride) +
-                            lane_koff(kp);
-      mma_product<1>(accd, xrow, 0, 0, pk.wd, kp, np, nps);
+      int accd[MT][NT][2][4];
+      init_bias(accd, pk.bd, np0);
+      mma_product<1>(accd, xrow, mv, 0, 0, pk.wd, kp, np0, nps);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[nt][i] = shift_align(accd[nt][i], skip_shift);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][nt][e] = shift_align(accd[i][j][nt][e], skip_shift);
     } else {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const Pix o(16 * mt + g + 8 * half, n_pix, oy0, ow);
-        const uint8_t* xc = x.at(pad_lo + o.y * stride, pad_lo + o.x * stride);
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int co = 16 * np + 8 * nt + 2 * t;
-          acc[nt][2 * half] = shift_align(xc[co], skip_shift);
-          acc[nt][2 * half + 1] = shift_align(xc[co + 1], skip_shift);
+        for (int half = 0; half < 2; ++half) {
+          const Pix o(16 * (m0 + i) + g + 8 * half, band);
+          const uint8_t* xc = x.at(pad_lo + o.y * stride, pad_lo + o.x * stride);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int co = 16 * (np0 + j) + 8 * nt + 2 * t;
+              acc[i][j][nt][2 * half] = shift_align(xc[co], skip_shift);
+              acc[i][j][nt][2 * half + 1] = shift_align(xc[co + 1], skip_shift);
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int co = 16 * (np0 + j) + 8 * nt + 2 * t;
+        const int b0 = pk.b1[co], b1 = pk.b1[co + 1];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          acc[i][j][nt][0] += b0;
+          acc[i][j][nt][2] += b0;
+          acc[i][j][nt][1] += b1;
+          acc[i][j][nt][3] += b1;
         }
       }
-    }
+    unsigned yrow[MT];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int co = 16 * np + 8 * nt + 2 * t;
-      acc[nt][0] += pk.b1[co];
-      acc[nt][2] += pk.b1[co];
-      acc[nt][1] += pk.b1[co + 1];
-      acc[nt][3] += pk.b1[co + 1];
+    for (int i = 0; i < MT; ++i) {
+      const Pix a(16 * (m0 + i) + lane_row(), band);
+      yrow[i] = smem_u32(y0.at(a.y, a.x)) + lane_koff(np1);
     }
-    const uint8_t* yrow = y0.at(a.y, a.x) + lane_koff(np1);
-    mma_product<9>(acc, yrow, y0.pitch * y0.c, y0.c, pk.w1, np1, np, nps);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q = 16 * mt + g + 8 * half;
-      if (q < n_pix) {
-        const Pix o(q, n_pix, oy0, ow);
-        store_row(out, o.y, o.x, acc, half, np, cout, shift1);
-      }
-    }
+    mma_product<9>(acc, yrow, mv, y0.pitch * y0.c, y0.c, pk.w1, np1, np0, nps);
+    store_tile(out, acc, m0, mv, band, np0, cout, shift1);
   }
 }
 

@@ -45,9 +45,11 @@
 // that.  At splits 4 and 8 a thread block then needs under half of an
 // SM's shared memory, and two of them share an SM.
 // The block products are block_body.cuh's implicit GEMMs on the int8 tensor
-// cores (mma.sync .u8.s8), shared with resblock_fused.  The stem (cin 3,
-// padded to 4; 0.44 M of the 40.8 M multiply-adds an image) stays on dp4a
-// on the CUDA cores: a K of 4 bytes would fill an eighth of an m16n8k32.
+// cores (mma.sync .u8.s8), shared with resblock_fused, each link's in the
+// warp-item tile of its link-table row (tune/space.py:chain_tiles).  The
+// stem (cin 3, padded to 4; 0.44 M of the 40.8 M multiply-adds an image)
+// stays on dp4a on the CUDA cores: a K of 4 bytes would fill an eighth of
+// an m16n8k32.
 #include <cooperative_groups.h>
 
 #include "block_body.cuh"
@@ -63,11 +65,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 2;
 constexpr int kMaxLinks = 32;
-constexpr int kLinkInts = 9;  // h, w, cin, cout, stride, has_ds, shift0, shift1, skip_shift
+// The longest side of a warp-item tile the kernel instantiates: 2, since a
+// tile 4 pixel tiles or 4 channel pairs long spills beside the chain's
+// state within 128 registers a thread (block_body.cuh's tile_ok).
+constexpr int kTileSide = 2;
+// h, w, cin, cout, stride, has_ds, shift0, shift1, skip_shift, mt, nt
+constexpr int kLinkInts = 11;
 
 struct Link {
   const unsigned char* packed;
   int h, w, cin, cout, stride, has_ds, shift0, shift1, skip_shift;
+  int mt, nt;  // the warp-item tile of both conv phases (block_body.cuh)
 };
 
 struct ChainLayout {
@@ -274,8 +282,12 @@ block_chain_kernel(const __grid_constant__ ChainArgs a) {
     // 1 - pad_lo, and its row ri - 1 stored row 0 ----
     for (int n = 0; n < bt; ++n) {
       const Map in{pa + n * plane, k.w + 2, 1 - pad_lo - ri, 1 - pad_lo, pin};
-      repro::conv3x3_mma(in, k.cin, pk.w0, pk.b0, k.stride, ro, nbo, ow, cout,
-                         k.shift0, Map{pb + n * plane, ow + 2, 1 - ro, 1, pout});
+      repro::with_tile<kTileSide>(k.mt, k.nt, [&](auto tile) {
+        using T = decltype(tile);
+        repro::conv3x3_mma<T::MT, T::NT>(in, k.cin, pk.w0, pk.b0, k.stride, ro,
+                                         nbo, ow, cout, k.shift0,
+                                         Map{pb + n * plane, ow + 2, 1 - ro, 1, pout});
+      });
       repro::zero_ring_cols(pb + n * plane, ow, pout, 1, nbo + 1);
     }
     push_halo(cl, pb, plane, bt, nbo, ow, pout);
@@ -294,9 +306,13 @@ block_chain_kernel(const __grid_constant__ ChainArgs a) {
       const Map x{pa + n * plane, k.w + 2, 1 - pad_lo - ri, 1 - pad_lo, pin};
       const Map out = last ? Map{a.out + (img0 + n) * oh * ow * cout, ow, 0, 0, cout}
                            : Map{pc + n * plane, ow + 2, 1 - ro, 1, pout};
-      repro::residual_mma(x, k.cin, pad_lo, k.stride, pk, k.has_ds != 0, k.skip_shift,
-                          Map{pb + n * plane, ow + 2, -ro, 0, pout}, ro, nbo, ow,
-                          cout, k.shift1, out);
+      repro::with_tile<kTileSide>(k.mt, k.nt, [&](auto tile) {
+        using T = decltype(tile);
+        repro::residual_mma<T::MT, T::NT>(
+            x, k.cin, pad_lo, k.stride, pk, k.has_ds != 0, k.skip_shift,
+            Map{pb + n * plane, ow + 2, -ro, 0, pout}, ro, nbo, ow, cout,
+            k.shift1, out);
+      });
       if (!last) repro::zero_ring_cols(pc + n * plane, ow, pout, 1, nbo + 1);
     }
     if (!last) push_halo(cl, pc, plane, bt, nbo, ow, pout);
@@ -311,7 +327,8 @@ block_chain_kernel(const __grid_constant__ ChainArgs a) {
 }  // namespace
 
 // Dynamic shared memory one thread block uses.  link_ints: n_links rows of
-// (h, w, cin, cout, stride, has_ds, shift0, shift1, skip_shift); stem_cout
+// (h, w, cin, cout, stride, has_ds, shift0, shift1, skip_shift, mt, nt),
+// (mt, nt) the link's warp-item tile (tune/space.py:chain_tiles); stem_cout
 // = 0 when no stem is fused; split: thread blocks an image.
 REPRO_EXPORT int block_chain_smem_bytes(const int* link_ints, int n_links,
                                         int stem_cin, int stem_cout,
@@ -349,8 +366,9 @@ REPRO_EXPORT int block_chain_max_clusters(int split, int smem) {
 // link_ptrs: n_links packed blocks (block_body.cuh's layout, 16-byte
 // aligned).  stem_w: (3, 3, stem_cin, stem_cout) s8 HWIO with stem_cin <= 4
 // and stem_b: (stem_cout,) s32, or null with stem_cout = 0.  Every link's
-// cin and cout must be multiples of 4 and at most 128, x and out 4-byte
-// aligned,
+// cin and cout must be multiples of 4 and at most 128, its tile one of
+// block_body.cuh's set of sides up to kTileSide with nt dividing cout's
+// channel pairs (tune/space.py:CHAIN_TILES), x and out 4-byte aligned,
 // batch_tile must divide n, and split (1, 2, 4 or 8 thread blocks an
 // image, one cluster) every map height of the chain.  Returns the
 // cudaError_t of the launch; cudaErrorInvalidValue for arguments the
@@ -387,6 +405,10 @@ REPRO_EXPORT int block_chain_launch(const void* x, void* out, const void* stem_w
     d.packed = static_cast<const unsigned char*>(link_ptrs[j]);
     d.h = k[0], d.w = k[1], d.cin = k[2], d.cout = k[3], d.stride = k[4];
     d.has_ds = k[5], d.shift0 = k[6], d.shift1 = k[7], d.skip_shift = k[8];
+    d.mt = k[9], d.nt = k[10];
+    if (!repro::tile_ok<kTileSide>(d.mt, d.nt) ||
+        (repro::round16(d.cout) / 16) % d.nt)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (d.cin % 4 || d.cout % 4 || repro::round16(d.cin) > repro::kMaxK ||
         repro::round16(d.cout) > repro::kMaxK || d.h % split ||
         out_size(d.h, d.stride) % split ||

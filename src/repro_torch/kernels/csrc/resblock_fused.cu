@@ -16,8 +16,11 @@
 // bound by bytes (about 290-580 ops per byte of x read and out written) and
 // the 64-channel blocks by operations (about 600-1,150).  At ResNet sizes
 // one block is a few microseconds of work spread over the card, so in
-// practice latency bounds it: the dependent mma chain of a warp item, the
-// staging, and the launch.
+// practice the scalar work around the products bounds it: on an H100, with
+// one thread block a 32x32x16 map, staging x takes about a third of the
+// thread block's cycles, and within each phase the skip and bias init and
+// the requantizing epilogue take about three quarters, the mma steps a
+// quarter.
 //
 // Design: a grid of (row band, image) thread blocks, so that at the serving
 // buckets the card fills (block_band_rows in tune/space.py picks the band
@@ -34,7 +37,11 @@
 //     band of out goes to device memory.
 // Both phases are block_body.cuh's implicit GEMMs on the int8 tensor cores
 // (mma.sync m16n8k32 / m16n8k16 .u8.s8), so device memory sees x read
-// once (plus the halo rows) and out written once.
+// once (plus the halo rows) and out written once.  Each phase runs in the
+// warp-item tile its launch argument names (tune/space.py:block_tiles
+// picks it from the phase's pixels and channels): a kernel instance of
+// (1, 1) items alone, and one that dispatches over block_body.cuh's six
+// tiles.
 #include "block_body.cuh"
 
 namespace {
@@ -62,12 +69,21 @@ __host__ __device__ inline Layout layout(int h, int w, int cin, int cout,
   return l;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kTiled = false: both conv phases in warp items of one m16 x n16 tile
+// (the instance a launch takes when the tile rule gives (1, 1) to both);
+// true: each phase in the tile of its launch argument (mta, nta) / (mtb, ntb),
+// dispatched over block_body.cuh's fixed set, at most 128 registers a
+// thread so that two thread blocks share an SM.  The false instance is
+// kept beside it because a (1, 1) launch runs 3-5% faster there than in
+// the true one at the bucket-32 shapes on an H100.
+template <bool kTiled>
+__global__ void __launch_bounds__(kThreads, kTiled ? 2 : 1)
 resblock_fused_kernel(const uint8_t* __restrict__ x,
                       const unsigned char* __restrict__ packed,
                       uint8_t* __restrict__ out, int h, int w, int cin,
                       int cout, int stride, int has_ds, int shift0, int shift1,
-                      int skip_shift, int band, int* __restrict__ sm_ids) {
+                      int skip_shift, int band, int mta, int nta, int mtb, int ntb,
+                      int* __restrict__ sm_ids) {
   using repro::Map;
   if (sm_ids != nullptr && threadIdx.x == 0)
     sm_ids[blockIdx.y * gridDim.x + blockIdx.x] = repro::sm_id();
@@ -100,16 +116,35 @@ resblock_fused_kernel(const uint8_t* __restrict__ x,
   // ---- phase A: conv0 (strided) for y0 rows [r0 - 1, r0 + nb + 1) of
   // the map -> requant_u8 -> y0 stays on chip, stored row y - r0 + 1 ----
   const int ylo = max(r0 - 1, 0), yhi = min(r0 + nb + 1, l.oh);
-  repro::conv3x3_mma(xm, cin, pk.w0, pk.b0, stride, ylo, yhi - ylo, l.ow, cout,
-                     shift0, Map{ys, l.ow + 2, 1 - r0, 1, pout});
+  auto phase_a = [&](auto tile) {
+    using T = decltype(tile);
+    repro::conv3x3_mma<T::MT, T::NT>(xm, cin, pk.w0, pk.b0, stride, ylo,
+                                     yhi - ylo, l.ow, cout, shift0,
+                                     Map{ys, l.ow + 2, 1 - r0, 1, pout});
+  };
+  if constexpr (kTiled) repro::with_tile<4>(mta, nta, phase_a);
+  else phase_a(repro::Tile<1, 1>{});
   __syncthreads();
 
   // ---- phase B: skip + b1 initialize conv1's accumulator (add-fold);
   // conv1 reads y0 in its (1, 1)-padded coordinates ----
   uint8_t* on = out + static_cast<size_t>(img) * l.oh * l.ow * cout;
-  repro::residual_mma(xm, cin, l.pad_lo, stride, pk, has_ds != 0, skip_shift,
-                      Map{ys, l.ow + 2, -r0, 0, pout}, r0, nb, l.ow, cout,
-                      shift1, Map{on, l.ow, 0, 0, cout});
+  auto phase_b = [&](auto tile) {
+    using T = decltype(tile);
+    repro::residual_mma<T::MT, T::NT>(
+        xm, cin, l.pad_lo, stride, pk, has_ds != 0, skip_shift,
+        Map{ys, l.ow + 2, -r0, 0, pout}, r0, nb, l.ow, cout, shift1,
+        Map{on, l.ow, 0, 0, cout});
+  };
+  if constexpr (kTiled) repro::with_tile<4>(mtb, ntb, phase_b);
+  else phase_b(repro::Tile<1, 1>{});
+}
+
+using Kernel = decltype(&resblock_fused_kernel<false>);
+
+// The instance a launch with these tiles takes.
+Kernel kernel_of(bool tiled) {
+  return tiled ? resblock_fused_kernel<true> : resblock_fused_kernel<false>;
 }
 
 }  // namespace
@@ -126,32 +161,58 @@ REPRO_EXPORT int resblock_packed_bytes(int cin, int cout, int has_ds) {
   return repro::packed_block_bytes(cin, cout, has_ds);
 }
 
+// Thread blocks of the kernel instance that tiled selects (0: both
+// phases (1, 1); 1: any other tiles) an SM can hold at this shape and band
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative
+// cudaError_t.
+REPRO_EXPORT int resblock_fused_occupancy(int h, int w, int cin, int cout,
+                                          int stride, int has_ds, int band,
+                                          int tiled) {
+  const Layout l = layout(h, w, cin, cout, stride, has_ds != 0, band);
+  const Kernel kernel = kernel_of(tiled != 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, repro::kMaxSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, l.bytes);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // x: (n, h, w, cin) u8 unpadded; packed: the block's biases and filters in
 // the packed layout of block_body.cuh (16-byte aligned); out: (n, oh, ow,
 // cout) u8.  cin and cout must be multiples of 4 and at most 128, x and out
 // 4-byte aligned;
-// band: output rows a thread block takes (1 .. oh).  sm_ids: null, or
-// n * ceil(oh / band) ints that receive the SM of each thread block (image
-// major).  Returns the cudaError_t of the launch.
+// band: output rows a thread block takes (1 .. oh); (mta, nta), (mtb, ntb):
+// the warp-item tiles of phase A (conv0) and phase B (skip + conv1), each
+// of block_body.cuh's set with nta, ntb dividing cout's channel pairs
+// (tune/space.py:block_tiles).  sm_ids: null, or n * ceil(oh / band) ints
+// that receive the SM of each thread block (image major).  Returns the
+// cudaError_t of the launch.
 REPRO_EXPORT int resblock_fused_launch(const void* x, const void* packed,
                                        void* out, int n, int h, int w, int cin,
                                        int cout, int stride, int has_ds,
                                        int shift0, int shift1, int skip_shift,
-                                       int band, int* sm_ids, void* stream) {
+                                       int band, int mta, int nta, int mtb, int ntb,
+                                       int* sm_ids, void* stream) {
   const Layout l = layout(h, w, cin, cout, stride, has_ds != 0, band);
+  const int nps = repro::round16(cout) / 16;
   if (band < 1 || band > l.oh || cin % 4 || cout % 4 || n > 65535 ||
       repro::round16(cin) > repro::kMaxK || repro::round16(cout) > repro::kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!repro::tile_ok<4>(mta, nta) || !repro::tile_ok<4>(mtb, ntb) || nps % nta ||
+      nps % ntb)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (l.bytes > repro::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = kernel_of(mta * nta > 1 || mtb * ntb > 1);
   if (l.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        resblock_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((l.oh + band - 1) / band, n);
-  resblock_fused_kernel<<<grid, kThreads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, l.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const unsigned char*>(packed),
       static_cast<uint8_t*>(out), h, w, cin, cout, stride, has_ds, shift0, shift1,
-      skip_shift, band, sm_ids);
+      skip_shift, band, mta, nta, mtb, ntb, sm_ids);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,11 @@ per chain link and a matching :class:`ChainBlockSpec` schedule.  The SAME
 pad of the chain's first op is the kernel's, as is every later re-pad,
 which happens on chip.  The shifts, static arguments of the JAX kernel,
 are runtime arguments here and are range-checked.
-``block_chain_op.launches`` counts kernel launches.
+``block_chain_op.launches`` counts kernel launches,
+``block_chain_op.launches_by_path`` the same split by the links'
+warp-item tiles (:data:`PATHS`): ``single`` where every link ran in m16 x
+n16 items, ``tiled`` where any ran in a larger register tile
+(``tune.space.chain_tiles``).
 
 The kernel reads each link's filters and biases as one packed block
 (``kernels.resblock_fused.ops.pack_block``).  :class:`ChainLaunch`
@@ -34,9 +38,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import (check_bias, check_shift,
                                         check_weight, sm_ids_ptr)
 from repro_torch.kernels.megakernel.ref import block_chain_ref
-from repro_torch.kernels.resblock_fused.ops import MAX_CH, pack_block
+from repro_torch.kernels.resblock_fused.ops import (MAX_CH, PATHS,
+                                                    pack_block, tile_path)
 from repro_torch.tune.config import DEFAULT, KernelConfig
-from repro_torch.tune.space import SMEM_BUDGET, chain_split, chain_splits
+from repro_torch.tune.space import (SMEM_BUDGET, chain_split, chain_splits,
+                                    chain_tiles)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_LINKS = 32          # kMaxLinks in csrc/block_chain.cu
@@ -67,13 +73,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _link_ints(shapes: List[BlockShape], specs=None):
+def _link_ints(shapes: List[BlockShape], specs=None, tiles=None):
+    """The kernel's link table: one row of kLinkInts ints a link, the
+    warp-item tile (MT, NT) last ((1, 1) where ``tiles`` is None)."""
     rows = []
     for j, b in enumerate(shapes):
         s = specs[j] if specs is not None else None
         rows += [b.h, b.w, b.ich, b.och, b.stride, int(b.downsample),
                  s.shift0 if s else 0, s.shift1 if s else 0,
-                 s.skip_shift if s else 0]
+                 s.skip_shift if s else 0, *(tiles[j] if tiles else (1, 1))]
     return (_I * len(rows))(*rows)
 
 
@@ -166,13 +174,14 @@ def _check_chain(in_shape, blocks, specs, stem, stem_shift
 class ChainLaunch:
     """One block chain prepared for repeated launches on an ``in_shape`` =
     (h, w, c) input: the operands validated, the biases widened, and (on a
-    GPU) every link packed, the link table (``link_ints``) and the packed
-    blocks' pointer array built once.  A call takes x (N,h,w,c) uint8 and
-    returns the last link's (N,oh,ow,Cout) uint8: on a CPU tensor the
-    plain version, on a CUDA tensor one kernel launch.  The per-call path
-    checks x's dtype, shape and layout, allocates the output and launches;
-    the batch tile (``config``, snapped to a divisor of N) and the split
-    (``config.split`` snapped to a legal split, else
+    GPU) every link packed, the link tables (:meth:`link_table`: one a
+    split the chain can take, each link's warp-item tile in its row) and
+    the packed blocks' pointer array built once.  A call takes x (N,h,w,c)
+    uint8 and returns the last link's (N,oh,ow,Cout) uint8: on a CPU
+    tensor the plain version, on a CUDA tensor one kernel launch.  The
+    per-call path checks x's dtype, shape and layout, allocates the output
+    and launches; the batch tile (``config``, snapped to a divisor of N)
+    and the split (``config.split`` snapped to a legal split, else
     ``tune.space.chain_split`` with the card's :func:`max_clusters`) are
     looked up once per N."""
 
@@ -216,18 +225,19 @@ class ChainLaunch:
         self.packed = [pack_block(*ws[:4], *(ws[4:] if s.has_ds
                                              else (None, None)))
                        for s, ws in zip(specs, self.blocks)]
-        self.ints = _link_ints(self.shapes, specs)
         self.ptrs = (_P * len(self.packed))(*[p.data_ptr()
                                               for p in self.packed])
         last = self.shapes[-1]
         self.out_hwc = (last.oh, last.ow, last.och)
-        # the launch's arguments between out and n, fixed here
+        # the link table at every split the kernel can take
+        self.tables = {s: self.link_table(s)
+                       for s in chain_splits(self.shapes)}
+        # the launch's stem arguments, fixed here
         st = self.stem
-        self.args = (st[0].data_ptr() if st else None,
-                     st[1].data_ptr() if st else None,
-                     self.in_shape[2] if st else 0, self.stem_och,
-                     stem_shift if st else 0, self.ints, self.ptrs,
-                     len(specs))
+        self.stem_args = (st[0].data_ptr() if st else None,
+                          st[1].data_ptr() if st else None,
+                          self.in_shape[2] if st else 0, self.stem_och,
+                          stem_shift if st else 0)
 
     def tiling(self, n: int):
         """(batch_tile, split) of a launch on n images."""
@@ -243,6 +253,18 @@ class ChainLaunch:
                                     capacity=max_clusters)
             self._tiles[n] = (bt, split)
         return self._tiles[n]
+
+    def link_tiles(self, n: int):
+        """The warp-item tile (MT, NT) of each link of a launch on n
+        images: ``tune.space.chain_tiles`` at the split :meth:`tiling`
+        gives."""
+        return chain_tiles(self.shapes, self.tiling(n)[1])
+
+    def link_table(self, split: int):
+        """(the kernel's link table, the launch's path) at ``split``: each
+        link's row ends with its tile from ``tune.space.chain_tiles``."""
+        tiles = chain_tiles(self.shapes, split)
+        return _link_ints(self.shapes, self.specs, tiles), tile_path(tiles)
 
     def _check_tiling(self, bt: int, split: int) -> None:
         """Raise when a tuned (batch_tile, split) does not fit the
@@ -292,13 +314,16 @@ class ChainLaunch:
         if out.numel() == 0:
             return out
         bt, split = self._tiles.get(n) or self.tiling(n)
+        ints, path = self.tables[split]
         ids = sm_ids_ptr(sm_ids, n // bt * split, x.device)
         lib = _lib()
         err = lib.block_chain_launch(
-            x.data_ptr(), out.data_ptr(), *self.args, n, bt, split, ids,
+            x.data_ptr(), out.data_ptr(), *self.stem_args, ints, self.ptrs,
+            len(self.specs), n, bt, split, ids,
             torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "block_chain launch")
         block_chain_op.launches += 1
+        block_chain_op.launches_by_path[path] += 1
         return out
 
 
@@ -321,3 +346,4 @@ def block_chain_op(x, blocks, *, specs, stem=None, stem_shift=None,
 
 
 block_chain_op.launches = 0
+block_chain_op.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -4,7 +4,11 @@
 A CPU tensor goes to the plain version (``ref.resblock_ref``); a CUDA
 tensor launches the kernel, or the call raises.  The shifts, static
 arguments of the JAX kernel, are runtime arguments here and are
-range-checked.  ``resblock_fused_op.launches`` counts kernel launches.
+range-checked.  ``resblock_fused_op.launches`` counts kernel launches,
+``resblock_fused_op.launches_by_path`` the same split by the warp-item
+tiles the launch took (:data:`PATHS`): ``single`` where both conv phases
+ran in m16 x n16 items, ``tiled`` where either ran in a larger register
+tile (``tune.space.block_tiles``).
 
 The kernel reads its filters and biases as one packed block
 (:func:`pack_block`: the mma B-fragment order of ``csrc/block_body.cuh``).
@@ -29,17 +33,20 @@ from repro_torch.kernels.common import (check_bias, check_shift,
                                         check_weight, sm_count, sm_ids_ptr)
 from repro_torch.kernels.resblock_fused.ref import resblock_ref
 from repro_torch.tune.config import KernelConfig
-from repro_torch.tune.space import SMEM_BUDGET, block_band_rows
+from repro_torch.tune.space import SMEM_BUDGET, block_band_rows, block_tiles
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_CH = 128    # kMaxK in csrc/block_body.cuh: the deepest unrolled product
+MAX_CH = 128    # kMaxK in csrc/block_body.cuh: the deepest product
+PATHS = ("single", "tiled")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("resblock_fused")
-    lib.resblock_fused_launch.argtypes = [_P] * 3 + [_I] * 11 + [_P] * 2
+    lib.resblock_fused_launch.argtypes = [_P] * 3 + [_I] * 15 + [_P] * 2
     lib.resblock_fused_launch.restype = _I
+    lib.resblock_fused_occupancy.argtypes = [_I] * 8
+    lib.resblock_fused_occupancy.restype = _I
     lib.resblock_fused_smem_bytes.argtypes = [_I] * 7
     lib.resblock_fused_smem_bytes.restype = _I
     lib.resblock_packed_bytes.argtypes = [_I] * 3
@@ -54,6 +61,24 @@ def smem_bytes(h, w, cin, cout, stride, has_ds, band) -> int:
     is the same formula)."""
     return _lib().resblock_fused_smem_bytes(h, w, cin, cout, stride,
                                             int(has_ds), band)
+
+
+def tile_path(tiles) -> str:
+    """The path of a launch with the phase tiles ``tiles`` (:data:`PATHS`):
+    ``single`` when both are (1, 1), else ``tiled``."""
+    return "single" if all(t == (1, 1) for t in tiles) else "tiled"
+
+
+def occupancy(h, w, cin, cout, stride, has_ds, band, path) -> int:
+    """Thread blocks of the kernel instance of ``path`` (:data:`PATHS`:
+    the one a launch takes whose tiles :func:`tile_path` maps there) that
+    one SM of the current GPU holds at once at this shape and band
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = _lib().resblock_fused_occupancy(h, w, cin, cout, stride, int(has_ds),
+                                        band, PATHS.index(path))
+    if n < 0:
+        _build.check(_lib(), -n, "resblock_fused occupancy")
+    return n
 
 
 def packed_bytes(cin, cout, has_ds) -> int:
@@ -148,10 +173,11 @@ class ResblockLaunch:
     launch at the band height :meth:`band_rows` gives: the ``config``'s
     ``band_rows`` when set (snapped into [1, oh]), else the one
     :func:`~repro_torch.tune.space.block_band_rows` picks for N and the
-    card's SM count (looked up once per N and map height).  A band whose
-    thread block exceeds the shared-memory budget raises, on either
-    device.  The per-call path checks only x's dtype, channels and
-    layout."""
+    card's SM count (looked up once per N and map height), and the
+    warp-item tiles of its two conv phases :meth:`tiles` gives for that
+    band.  A band whose thread block exceeds the shared-memory budget
+    raises, on either device.  The per-call path checks only x's dtype,
+    channels and layout."""
 
     def __init__(self, w0, b0, w1, b1, wd=None, bd=None, *, cin=None,
                  stride=1, shift0, shift1, skip_shift=0,
@@ -168,7 +194,7 @@ class ResblockLaunch:
         self.packed = None
         self.config = config or KernelConfig()
         self._bands = {}
-        self._checked = {}   # (N, H, W) -> band, its shared memory checked
+        self._checked = {}   # (N, H, W) -> (band, tiles, path), band checked
         if self.device.type == "cuda":
             if cin % 4 or self.cout % 4 or max(cin, self.cout) > MAX_CH:
                 raise ValueError(f"resblock_fused kernel needs channel counts "
@@ -190,6 +216,12 @@ class ResblockLaunch:
                 band = block_band_rows(oh, n, sm_count(self.device.index))
             self._bands[key] = band
         return self._bands[key]
+
+    def tiles(self, n: int, oh: int, ow: int):
+        """The warp-item tiles ``((MT, NT) of phase A, (MT, NT) of phase
+        B)`` of a launch on n images of (oh, ow) output maps:
+        ``tune.space.block_tiles`` at the band :meth:`band_rows` gives."""
+        return block_tiles(oh, ow, self.band_rows(n, oh), self.cout)
 
     def check_band(self, h: int, w: int, band: int) -> None:
         """Raise when a thread block of ``band`` rows on an (h, w) input
@@ -236,19 +268,23 @@ class ResblockLaunch:
                           device=x.device)
         if out.numel() == 0:
             return out
-        band = self._checked.get((N, H, W))
-        if band is None:
+        prep = self._checked.get((N, H, W))
+        if prep is None:
             band = self.band_rows(N, oh)
             self.check_band(H, W, band)
-            self._checked[(N, H, W)] = band
+            tiles = self.tiles(N, oh, ow)
+            prep = self._checked[(N, H, W)] = (band, tiles, tile_path(tiles))
+        band, ((mta, nta), (mtb, ntb)), path = prep
         ids = sm_ids_ptr(sm_ids, N * -(-oh // band), x.device)
         lib = _lib()
         err = lib.resblock_fused_launch(
             x.data_ptr(), self.packed.data_ptr(), out.data_ptr(), N, H, W,
             self.cin, self.cout, self.stride, int(self.has_ds), s0, s1, sk,
-            band, ids, torch.cuda.current_stream().cuda_stream)
+            band, mta, nta, mtb, ntb, ids,
+            torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "resblock_fused launch")
         resblock_fused_op.launches += 1
+        resblock_fused_op.launches_by_path[path] += 1
         return out
 
 
@@ -275,3 +311,4 @@ def resblock_fused_op(x, w0, b0, w1, b1, wd=None, bd=None, *, stride=1,
 
 
 resblock_fused_op.launches = 0
+resblock_fused_op.launches_by_path = dict.fromkeys(PATHS, 0)

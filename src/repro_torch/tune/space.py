@@ -13,6 +13,11 @@ default (0):
     and ``batch_tile``, the images a cluster takes (the rule:
     :func:`chain_split`).
 
+Both block kernels size their warp items from each conv phase's shape
+(:func:`warp_tile`, :func:`block_tiles`, :func:`chain_tiles`).  That rule
+is not a knob: every tile gives the same bits, and the rule follows from
+the band or split the knobs above choose.
+
 A config is legal when it is
 
   1. **shape-legal**: a band of 1 .. oh rows (only the band heights that
@@ -83,6 +88,67 @@ def block_band_rows(oh: int, n: int, sms: int) -> int:
     while band > 1 and -(-oh // band) < parts:
         band -= 1
     return band
+
+
+# The register tiles of the block kernels' warp items, (MT, NT): MT pixel
+# tiles of 16 output pixels by NT channel pairs of 16 output channels
+# (block_body.cuh's fixed set, ``with_tile``), in the order
+# :func:`warp_tile` prefers them: the largest first and, among tiles of
+# one size, the one that loads the fewest fragments a K step (MT + NT),
+# then the fewest pixel tiles (no ragged last item).  ``resblock_fused``
+# takes every tile; ``block_chain`` those of sides up to 2
+# (:data:`CHAIN_TILES`): beside the chain's own state, a tile 4 pixel
+# tiles or 4 channel pairs long spills out of the 128 registers a thread
+# that its two thread blocks an SM leave.
+TILES = ((2, 2), (1, 4), (4, 1), (1, 2), (2, 1), (1, 1))
+CHAIN_TILES = tuple(t for t in TILES if max(t) <= 2)
+# warps of one thread block of resblock_fused and block_chain (256 threads)
+WARPS = 8
+
+
+def warp_tile(pixels: int, nps: int, warps: int = WARPS,
+              tiles=TILES) -> Tuple[int, int]:
+    """The register tile (MT, NT) of the warp items of one conv phase of a
+    block kernel's thread block: ``pixels`` output pixels (of one image),
+    ``nps`` output channel pairs, ``warps`` warps; ``tiles``: the kernel's
+    set.  The largest MT * NT with NT dividing ``nps`` that still leaves
+    every warp at least one item (``ceil(ceil(pixels / 16) / MT) * nps /
+    NT`` items) and does not lengthen the busiest warp's run: its rounds
+    of items times MT * NT at most the rounds of (1, 1) items, where
+    items that fall unevenly on the warps would leave it longer.  (1, 1)
+    where no larger tile does.  A warp then runs MT * NT times fewer
+    items in turn, each with 2 MT NT independent accumulator chains."""
+    mts = -(-pixels // 16)
+    rounds = -(-mts * nps // warps)          # a warp's (1, 1) items
+    for mt, nt in tiles:
+        if nps % nt:
+            continue
+        items = -(-mts // mt) * (nps // nt)
+        if items >= warps and -(-items // warps) * mt * nt <= rounds:
+            return mt, nt
+    return 1, 1
+
+
+def block_tiles(oh: int, ow: int, band: int, cout: int
+                ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The tiles of ``resblock_fused``'s two conv phases in a launch of
+    ``band``-row bands on an (oh, ow) output map of ``cout`` channels:
+    phase A (conv0 over the band and its recomputed halo rows, sized at
+    the ``min(band + 1, oh)`` rows of a band at the map's edge, the fewest
+    a whole band computes) and phase B (skip + conv1 over the band's
+    rows)."""
+    nps = -(-cout // 16)
+    return (warp_tile(min(band + 1, oh) * ow, nps),
+            warp_tile(band * ow, nps))
+
+
+def chain_tiles(blocks, split: int) -> Tuple[Tuple[int, int], ...]:
+    """The tile of each link of a ``block_chain`` launch at ``split``
+    thread blocks an image: both conv phases of a link compute the thread
+    block's band of the link's output map (``oh / split`` rows) at the
+    same output channels, so one tile serves both."""
+    return tuple(warp_tile(b.oh // split * b.ow, -(-b.och // 16),
+                           tiles=CHAIN_TILES) for b in blocks)
 
 
 def block_bands(oh: int, band: int) -> List[Tuple[int, int]]:

@@ -170,6 +170,139 @@ def test_chain_split_without_a_wave_or_a_capacity(budget, capacity, expect):
                              capacity=capacity) == expect
 
 
+# ---- (b2) the warp-item tiles of both kernels ----------------------------
+
+# The tiles the rule should pick (MT pixel tiles x NT channel pairs) at
+# ResNet20's block shapes (H, Cin, Cout, stride) on an H100's 132 SMs:
+# resblock_fused's (phase A, phase B) at buckets 32 and 256.
+RESNET20_BLOCK_TILES = {
+    32: [((1, 1), (2, 1)), ((1, 1), (1, 1)), ((1, 1), (1, 1)),
+         ((1, 1), (1, 1)), ((1, 1), (1, 1))],
+    256: [((4, 1), (4, 1)), ((2, 2), (2, 2)), ((2, 2), (2, 2)),
+          ((1, 2), (1, 2)), ((1, 2), (1, 2))],
+}
+RESNET20_SHAPES = [(32, 16, 16, 1), (32, 16, 32, 2), (16, 32, 32, 1),
+                   (16, 32, 64, 2), (8, 64, 64, 1)]
+
+
+def _check_tile(tile, pixels, nps, tiles=space.TILES):
+    """One phase's tile: of the kernel's set, NT dividing nps, at most 4
+    tiles an item; a tile other than (1, 1) gives every warp an item and
+    its busiest warp no more tile rounds than (1, 1) would; and no larger
+    tile of the set does both."""
+    mt, nt = tile
+    assert tile in tiles and nps % nt == 0 and mt * nt <= 4
+    mts = -(-pixels // 16)
+
+    def fits(m, n):
+        items = -(-mts // m) * (nps // n)
+        return nps % n == 0 and items >= space.WARPS and \
+            -(-items // space.WARPS) * m * n <= -(-mts * nps // space.WARPS)
+    assert tile == (1, 1) or fits(mt, nt)
+    assert not any(m * n > mt * nt and fits(m, n) for m, n in tiles)
+
+
+@pytest.mark.parametrize("kernel", ["resblock_fused", "block_chain"])
+@pytest.mark.parametrize("bps", [1, 3])
+@pytest.mark.parametrize("n", [1, 8, 32, 256])
+def test_warp_tile_rule_at_every_conv_phase(kernel, bps, n):
+    """Every conv phase of ResNet8 and ResNet20 at buckets 1, 8, 32 and
+    256 in both kernels' band layouts (``block_band_rows`` bands for
+    resblock_fused, ``chain_split`` / ``chain_bands`` for block_chain on
+    an H100): the rule's tile is legal and the largest that keeps every
+    warp busy; at buckets 32 and 256 it is the table's."""
+    shapes = df.resnet_block_shapes(bps)
+    if kernel == "resblock_fused":
+        got = []
+        for b in shapes:
+            band = space.block_band_rows(b.oh, n, 132)
+            ta, tb = space.block_tiles(b.oh, b.ow, band, b.och)
+            nps = -(-b.och // 16)
+            _check_tile(ta, min(band + 1, b.oh) * b.ow, nps)
+            _check_tile(tb, band * b.ow, nps)
+            got.append((ta, tb))
+        if n in RESNET20_BLOCK_TILES:
+            want = dict(zip(RESNET20_SHAPES, RESNET20_BLOCK_TILES[n]))
+            assert got == [want[b.h, b.ich, b.och, b.stride] for b in shapes]
+        if n <= 8:
+            assert set(got) == {((1, 1), (1, 1))}
+        return
+    split = space.chain_split(shapes, n, 1, stem_och=16,
+                              capacity=h100_capacity)
+    tiles = space.chain_tiles(shapes, split)
+    assert len(tiles) == len(shapes)
+    for b, tile, (r0, rows) in zip(shapes, tiles,
+                                   [space.chain_bands(b.oh, split)[0]
+                                    for b in shapes]):
+        _check_tile(tile, rows * b.ow, -(-b.och // 16), space.CHAIN_TILES)
+    by_width = {b.och: t for b, t in zip(shapes, tiles)}
+    want = {32: {16: (2, 1), 32: (1, 1), 64: (1, 1)},
+            256: {16: (2, 1), 32: (2, 2), 64: (1, 2)}}
+    if n in want:
+        assert by_width == want[n]      # b256: split 1, b32: split 4
+    if n <= 8:
+        assert set(tiles) == {(1, 1)}
+
+
+def test_launches_carry_the_rule_tiles(monkeypatch):
+    """A prepared ``ResblockLaunch`` takes ``block_tiles`` at its band for
+    each phase, and a ``ChainLaunch``'s link table at its split ends each
+    link's row with ``chain_tiles``' tile; the path the counter adds
+    follows the tiles."""
+    from repro_torch.kernels.megakernel import ops as chain_ops
+    from repro_torch.kernels.resblock_fused import ops as block_ops
+
+    monkeypatch.setattr(block_ops, "sm_count", lambda index: 132)
+    monkeypatch.setattr(chain_ops, "max_clusters", h100_capacity)
+    rng = np.random.default_rng(5)
+    for (h, cin, cout, stride), n in zip(RESNET20_SHAPES * 2,
+                                         [32] * 5 + [256] * 5):
+        ops = [torch.from_numpy(a) for a in
+               _block_ops(rng, 1, h, cin, cout, stride)[1:]]
+        launch = block_ops.ResblockLaunch(*ops, stride=stride, shift0=10,
+                                          shift1=10)
+        oh = h // stride
+        tiles = launch.tiles(n, oh, oh)
+        assert tiles == space.block_tiles(oh, oh, launch.band_rows(n, oh),
+                                          cout)
+        assert tiles == RESNET20_BLOCK_TILES[n][RESNET20_SHAPES.index(
+            (h, cin, cout, stride))]
+        assert block_ops.tile_path(tiles) == \
+            ("single" if tiles == ((1, 1), (1, 1)) else "tiled")
+    for bps in (1, 3):
+        shapes = df.resnet_block_shapes(bps)
+        x, blocks, specs, stem, stem_shift = live_chain(rng, CPU, shapes, 1,
+                                                        16)
+        launch = chain_ops.ChainLaunch(blocks, specs=specs,
+                                       in_shape=x.shape[1:], stem=stem,
+                                       stem_shift=stem_shift)
+        for n in (1, 32, 256):
+            split = launch.tiling(n)[1]
+            tiles = launch.link_tiles(n)
+            assert tiles == space.chain_tiles(shapes, split)
+            ints, path = launch.link_table(split)
+            rows = [tuple(ints[11 * j + 9:11 * j + 11])
+                    for j in range(len(shapes))]
+            assert rows == list(tiles)
+            assert path == ("single" if set(tiles) == {(1, 1)}
+                            else "tiled")
+            assert path == ("single" if n == 1 else "tiled")
+
+
+def test_kernel_set_of_tiles_is_the_rule_set():
+    """``tune.space.TILES`` is block_body.cuh's ``with_tile`` set, every
+    (MT, NT) of powers of two with MT * NT <= 4, each once, in the rule's
+    order of preference: larger tiles first; block_chain's set is its
+    tiles of sides up to 2, in the same order."""
+    assert sorted(space.TILES) == [(1, 1), (1, 2), (1, 4), (2, 1), (2, 2),
+                                   (4, 1)]
+    assert [mt * nt for mt, nt in space.TILES] == sorted(
+        (mt * nt for mt, nt in space.TILES), reverse=True)
+    assert space.CHAIN_TILES == ((2, 2), (1, 2), (2, 1), (1, 1))
+    assert space.warp_tile(1024, 1, tiles=space.CHAIN_TILES) == (2, 1)
+    assert space.warp_tile(1024, 1) == (4, 1)
+
+
 # ---- (c) the packed block ------------------------------------------------
 
 @pytest.mark.parametrize("cin,cout,taps", [(16, 16, 9), (32, 64, 9),

@@ -185,12 +185,13 @@ def test_launch_counter_helpers_replay_a_capture():
         stem.launches += 1
         stem.launches_by_path["banded"] += 1
         chain.launches += 2
+        chain.launches_by_path["tiled"] += 2
         mm.launches += 1
         mm.launches_by_path["wgmma"] += 1
         common.count_config(mm, "bn=64,split=2")
         delta = common.launch_delta(before, common.read_launches())
         assert delta[stem] == (1, {"banded": 1, "general": 0}, {})
-        assert delta[chain] == (2, {}, {})
+        assert delta[chain] == (2, {"single": 0, "tiled": 2}, {})
         assert delta[mm] == (1, {"wgmma": 1, "mma_sync": 0},
                              {"bn=64,split=2": 1})
         common.write_launches(before)
@@ -201,6 +202,7 @@ def test_launch_counter_helpers_replay_a_capture():
         assert after[stem][0] == before[stem][0] + 3
         assert after[stem][1]["banded"] == before[stem][1]["banded"] + 3
         assert after[chain][0] == before[chain][0] + 6
+        assert after[chain][1]["tiled"] == before[chain][1]["tiled"] + 6
         assert after[mm][2]["bn=64,split=2"] == \
             before[mm][2].get("bn=64,split=2", 0) + 3
         assert all(after[op] == before[op] for op in ops[4:] + ops[1:2])

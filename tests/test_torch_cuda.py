@@ -5,6 +5,7 @@ it also runs on a GPU machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -338,6 +339,151 @@ def test_block_chain_at_every_bucket_and_split(dev, bps, n, bt):
     assert torch.equal(launch(x, sm_ids=ids), ref)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert 0 <= int(ids.min()) and int(ids.max()) < sms
+
+
+# Block shapes (H, Cin, Cout, stride) of the forced-tile cases: ResNet20's
+# five (ResNet8's three among them: identity at stride 1, the fused 1x1
+# downsample at stride 2), a stride-1 block with the downsample, and a
+# ragged 48-channel map (three channel pairs, 6 output rows).
+TILE_BLOCKS = RESNET20_BLOCKS + [(16, 16, 32, 1), (12, 8, 48, 2)]
+
+
+def _tile_cases():
+    """(shape, tile of phase A, tile of phase B, band) for every tile the
+    shape's channel pairs take: both phases at each tile with one band an
+    image (the b256 layout) and with 3-row bands (ragged pixel tiles and a
+    short band at the map's last rows), and phase A at each tile beside
+    phase B at (1, 1)."""
+    out = []
+    for h, cin, cout, stride in TILE_BLOCKS:
+        oh, nps = h // stride, -(-cout // 16)
+        for tile in space.TILES:
+            if nps % tile[1]:
+                continue
+            shape = (h, cin, cout, stride)
+            out += [(shape, tile, tile, oh), (shape, tile, tile, 3)]
+            if tile != (1, 1):
+                out.append((shape, tile, (1, 1), 3))
+    return out
+
+
+def _replayed(fn, op):
+    """``fn()`` captured into a CUDA graph, replayed once with the capture's
+    launch counts added as CompiledModel adds them; returns the replay's
+    output and what the op's ``launches_by_path`` gained."""
+    from repro_torch.kernels import common
+
+    graph, out, delta = common.capture_graph(fn)
+    before = dict(op.launches_by_path)
+    graph.replay()
+    common.add_launches(delta)
+    torch.cuda.synchronize()
+    return out, {p: k - before[p] for p, k in op.launches_by_path.items()}
+
+
+@pytest.mark.parametrize("shape,tile_a,tile_b,band", _tile_cases())
+def test_resblock_fused_every_tile_bitwise(dev, monkeypatch, shape, tile_a,
+                                           tile_b, band):
+    """Every tile of block_body.cuh's set forced through the launch's tile
+    arguments (``block_tiles`` patched), at every block shape: the u8 map
+    bitwise the plain version's, eagerly and from a captured graph's
+    replay, and the replay counted on the path its tiles take."""
+    h, cin, cout, stride = shape
+    monkeypatch.setattr(block_ops, "block_tiles",
+                        lambda *a: (tile_a, tile_b))
+    rng = np.random.default_rng(sum(shape) + 7 * band)
+    ops = [_t(rng, dev, 0, 256, (2, h, h, cin), np.uint8),
+           _t(rng, dev, -128, 128, (3, 3, cin, cout), np.int8),
+           _t(rng, dev, -500, 500, (cout,), np.int32),
+           _t(rng, dev, -128, 128, (3, 3, cout, cout), np.int8),
+           _t(rng, dev, -500, 500, (cout,), np.int32)]
+    if stride == 2 or cin != cout:
+        ops += [_t(rng, dev, -128, 128, (1, 1, cin, cout), np.int8),
+                _t(rng, dev, -500, 500, (cout,), np.int32)]
+    kw = dict(stride=stride, shift0=11, shift1=12,
+              skip_shift=(3, 0, -2)[band % 3])
+    ref = resblock_ref(*ops, **kw)
+    assert _unsaturated(ref) >= 0.2
+    launch = block_ops.ResblockLaunch(*ops[1:], **kw,
+                                      config=KernelConfig(band_rows=band))
+    oh = h // stride
+    assert launch.band_rows(2, oh) == band
+    assert launch.tiles(2, oh, oh) == (tile_a, tile_b)
+    assert torch.equal(launch(ops[0]), ref)
+    out, gained = _replayed(lambda: launch(ops[0]), resblock_fused_op)
+    assert torch.equal(out, ref)
+    path = "single" if tile_a == tile_b == (1, 1) else "tiled"
+    assert gained == {p: int(p == path) for p in block_ops.PATHS}
+
+
+@pytest.mark.parametrize("tile", space.CHAIN_TILES)
+@pytest.mark.parametrize("bps", [1, 3])
+@pytest.mark.parametrize("split", [1, 4, 8])
+def test_block_chain_every_tile_bitwise(dev, monkeypatch, tile, bps, split):
+    """The ResNet8 and ResNet20 chains with the stem fused, each link
+    forced to ``tile`` of the chain's set where its channel pairs take it
+    (else (1, 1)), at splits 1 (one band an image, the b256 layout), 4 and
+    8 (a band of 1-2 rows of 8, ragged pixel tiles): bitwise the plain
+    version, eagerly and from a captured graph's replay, counted on the
+    path of its tiles."""
+    shapes = df.resnet_block_shapes(bps)
+    forced = tuple(tile if -(-b.och // 16) % tile[1] == 0 else (1, 1)
+                   for b in shapes)
+    monkeypatch.setattr(chain_ops, "chain_tiles", lambda *a: forced)
+    rng = np.random.default_rng(100 * bps + split)
+    x, blocks, specs, stem, stem_shift = live_chain(rng, dev, shapes, 2, 16)
+    ref = block_chain_ref(x, blocks, specs=specs, stem=stem,
+                          stem_shift=stem_shift)
+    launch = chain_ops.ChainLaunch(blocks, specs=specs, in_shape=x.shape[1:],
+                                   stem=stem, stem_shift=stem_shift,
+                                   config=KernelConfig(split=split))
+    assert launch.tiling(2) == (1, split)
+    assert launch.link_tiles(2) == forced
+    assert torch.equal(launch(x), ref)
+    out, gained = _replayed(lambda: launch(x), block_chain_op)
+    assert torch.equal(out, ref)
+    path = "single" if tile == (1, 1) else "tiled"
+    assert gained == {p: int(p == path) for p in chain_ops.PATHS}
+
+
+@pytest.mark.parametrize("tile", sorted(set(space.TILES) -
+                                         set(space.CHAIN_TILES)))
+def test_block_chain_refuses_a_tile_outside_its_set(dev, monkeypatch, tile):
+    """A tile 4 long, which block_chain does not instantiate, is refused at
+    launch (cudaErrorInvalidValue), never run, and not counted."""
+    shapes = df.resnet_block_shapes(1)
+    monkeypatch.setattr(chain_ops, "chain_tiles",
+                        lambda *a: (tile,) + ((1, 1),) * (len(shapes) - 1))
+    x, blocks, specs, stem, stem_shift = live_chain(
+        np.random.default_rng(6), dev, shapes, 2, 16)
+    before = block_chain_op.launches
+    with pytest.raises(RuntimeError):
+        block_chain_op(x, blocks, specs=specs, stem=stem,
+                       stem_shift=stem_shift)
+    assert block_chain_op.launches == before
+
+
+@pytest.mark.parametrize("backend,op", [("cuda", "resblock_fused"),
+                                        ("cuda-stream", "block_chain")])
+def test_bucket_256_runs_every_block_launch_tiled(dev, backend, op):
+    """Served at bucket 256 (one band an image, split 1), every launch of
+    the block kernels takes a register tile: ``launches_by_path`` counts
+    each replay's launches as ``tiled``, and the logits are bitwise the
+    eager lowered forward's."""
+    cfg, qp = _resnet8_qparams()
+    cm = compile_model(cfg, qp, backend=backend, batch_sizes=(256,))
+    counted = dict(resblock_fused=resblock_fused_op,
+                   block_chain=block_chain_op)[op]
+    x = _images(dev, 256, seed=9)
+    cm.warmup()
+    before = dict(counted.launches_by_path)
+    got = cm(x)
+    gained = {p: k - before[p] for p, k in counted.launches_by_path.items()}
+    assert gained == dict(single=0,
+                          tiled=dict(resblock_fused=3, block_chain=1)[op])
+    ref = lower_forward(cfg, qp, backend)(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_block_chain_over_budget_is_refused(dev):
@@ -980,7 +1126,7 @@ def test_profiler_sees_each_replay_run_the_plan(dev, backend, plan):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for name in ran:
-                if f"::{name}(" in e.key:
+                if re.search(rf"::{name}\s*[<(]", e.key):
                     ran[name] += e.count
     assert ran == {k: 4 * plan.get(k, 0) for k in ran}
     counted = dict(conv_stem=conv_stem_op.launches,

@@ -9,12 +9,13 @@ from repro_torch.compile.params import (                 # noqa: F401
     QConvParams, QLinearParams, QBlockParams, QResNetParams,
     activation_out_specs, ensure_typed, params_from_numpy)
 from repro_torch.compile.lm_params import (             # noqa: F401
-    LM_A_SPEC, QLMConfig, QLMParams, QMatmulParams, QSSMLayerParams,
+    LM_A_SPEC, MAMBA1_GRIDS, QConv1dParams, QLMConfig, QLMParams,
+    QMamba1Config, QMamba1LayerParams, QMatmulParams, QSSMLayerParams,
     QTransformerLayerParams, hidden_out_spec, init_lm_params, lm_config,
-    lm_params_from_numpy)
+    lm_params_from_numpy, quantize_mamba1, quantize_mamba1_layer)
 from repro_torch.compile.lowering import (               # noqa: F401
-    AttentionTask, ChainTask, LMPlan, LoweringError, LoweringPlan,
-    MatmulTask, ScanTask, StemTask, BlockTask, HeadTask, model_graph,
+    AttentionTask, ChainTask, Conv1dTask, LMPlan, LoweringError,
+    LoweringPlan, Mamba1ScanTask, MatmulTask, NormTask, ScanTask, StemTask, BlockTask, HeadTask, model_graph,
     optimized_graph, plan_chains, plan_lm, plan_model, register_task)
 from repro_torch.compile.backends import (               # noqa: F401
     Backend, register_backend, get_backend, list_backends, get_task_impl,

@@ -36,7 +36,11 @@ versions; ``cuda`` runs ``matmul_int8`` on every projection,
 on the Mamba scan; ``cuda-stream`` has no LM chain kernel and runs the
 ``cuda`` impls (as ``pallas-stream`` runs the ``pallas`` ones).  For an LM,
 ``features`` returns the int8 hidden state entering the unembed and
-``lower`` adds the float last-position unembed.
+``lower`` adds the float last-position unembed.  The ``mamba1`` family
+(the published Mamba1 block) registers its own kinds for both backends
+(``register_task_impl(..., family="mamba1")``): ``norm`` and ``conv1d``
+(PyTorch ops on either) and its ``scan`` (``selective_scan`` on ``cuda``,
+the plain version on ``torch-int``); its matmuls are the shared impls.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from repro_torch.kernels.common import conv_i32
 from repro_torch.models.layers import softplus
 from repro_torch.models.resnet import A_SPEC
 from repro_torch.models.resnet import _conv as _float_conv
+from repro_torch.obs import runtime as _obs
 
 
 @runtime_checkable
@@ -142,21 +147,32 @@ def _float_head(h_u8, fc, in_spec=A_SPEC):
 # backend differ only in the int32 product, which is exact in both.
 
 _TASK_IMPLS: Dict[tuple, Callable] = {}
+# (family, backend, kind) -> impl: one LM family's own task kinds, looked
+# up before the shared ones for that family's plans
+_FAMILY_IMPLS: Dict[tuple, Callable] = {}
 
 
-def register_task_impl(backend_name: str, kind: str):
+def register_task_impl(backend_name: str, kind: str, family=None,
+                       kernel: str = "torch"):
     """Register ``impl(task, ctx)`` as how ``backend_name`` executes tasks
-    of ``kind``.  ``ctx`` is the :class:`_LMContext` of the running forward;
-    the impl reads ``ctx.env[task.inputs[i]]`` and writes
-    ``ctx.env[task.output]`` (plus its quant spec into ``ctx.specs``)."""
+    of ``kind`` (with ``family``, in that LM family's plans only), a
+    launch of ``kernel``.  ``ctx`` is the :class:`_LMContext` of the
+    running forward; the impl reads ``ctx.env[task.inputs[i]]`` and writes
+    ``ctx.env[task.output]`` (plus its quant spec into ``ctx.specs``).
+    ``fn.kernel`` labels the run counters (``"torch"``: PyTorch ops only)."""
     def deco(fn):
-        _TASK_IMPLS[(backend_name, kind)] = fn
+        if family is None:
+            _TASK_IMPLS[(backend_name, kind)] = fn
+        else:
+            _FAMILY_IMPLS[(family, backend_name, kind)] = fn
+        fn.kernel = kernel
         return fn
     return deco
 
 
-def get_task_impl(backend_name: str, kind: str) -> Callable:
-    impl = _TASK_IMPLS.get((backend_name, kind))
+def get_task_impl(backend_name: str, kind: str, family=None) -> Callable:
+    impl = _FAMILY_IMPLS.get((family, backend_name, kind)) or \
+        _TASK_IMPLS.get((backend_name, kind))
     if impl is None:
         have = sorted(k for b, k in _TASK_IMPLS if b == backend_name)
         raise lowering.LoweringError(
@@ -225,7 +241,7 @@ def pack_lm_weights(plan, params) -> Dict[str, object]:
             for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
 
 
-@register_task_impl("cuda", "matmul")
+@register_task_impl("cuda", "matmul", kernel="matmul_int8")
 def _cuda_matmul(t, ctx):
     from repro_torch.kernels.matmul_int8.ops import matmul_int8_op
 
@@ -270,7 +286,7 @@ def _lm_attn_finish(o, t, ctx):
             Q.quantize(o.reshape(B, S, t.heads * t.head_dim), spec), spec)
 
 
-@register_task_impl("cuda", "attention")
+@register_task_impl("cuda", "attention", kernel="flash_attention")
 def _cuda_attention(t, ctx):
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
 
@@ -315,7 +331,7 @@ def _lm_scan_finish(y, t, ctx):
     ctx.put(t.output, Q.quantize(y, spec), spec)
 
 
-@register_task_impl("cuda", "scan")
+@register_task_impl("cuda", "scan", kernel="selective_scan")
 def _cuda_scan(t, ctx):
     from repro_torch.kernels.selective_scan.ops import selective_scan_op
 
@@ -331,6 +347,107 @@ def _torch_scan(t, ctx):
     scan_knobs(t.config)     # the kernel's (channels, lanes), legal or not
     y, _ = selective_scan_ref(*_lm_scan_operands(t, ctx))
     _lm_scan_finish(y, t, ctx)
+
+
+# ---------------------------------------------------------------------------
+# The mamba1 family's task kinds: the published Mamba1 block
+# ---------------------------------------------------------------------------
+
+
+def rms(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``x / sqrt(mean(x^2) + eps)`` over the last dim (the weightless RMS
+    norm; an RMSNorm multiplies it by its gain)."""
+    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps)
+
+
+def _lm_norm(t, ctx):
+    """The RMSNorm before a mixer (times the layer's gain), or the rms of
+    each part of ``x_proj``'s output.  An output a matmul reads goes onto
+    that matmul's grid; one the scan reads stays float32."""
+    name = t.inputs[0]
+    x = Q.dequantize(ctx.env[name], ctx.specs[name])
+    if t.splits is None:
+        parts = [rms(x, t.eps) * ctx.params.layers[t.layer].norm]
+    else:
+        parts = [rms(p, t.eps) for p in torch.split(x, t.splits, dim=-1)]
+    for out, y in zip(t.outputs, parts):
+        spec = ctx.consumer_xspec.get(out)
+        if spec is None:
+            ctx.put(out, y.contiguous())
+        else:
+            ctx.put(out, Q.quantize(y, spec), spec)
+
+
+def causal_conv_i32(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """``b[c] + sum_k w[k, c] * x[:, t - K + 1 + k, c]`` in int32 for int8
+    ``x`` (B, S, C), taps ``w`` (K, C) and an int32 ``b`` (C,), positions
+    before the first read as 0: exact (|acc| < 2^17 + |b|)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x.to(torch.int32), (0, 0, K - 1, 0))
+    w = w.to(torch.int32)
+    acc = xp[:, :S] * w[0] + b
+    for k in range(1, K):
+        acc += xp[:, k:k + S] * w[k]
+    return acc
+
+
+def _lm_conv1d(t, ctx):
+    """The int8 causal depthwise conv of u (the input's first ``channels``
+    columns), requantized onto the conv's grid, then SiLU onto the
+    consuming matmul's grid."""
+    cp = ctx.params.layers[t.layer].conv
+    acc = causal_conv_i32(ctx.env[t.inputs[0]][..., :t.channels], cp.wq,
+                          cp.bq)
+    c = Q.requantize_shift(acc, cp.product_exp, cp.y_spec)
+    spec = ctx.out_spec(t.output)
+    ctx.put(t.output, Q.quantize(silu(Q.dequantize(c, cp.y_spec)), spec),
+            spec)
+
+
+def _mamba1_scan_operands(t, ctx):
+    u_name, dt_name, b_name, c_name = t.inputs[:4]
+    u = Q.dequantize(ctx.env[u_name], ctx.specs[u_name])
+    dt = softplus(Q.dequantize(ctx.env[dt_name], ctx.specs[dt_name]))
+    A = -torch.exp(ctx.params.layers[t.layer].A_log)
+    h0 = torch.zeros((u.shape[0], t.d_inner, t.ssm_state),
+                     dtype=torch.float32, device=u.device)
+    return u, dt, A, ctx.env[b_name], ctx.env[c_name], h0
+
+
+def _mamba1_scan_finish(y, u, t, ctx):
+    """``(y + D u) * SiLU(z)`` onto the consuming matmul's grid; z is the
+    last ``d_inner`` columns of ``[u | z]``."""
+    xz = t.inputs[4]
+    z = Q.dequantize(ctx.env[xz][..., -t.d_inner:], ctx.specs[xz])
+    y = (y + u * ctx.params.layers[t.layer].D) * silu(z)
+    spec = ctx.out_spec(t.output)
+    ctx.put(t.output, Q.quantize(y, spec), spec)
+
+
+@register_task_impl("cuda", "scan", family="mamba1", kernel="selective_scan")
+def _cuda_mamba1_scan(t, ctx):
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
+
+    ops = _mamba1_scan_operands(t, ctx)
+    y, _ = selective_scan_op(*ops, config=t.config)
+    _mamba1_scan_finish(y, ops[0], t, ctx)
+
+
+@register_task_impl("torch-int", "scan", family="mamba1")
+def _torch_mamba1_scan(t, ctx):
+    from repro_torch.kernels.selective_scan.ops import scan_knobs
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    scan_knobs(t.config)
+    ops = _mamba1_scan_operands(t, ctx)
+    y, _ = selective_scan_ref(*ops)
+    _mamba1_scan_finish(y, ops[0], t, ctx)
+
+
+for _b in ("cuda", "torch-int"):
+    register_task_impl(_b, "norm", family="mamba1")(_lm_norm)
+    register_task_impl(_b, "conv1d", family="mamba1")(_lm_conv1d)
 
 
 def lm_context(plan, params, cfg, packed=None) -> _LMContext:
@@ -354,15 +471,29 @@ def embed_tokens(ctx, plan, tokens) -> None:
 
 def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
     """Plan the optimized LM graph (``lowering.plan_lm``), bind every task
-    to ``impl_backend``'s registered impl, and close over a ``tokens ->
-    int8 hidden state`` forward: the float embed in, then the task program
-    over a tensor environment.  Impl binding happens HERE, at lower time,
-    so a backend missing a kind fails before anything runs; so does the
-    ``cuda`` impls' packing of every matmul weight."""
+    to ``impl_backend``'s registered impl (the plan's family's first), and
+    close over a ``tokens -> int8 hidden state`` forward: the float embed
+    in, then the task program over a tensor environment.  Impl binding
+    happens HERE, at lower time, so a backend missing a kind fails before
+    anything runs; so does the ``cuda`` impls' packing of every matmul
+    weight.  The closure carries ``plan``, ``task_counts`` (the plan's
+    tasks a forward runs, by ``(kind, kernel)``) and ``packed_bytes``;
+    with an obs session on, the planning and the packing are spans
+    ``plan`` and ``pack`` on track ``compile``."""
+    ob = _obs.active()
+    t0 = ob.now() if ob is not None else None
     plan = lowering.plan_lm(g, params)
-    impls = {t.node: get_task_impl(impl_backend, t.kind) for t in plan.tasks}
+    impls = {t.node: get_task_impl(impl_backend, t.kind, plan.family)
+             for t in plan.tasks}
+    t1 = ob.now() if ob is not None else None
     packed = pack_lm_weights(plan, params) if impl_backend == "cuda" \
         else None
+    packed_bytes = sum(w.t.numel() for w in (packed or {}).values())
+    if ob is not None:
+        ob.trace.span("plan", cat="compile", track="compile", t0=t0, t1=t1,
+                      tasks=len(plan.tasks))
+        ob.trace.span("pack", cat="compile", track="compile", t0=t1,
+                      packed_bytes=packed_bytes)
 
     def features(tokens):
         ctx = lm_context(plan, params, cfg, packed)
@@ -371,20 +502,45 @@ def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
             impls[t.node](t, ctx)
         return ctx.env[plan.logits_in]
 
+    counts: Dict[tuple, int] = {}
+    for t in plan.tasks:
+        key = (t.kind, getattr(impls[t.node], "kernel", "torch"))
+        counts[key] = counts.get(key, 0) + 1
+    features.plan = plan
+    features.task_counts = counts
+    features.packed_bytes = packed_bytes
     return features
 
 
 def lower_lm(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
     """:func:`lm_features` followed by the float unembed of the last
     position (a plain float32 product, outside any kernel, as in the JAX
-    package): ``tokens -> (B, vocab)`` logits."""
+    package), after the RMSNorm times ``params.final_norm`` where the plan
+    has a head norm (``mamba1``): ``tokens -> (B, vocab)`` logits.  With
+    an obs session on, the lowering is a span ``lower_lm`` on track
+    ``compile`` (its children ``plan`` and ``pack``)."""
+    ob = _obs.active()
+    t0 = ob.now() if ob is not None else None
     feats = lm_features(impl_backend, g, cfg, params)
     hidden_spec = LP.hidden_out_spec(params)
+    eps = feats.plan.head_norm_eps
+    if eps is not None and params.final_norm is None:
+        raise lowering.LoweringError(
+            f"{cfg.name}: the graph has a head norm but the params carry no "
+            f"final_norm gain")
 
     def forward(tokens):
-        h = Q.dequantize(feats(tokens), hidden_spec)
-        return h[:, -1, :] @ params.unembed
+        h = Q.dequantize(feats(tokens), hidden_spec)[:, -1, :]
+        if eps is not None:
+            h = rms(h, eps) * params.final_norm
+        return h @ params.unembed
 
+    forward.task_counts = feats.task_counts
+    if ob is not None:
+        ob.trace.span("lower_lm", cat="compile", track="compile", t0=t0,
+                      family=cfg.family, backend=impl_backend,
+                      tasks=len(feats.plan.tasks),
+                      packed_bytes=feats.packed_bytes)
     return forward
 
 

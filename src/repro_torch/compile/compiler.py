@@ -42,6 +42,9 @@ The port's counterpart of the JAX package's ahead-of-time executables:
     launches in Python, which a replay does not run: the capture records
     what one forward launched (``kernels.common.launch_delta``) and every
     replay adds it; warm-up and capture leave the counters as they were.
+  * **Task counters.**  With an obs session installed, each bucket run
+    of an LM adds its plan's tasks to ``model_task_launches_total`` by
+    task ``kind`` and ``kernel`` (``torch`` for PyTorch ops alone).
   * **Call spans.**  With an obs session installed, each bucket run
     records a host span ``call`` with children ``copy_in``, ``replay`` and
     ``clone`` on a graph, and on a CUDA device a span of the call's device
@@ -261,6 +264,8 @@ class CompiledModel:
         self.graph = lowering.annotate_tuning(
             lowering.optimized_graph(cfg), tuning)
         self._forward = backend.lower(self.graph, cfg, self.params)
+        # an LM's task program, by (kind, kernel): what a bucket run runs
+        self.task_counts = dict(getattr(self._forward, "task_counts", {}))
         self._lowered: Dict[torch.device, Callable] = {device: self._forward}
         self._pools: Dict[torch.device, tuple] = {}
         self._execs: Dict[int, Callable] = {}
@@ -509,6 +514,12 @@ class CompiledModel:
             ob.metrics.counter(
                 "model_runs_total", "bucket executions dispatched").inc(
                     bucket=str(bucket), backend=self.backend.name)
+            for (kind, kernel), k in self.task_counts.items():
+                ob.metrics.counter(
+                    "model_task_launches_total",
+                    "LM task launches by task kind and kernel").inc(
+                        k, kind=kind, kernel=kernel, bucket=str(bucket),
+                        backend=self.backend.name)
             if n < bucket:
                 ob.metrics.counter(
                     "model_pad_rows_total",

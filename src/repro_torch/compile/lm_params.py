@@ -27,12 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QSpec
+from repro_torch.core.quant import QSpec, quantize
 
 # default signed-int8 activation grid for LM streams (range ~±4 at exp -5);
 # the per-matrix weight grids are calibrated at init time
@@ -60,9 +60,41 @@ class QLMConfig:
     ssm_state: int = 0
 
 
-def lm_config(model_cfg, seq_len: int) -> QLMConfig:
+@dataclasses.dataclass(frozen=True)
+class QMamba1Config(QLMConfig):
+    """The published Mamba1 block (family ``mamba1``): what ``ssm`` keeps
+    (the widths) plus the low-rank dt path (``dt_rank``), the causal
+    depthwise conv (``conv_kernel``) and the two norms' epsilons: the
+    RMSNorm before the mixer and before the head (``norm_eps``) and the
+    weightless rms of dt, B and C (``mixer_rms_eps``, Falcon-Mamba's)."""
+
+    dt_rank: int = 0
+    conv_kernel: int = 0
+    norm_eps: float = 1e-5
+    mixer_rms_eps: float = 1e-6
+
+
+def lm_config(model_cfg, seq_len: int, family=None) -> QLMConfig:
     """Project a ``repro_torch.configs.ModelConfig`` onto the serving config
-    the generic compiler consumes."""
+    the generic compiler consumes.  ``family`` picks another block for the
+    same widths: ``"mamba1"`` turns a Mamba1 ``ssm`` config into the
+    published block (:class:`QMamba1Config`); left out, the config's own
+    family (``ssm`` is the JAX package's reduced block)."""
+    if family == "mamba1":
+        if model_cfg.family != "ssm" or \
+                getattr(model_cfg, "mamba_version", 1) != 1:
+            raise ValueError(
+                f"{model_cfg.name}: family 'mamba1' needs a Mamba1 ssm "
+                f"config, got family {model_cfg.family!r}")
+        return QMamba1Config(
+            name=model_cfg.name, family="mamba1", seq_len=int(seq_len),
+            num_layers=model_cfg.num_layers, d_model=model_cfg.d_model,
+            vocab_size=model_cfg.vocab_size, d_inner=model_cfg.d_inner,
+            ssm_state=model_cfg.ssm_state, dt_rank=model_cfg.dt_rank,
+            conv_kernel=model_cfg.conv_kernel)
+    if family is not None and family != model_cfg.family:
+        raise ValueError(f"{model_cfg.name}: no family {family!r} for a "
+                         f"{model_cfg.family!r} config (supported: mamba1)")
     if model_cfg.family not in ("dense", "ssm"):
         raise ValueError(
             f"{model_cfg.name}: family {model_cfg.family!r} has no LM "
@@ -148,7 +180,64 @@ class QSSMLayerParams:
         return out
 
 
-LayerParams = Union[QTransformerLayerParams, QSSMLayerParams]
+@dataclasses.dataclass(frozen=True)
+class QConv1dParams:
+    """A causal depthwise conv over the sequence: ``acc[t, c] = bq[c] +
+    sum_k wq[k, c] * x[t - K + 1 + k, c]`` in int32 at the product domain
+    (``x_spec.exp + w_spec.exp``; positions before the first read as 0),
+    requantized onto ``y_spec``.  ``bq`` is an int16 bias shifted onto the
+    product domain (exact), held as int32."""
+
+    wq: torch.Tensor             # (K, channels) int8
+    bq: torch.Tensor             # (channels,) int32 at the product domain
+    w_spec: QSpec
+    x_spec: QSpec
+    y_spec: QSpec
+
+    @property
+    def product_exp(self) -> int:
+        return self.x_spec.exp + self.w_spec.exp
+
+    def to(self, device) -> "QConv1dParams":
+        return dataclasses.replace(self, wq=self.wq.to(device),
+                                   bq=self.bq.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class QMamba1LayerParams:
+    """One published Mamba1 block (family ``mamba1``); the matmul field
+    names ARE the graph node roles.  ``norm`` is the gain of the RMSNorm
+    before the mixer; ``A_log``, ``D`` and ``norm`` stay float32 (the scan
+    and the norm are float interludes)."""
+
+    norm: torch.Tensor           # (d,) float32
+    win: QMatmulParams           # d -> 2 d_inner ([u | z]), no bias
+    conv: QConv1dParams          # (K, d_inner) taps, int16 bias
+    wx: QMatmulParams            # d_inner -> dt_rank + 2 N, no bias
+    wdt: QMatmulParams           # dt_rank -> d_inner, bias b_dt
+    wo: QMatmulParams            # d_inner -> d; add-fold target: skip = h
+    A_log: torch.Tensor          # (d_inner, N) float32
+    D: torch.Tensor              # (d_inner,) float32
+
+    ROLES = ("win", "wx", "wdt", "wo")
+
+    def to(self, device) -> "QMamba1LayerParams":
+        return QMamba1LayerParams(
+            self.norm.to(device), self.win.to(device), self.conv.to(device),
+            self.wx.to(device), self.wdt.to(device), self.wo.to(device),
+            self.A_log.to(device), self.D.to(device))
+
+    def to_dict(self) -> dict:
+        out = {r: getattr(self, r).to_dict() for r in self.ROLES}
+        c = self.conv
+        out.update(norm=self.norm, A_log=self.A_log, D=self.D,
+                   conv=dict(wq=c.wq, bq=c.bq, w_spec=c.w_spec,
+                             x_spec=c.x_spec, y_spec=c.y_spec))
+        return out
+
+
+LayerParams = Union[QTransformerLayerParams, QSSMLayerParams,
+                    QMamba1LayerParams]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +250,7 @@ class QLMParams:
     layers: Tuple[LayerParams, ...]
     unembed: torch.Tensor        # (d, vocab) float32
     emb_spec: QSpec = LM_A_SPEC  # grid the embedded tokens quantize onto
+    final_norm: Optional[torch.Tensor] = None   # (d,) gain before unembed
 
     def matmul(self, layer: int, role: str) -> QMatmulParams:
         """The parameter slot of one matmul node — the (layer, role) binding
@@ -178,6 +268,9 @@ class QLMParams:
         block input (the qkv/in-proj input grid); ``down``'s skip is the
         post-attention stream (``wo``'s output grid)."""
         lp = self.layers[layer]
+        if role == "wo" and isinstance(lp, QMamba1LayerParams):
+            # the residual stream keeps one grid: the block input's
+            return self.emb_spec.exp
         if role == "wo":
             first = lp.wq if isinstance(lp, QTransformerLayerParams) else lp.wu
             return first.x_spec.exp
@@ -188,12 +281,17 @@ class QLMParams:
     def to(self, device) -> "QLMParams":
         return QLMParams(self.embed.to(device),
                          tuple(lp.to(device) for lp in self.layers),
-                         self.unembed.to(device), self.emb_spec)
+                         self.unembed.to(device), self.emb_spec,
+                         None if self.final_norm is None
+                         else self.final_norm.to(device))
 
     def to_dict(self) -> dict:
-        return dict(embed=self.embed, unembed=self.unembed,
-                    emb_spec=self.emb_spec,
-                    layers=[lp.to_dict() for lp in self.layers])
+        out = dict(embed=self.embed, unembed=self.unembed,
+                   emb_spec=self.emb_spec,
+                   layers=[lp.to_dict() for lp in self.layers])
+        if self.final_norm is not None:
+            out["final_norm"] = self.final_norm
+        return out
 
 
 def hidden_out_spec(params: QLMParams) -> QSpec:
@@ -294,6 +392,95 @@ def init_lm_params(cfg: QLMConfig, seed: int = 0,
                       1.0 / math.sqrt(cfg.d_model), device)
     return QLMParams(embed=embed, layers=tuple(layers), unembed=unembed,
                      emb_spec=a_spec)
+
+
+# ---------------------------------------------------------------------------
+# The published Mamba1 block: quantizer from float draws
+# ---------------------------------------------------------------------------
+
+# int8 grid exponents of a mamba1 stack's activations: the residual stream
+# (embed, every block's input and output), the normed input of ``win``,
+# its output [u | z], the conv's requantized pre-activation, SiLU of it
+# (``wx``'s input and the scan's u), ``wx``'s output [dt | B | C], the
+# rms of dt (``wdt``'s input), ``wdt``'s output (before softplus) and the
+# gated scan output (``wo``'s input)
+MAMBA1_GRIDS = dict(h=-4, x=-5, xz=-5, conv=-5, u=-5, dbc=-6, dn=-5, dt=-4,
+                    y=-5)
+
+
+def weight_exp(w: torch.Tensor, bits: int = 8) -> int:
+    """The per-tensor pow2 grid of a weight: ``ceil(log2(amax / qmax))``."""
+    amax = max(float(w.abs().max()), 1e-12)
+    return int(math.ceil(math.log2(amax / (2 ** (bits - 1) - 1))))
+
+
+def _q_weight(w: torch.Tensor):
+    spec = QSpec(bits=8, signed=True, exp=weight_exp(w))
+    return quantize(w, spec), spec
+
+
+def bias_on_product(b: torch.Tensor, product_exp: int) -> torch.Tensor:
+    """An int16 bias on the finest pow2 grid that holds it, no finer than
+    the product domain, shifted onto the product domain (a left shift,
+    exact): int32 at ``product_exp``."""
+    exp = max(product_exp, weight_exp(b, bits=16))
+    q = quantize(b, QSpec(bits=16, signed=True, exp=exp))
+    return q.to(torch.int32) << (exp - product_exp)
+
+
+def _mm(w, x_exp, y_exp, b=None) -> QMatmulParams:
+    wq, w_spec = _q_weight(w)
+    x_spec = QSpec(bits=8, signed=True, exp=x_exp)
+    bq = torch.zeros(wq.shape[1], dtype=torch.int32, device=wq.device) \
+        if b is None else bias_on_product(b, x_exp + w_spec.exp)
+    return QMatmulParams(wq=wq, bq=bq, w_spec=w_spec, x_spec=x_spec,
+                         y_spec=QSpec(bits=8, signed=True, exp=y_exp))
+
+
+def quantize_mamba1_layer(get: Callable[[str], torch.Tensor],
+                          grids=None) -> QMamba1LayerParams:
+    """One published Mamba1 block quantized from its float weights, which
+    ``get(name)`` returns one at a time (so a caller can draw each matrix
+    when it is asked for and drop it after): ``norm`` (d,), ``w_in`` (d,
+    2 d_inner), ``conv_w`` (K, d_inner), ``conv_b`` (d_inner,), ``w_x``
+    (d_inner, R + 2N), ``w_dt`` (R, d_inner), ``dt_bias`` (d_inner,),
+    ``A_log`` (d_inner, N), ``D`` (d_inner,) and ``w_out`` (d_inner, d).
+    Each weight on its own pow2 int8 grid (:func:`weight_exp`), each bias
+    int16 shifted onto its product domain (:func:`bias_on_product`), the
+    activations on ``grids`` (default :data:`MAMBA1_GRIDS`)."""
+    g = dict(MAMBA1_GRIDS, **(grids or {}))
+    f32 = torch.float32
+    norm = get("norm").to(f32)
+    win = _mm(get("w_in"), g["x"], g["xz"])
+    cw, cw_spec = _q_weight(get("conv_w"))
+    cx = QSpec(bits=8, signed=True, exp=g["xz"])
+    conv = QConv1dParams(wq=cw, bq=bias_on_product(get("conv_b"),
+                                                   cx.exp + cw_spec.exp),
+                         w_spec=cw_spec, x_spec=cx,
+                         y_spec=QSpec(bits=8, signed=True, exp=g["conv"]))
+    wx = _mm(get("w_x"), g["u"], g["dbc"])
+    wdt = _mm(get("w_dt"), g["dn"], g["dt"], get("dt_bias"))
+    A_log, D = get("A_log").to(f32), get("D").to(f32)
+    wo = _mm(get("w_out"), g["y"], g["h"])
+    return QMamba1LayerParams(norm=norm, win=win, conv=conv, wx=wx, wdt=wdt,
+                              wo=wo, A_log=A_log, D=D)
+
+
+def quantize_mamba1(embed: torch.Tensor, layers, final_norm: torch.Tensor,
+                    unembed: torch.Tensor, grids=None) -> QLMParams:
+    """A mamba1 stack: the float embedding and unembedding, the quantized
+    blocks ``layers`` (:func:`quantize_mamba1_layer`'s), the final norm's
+    gain; the embedding quantizes onto the residual grid."""
+    g = dict(MAMBA1_GRIDS, **(grids or {}))
+    h = QSpec(bits=8, signed=True, exp=g["h"])
+    layers = tuple(layers)
+    for i, lp in enumerate(layers):
+        if lp.wo.y_spec != h:
+            raise ValueError(f"layer {i}: wo's output grid {lp.wo.y_spec} is "
+                             f"not the residual grid {h}")
+    return QLMParams(embed=embed.to(torch.float32), layers=layers,
+                     unembed=unembed.to(torch.float32), emb_spec=h,
+                     final_norm=final_norm.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ dataflow.
 Task kinds: ``StemTask`` / ``BlockTask`` / ``HeadTask`` for the conv
 pipeline; ``MatmulTask`` (one int8 matmul, optionally with fused ReLU and
 the residual add folded into its accumulator init) and ``AttentionTask`` /
-``ScanTask`` (the float interludes of the LM graphs) for the LMs.
+``ScanTask`` (the float interludes of the LM graphs) for the LMs; the
+``mamba1`` family's node kinds (``register_task(op, family=)``) add
+``NormTask``, ``Conv1dTask`` and ``Mamba1ScanTask``.
 
 Entry points: :func:`plan_model` (conv graphs -> ``LoweringPlan``),
 :func:`plan_lm` (LM graphs -> ``LMPlan``) and :func:`plan_chains` (a
@@ -117,6 +119,50 @@ class ScanTask:
 
 
 @dataclasses.dataclass(frozen=True)
+class NormTask:
+    """RMS norm over the last dim (a float interlude): the RMSNorm before a
+    Mamba1 mixer (``splits`` None, times the layer's gain), or the
+    weightless rms of each part of ``x_proj``'s output (``splits``: the
+    parts' widths, one output each)."""
+    kind = "norm"
+    node: str
+    layer: int
+    eps: float
+    inputs: Tuple[str, ...]
+    outputs: Tuple[str, ...]
+    splits: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv1dTask:
+    """The causal depthwise int8 conv over the sequence of the first
+    ``channels`` columns of its input, requantized, then SiLU (a float
+    interlude) onto the consuming matmul's grid."""
+    kind = "conv1d"
+    node: str
+    layer: int
+    channels: int
+    kernel: int
+    inputs: Tuple[str, ...]
+    output: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba1ScanTask:
+    """The published Mamba1 scan as one float interlude: softplus of dt,
+    ``A = -exp(A_log)``, the selective scan, the D skip and the SiLU gate of
+    the last ``d_inner`` columns of inputs[4] ([u | z])."""
+    kind = "scan"
+    node: str
+    layer: int
+    d_inner: int
+    ssm_state: int
+    inputs: Tuple[str, ...]   # (u, dt, B, C, [u | z]) tensor names
+    output: str
+    config: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ChainTask:
     """A run of consecutive residual blocks fused into ONE ``block_chain``
     launch, optionally with the stem conv at its head.  The chain's config
@@ -154,6 +200,8 @@ class LMPlan:
     logits_in: str                     # tensor entering the unembed head
     vocab: int
     seq_len: int
+    family: Optional[str] = None       # the embed node's, where it names one
+    head_norm_eps: Optional[float] = None   # RMSNorm before the unembed
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +210,26 @@ class LMPlan:
 
 # handler(node, state) -> None; mutates the walk state.
 TASK_HANDLERS: Dict[str, Callable] = {}
+# the node kinds of one LM family beyond TASK_HANDLERS, walked only in that
+# family's graphs (named by the embed node's ``family`` attr)
+FAMILY_HANDLERS: Dict[str, Dict[str, Callable]] = {}
 
 
-def register_task(op: str):
-    """Register the lowering handler for one node kind (latest wins)."""
+def register_task(op: str, family: Optional[str] = None):
+    """Register the lowering handler for one node kind (latest wins); with
+    ``family``, for that family's graphs only."""
     def deco(fn):
-        TASK_HANDLERS[op] = fn
+        table = TASK_HANDLERS if family is None else \
+            FAMILY_HANDLERS.setdefault(family, {})
+        table[op] = fn
         return fn
     return deco
+
+
+def graph_family(g: G.Graph) -> Optional[str]:
+    """The LM family an embed node of ``g`` names, or None."""
+    return next((n.attrs.get("family") for n in g.nodes
+                 if n.op == "embed"), None)
 
 
 @dataclasses.dataclass
@@ -184,18 +244,22 @@ class _WalkState:
     tasks: List[object] = dataclasses.field(default_factory=list)
     embed: Optional[G.Node] = None
     unembed: Optional[G.Node] = None
+    head_norm: Optional[G.Node] = None
 
 
 def _walk(g: G.Graph) -> _WalkState:
-    """Topological sort, then registry dispatch per node.  Unregistered
-    kinds fail loudly with the node id."""
+    """Topological sort, then registry dispatch per node (the graph's
+    family's handlers on top of the shared ones).  Unregistered kinds fail
+    loudly with the node id."""
     state = _WalkState(g=g)
+    handlers = dict(TASK_HANDLERS, **FAMILY_HANDLERS.get(graph_family(g),
+                                                         {}))
     for n in G.topological_sort(g):
-        handler = TASK_HANDLERS.get(n.op)
+        handler = handlers.get(n.op)
         if handler is None:
             raise _node_err(
                 n, f"no lowering handler registered for this kind "
-                   f"(registered: {sorted(TASK_HANDLERS)})")
+                   f"(registered: {sorted(handlers)})")
         handler(n, state)
     return state
 
@@ -299,6 +363,46 @@ def _lower_scan(n: G.Node, state: _WalkState) -> None:
         config=n.attrs.get("kcfg")))
 
 
+@register_task("norm", family="mamba1")
+def _lower_norm(n: G.Node, state: _WalkState) -> None:
+    if n.attrs.get("head"):
+        state.head_norm = n       # the float head's, not a task
+        return
+    state.tasks.append(NormTask(
+        node=n.name, layer=n.attrs["layer"], eps=n.attrs["eps"],
+        inputs=tuple(n.inputs), outputs=tuple(n.outputs)))
+
+
+@register_task("rms_split", family="mamba1")
+def _lower_rms_split(n: G.Node, state: _WalkState) -> None:
+    splits = tuple(n.attrs["splits"])
+    if len(splits) != len(n.outputs):
+        raise _node_err(n, f"rms_split has {len(splits)} parts but "
+                           f"{len(n.outputs)} outputs")
+    state.tasks.append(NormTask(
+        node=n.name, layer=n.attrs["layer"], eps=n.attrs["eps"],
+        inputs=tuple(n.inputs), outputs=tuple(n.outputs), splits=splits))
+
+
+@register_task("conv1d", family="mamba1")
+def _lower_conv1d(n: G.Node, state: _WalkState) -> None:
+    state.tasks.append(Conv1dTask(
+        node=n.name, layer=n.attrs["layer"], channels=n.attrs["channels"],
+        kernel=n.attrs["kernel"], inputs=tuple(n.inputs),
+        output=n.outputs[0]))
+
+
+@register_task("mamba1_scan", family="mamba1")
+def _lower_mamba1_scan(n: G.Node, state: _WalkState) -> None:
+    if len(n.inputs) != 5:
+        raise _node_err(n, f"mamba1_scan needs (u, dt, B, C, [u | z]) "
+                           f"inputs, got {len(n.inputs)}")
+    state.tasks.append(Mamba1ScanTask(
+        node=n.name, layer=n.attrs["layer"], d_inner=n.attrs["d_inner"],
+        ssm_state=n.attrs["ssm_state"], inputs=tuple(n.inputs),
+        output=n.outputs[0], config=n.attrs.get("kcfg")))
+
+
 @register_task("embed")
 def _lower_embed(n: G.Node, state: _WalkState) -> None:
     state.embed = n
@@ -316,16 +420,19 @@ def _lower_unembed(n: G.Node, state: _WalkState) -> None:
 
 def _is_lm_cfg(cfg) -> bool:
     return hasattr(cfg, "seq_len") and getattr(cfg, "family", None) in (
-        "dense", "ssm")
+        "dense", "ssm", "mamba1")
 
 
 def model_graph(cfg) -> G.Graph:
     """The (unoptimized) IR for a config — what the paper parses from the
     QONNX export.  ResNet configs build the conv graph; LM configs
-    (``compile.lm_params.QLMConfig``) build the transformer / Mamba stack."""
+    (``compile.lm_params.QLMConfig``) build the transformer / Mamba stack:
+    ``ssm`` the reduced block, ``mamba1`` the published one."""
     if _is_lm_cfg(cfg):
         if cfg.family == "dense":
             return G.build_transformer_graph(cfg, cfg.seq_len)
+        if cfg.family == "mamba1":
+            return G.build_mamba1_graph(cfg, cfg.seq_len)
         return G.build_ssm_graph(cfg, cfg.seq_len)
     return G.build_resnet_graph(cfg.blocks_per_stage, cfg.base_width,
                                 cfg.img, cfg.num_classes)
@@ -449,11 +556,20 @@ def plan_lm(g: G.Graph, params=None) -> LMPlan:
                         f"node {t.node!r} (kind=matmul): weight shape "
                         f"{tuple(mp.wq.shape)} != graph ({t.din}, {t.dout})")
 
+    logits_in, eps = state.unembed.inputs[0], None
+    if state.head_norm is not None:
+        if state.head_norm.outputs[0] != logits_in:
+            raise _node_err(state.head_norm,
+                            "head norm does not feed the unembed")
+        logits_in, eps = state.head_norm.inputs[0], state.head_norm.attrs[
+            "eps"]
     return LMPlan(tasks=tuple(state.tasks),
                   embed=state.embed.outputs[0],
-                  logits_in=state.unembed.inputs[0],
+                  logits_in=logits_in,
                   vocab=state.unembed.attrs["dout"],
-                  seq_len=state.embed.attrs["seq_len"])
+                  seq_len=state.embed.attrs["seq_len"],
+                  family=state.embed.attrs.get("family"),
+                  head_norm_eps=eps)
 
 
 def plan_chains(plan: LoweringPlan, cfg,

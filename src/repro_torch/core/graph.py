@@ -16,7 +16,8 @@ port's own copy.
 After passes 3-5 every residual block is two fused tasks, which is what the
 ``resblock_fused`` kernel executes in one launch.
 
-LM graphs (``build_transformer_graph``, ``build_ssm_graph``) take
+LM graphs (``build_transformer_graph``, ``build_ssm_graph``,
+``build_mamba1_graph``) take
 ``optimize_lm`` instead: ReLU merged into its matmul, every residual Add
 folded into a matmul's accumulator (``add_fold_matmul``).
 """
@@ -423,6 +424,55 @@ def build_ssm_graph(cfg, seq_len: int) -> Graph:
         nodes.append(Node(f"{p}.add", "add", [f"{p}.o", h], [f"h{i + 1}"]))
         h = f"h{i + 1}"
     nodes.append(Node("unembed", "unembed", [h], ["logits"],
+                      dict(din=d, dout=cfg.vocab_size)))
+    nodes.append(Node("output", "output", ["logits"], []))
+    return Graph(nodes)
+
+
+def build_mamba1_graph(cfg, seq_len: int) -> Graph:
+    """The published Mamba1 block stack (Falcon-Mamba's): per layer the
+    RMSNorm, the input projection to ``[u | z]``, the causal depthwise conv
+    of u with SiLU, ``x_proj`` to ``[dt | B | C]``, the weightless rms of
+    each part (``rms_split``: dt to ``dt_proj``, B and C to the scan),
+    ``dt_proj`` with its bias, the selective scan with the D skip and the
+    SiLU(z) gate, and the output projection + residual add; a final norm
+    before the unembed.  The embed node names the family, which selects
+    the walk's handlers for these node kinds."""
+    d, L = cfg.d_model, cfg.num_layers
+    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    nodes = [Node("input", "input", ["%in"], ["tok"]),
+             Node("embed", "embed", ["tok"], ["h0"],
+                  dict(vocab=cfg.vocab_size, dout=d, seq_len=seq_len,
+                       family="mamba1"))]
+    h = "h0"
+    for i in range(L):
+        p = f"l{i}"
+        nodes.append(Node(f"{p}.norm", "norm", [h], [f"{p}.x"],
+                          dict(layer=i, role="norm", eps=cfg.norm_eps)))
+        nodes.append(_matmul(f"{p}.win", f"{p}.x", f"{p}.xz", d, 2 * di,
+                             "win", i))
+        nodes.append(Node(f"{p}.conv", "conv1d", [f"{p}.xz"], [f"{p}.u"],
+                          dict(layer=i, role="conv", channels=di,
+                               kernel=cfg.conv_kernel)))
+        nodes.append(_matmul(f"{p}.wx", f"{p}.u", f"{p}.dbc", di,
+                             R + 2 * N, "wx", i))
+        nodes.append(Node(f"{p}.rms", "rms_split", [f"{p}.dbc"],
+                          [f"{p}.dn", f"{p}.b", f"{p}.c"],
+                          dict(layer=i, role="rms", splits=(R, N, N),
+                               eps=cfg.mixer_rms_eps)))
+        nodes.append(_matmul(f"{p}.wdt", f"{p}.dn", f"{p}.dt", R, di,
+                             "wdt", i))
+        nodes.append(Node(f"{p}.scan", "mamba1_scan",
+                          [f"{p}.u", f"{p}.dt", f"{p}.b", f"{p}.c",
+                           f"{p}.xz"], [f"{p}.y"],
+                          dict(layer=i, role="scan", d_inner=di,
+                               ssm_state=N, seq_len=seq_len)))
+        nodes.append(_matmul(f"{p}.wo", f"{p}.y", f"{p}.o", di, d, "wo", i))
+        nodes.append(Node(f"{p}.add", "add", [f"{p}.o", h], [f"h{i + 1}"]))
+        h = f"h{i + 1}"
+    nodes.append(Node("final_norm", "norm", [h], ["hn"],
+                      dict(head=True, eps=cfg.norm_eps)))
+    nodes.append(Node("unembed", "unembed", ["hn"], ["logits"],
                       dict(din=d, dout=cfg.vocab_size)))
     nodes.append(Node("output", "output", ["logits"], []))
     return Graph(nodes)

@@ -7,9 +7,10 @@ Phases, one JSON line each:
 
   1. device   — requires a CUDA GPU (exits 2 without one); prints the card's
                 name and power limit as nvidia-smi reports them.
-  2. build    — compiles the seven kernels (conv_stem, resblock_fused,
+  2. build    — compiles the eight kernels (conv_stem, resblock_fused,
                 block_chain, matmul_int8, flash_attention, selective_scan,
-                conv2d_int8) from ``src/repro_torch/kernels/csrc``, one
+                conv2d_int8, causal_conv1d) from
+                ``src/repro_torch/kernels/csrc``, one
                 nvcc each, all started together; prints ptxas registers
                 and spills (every instance of resblock_fused and
                 block_chain spill-free), and the IMMA (int8 tensor-core)
@@ -184,6 +185,22 @@ Phases, one JSON line each:
                 call computing the same function (``library_ms``:
                 ``torch._int_mm`` + init with B row- and column-major, the
                 faster of the two; SDPA).
+  6b. LM conv1d — causal_conv1d on falcon-mamba-7b's published Mamba1
+                stack (family ``mamba1``, 64 layers at full width, the
+                benchmark cell's seeded int8 weights drawn on the card by
+                ``bench/models/mamba1.py``) at bucket 4 x
+                512 tokens: one forward on the ``cuda`` impls with each
+                layer's conv bitwise the ``torch-int`` chain
+                (``_lm_conv1d``) on the same [u | z], each on the 16-byte
+                path; layer 0's taps, bias, shift and SiLU table on a
+                uniform random (4, 512, 16384) [u | z] bitwise the plain
+                version and the chain (clamping at both ends); the
+                kernel's device time at layer 0's real [u | z] beside its
+                byte bound, the plain version's and the chain's; then a
+                ``CompiledModel`` at bucket 4, counters zeroed after its
+                capture: one served forward launches one causal_conv1d a
+                layer and the plan's matmuls and scans, and its logits
+                are bitwise the eager lowered forward's.
   7. LM serve — gemma-2b (18 layers) and falcon-mamba-7b (64 layers) at
                 published width, weights from ``init_lm_params(seed)`` on
                 the card: 6 token requests through ``ResNetEngine`` on
@@ -345,7 +362,9 @@ Phases, one JSON line each:
      tuned knob and time beside the rule's and their launches in the
      train phase's evaluation and in the traffic phase; rows 4-6 their
      knobs, the sweep's rule and best per shape, the tuned serve's
-     launches by config and the LM profile's ms a forward; ``serve`` the
+     launches by config and the LM profile's ms a forward; row 8,
+     causal_conv1d, its phase 6b record and its launches in one mamba1
+     forward; ``serve`` the
      sharded and tuned summaries; ``lm_float``, ``lm_train`` and
      ``parallel`` their phases'), then
      ``{"ok": true, "device": ...}``.
@@ -379,13 +398,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT))
 
+from bench.models import mamba1 as bench_mamba1  # noqa: E402
 from repro_torch.compile import backends as BK  # noqa: E402
 from repro_torch.compile import (compile_model,  # noqa: E402
                                  get_backend, get_task_impl,
                                  hidden_out_spec, init_lm_params, lm_config,
                                  lower_forward, plan_lm)
+from repro_torch.compile import lm_params as LP  # noqa: E402
 from repro_torch.compile import lowering  # noqa: E402
 from repro_torch.compile.backends import softplus  # noqa: E402
 from repro_torch.compile.compiler import GraphExecutable  # noqa: E402
@@ -398,6 +421,8 @@ from repro_torch.core.quant import (dequantize,  # noqa: E402
                                    percentile_linear, requantize_shift,
                                    shift_align)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.causal_conv1d.ops import (  # noqa: E402
+    causal_conv1d_op, causal_conv1d_ref)
 from repro_torch.data.synthetic import (SyntheticCifar,  # noqa: E402
                                         SyntheticTokens)
 from repro_torch.kernels.common import conv_i32, requant_u8  # noqa: E402
@@ -3259,6 +3284,187 @@ def lm_scan_phase(rng, dev):
     return t
 
 
+def conv_codes(x, cp):
+    """The conv's requantized int8 codes before the table (the plain
+    version's first two steps)."""
+    return requantize_shift(BK.causal_conv_i32(x, cp.wq, cp.bq),
+                            cp.product_exp, cp.y_spec)
+
+
+def inside_s8(codes):
+    """Share of int8 codes strictly inside (-128, 127)."""
+    return float(((codes > -128) & (codes < 127)).float().mean())
+
+
+# the cell falcon-mamba-7b.p4x512's configuration: its weights' recipe
+BENCH_MAMBA1 = ROOT / "bench" / "configs" / "falcon-mamba-7b.json"
+
+
+def lm_conv1d_phase(seed, dev):
+    """causal_conv1d on the ``mamba1`` stack of falcon-mamba-7b at its
+    published widths and depth, the benchmark cell's seeded int8 weights
+    (``bench/models/mamba1.py``'s ``quantized_params``), bucket 4 x 512 tokens
+    (the cell falcon-mamba-7b.p4x512's shape): (a) one forward driven by
+    the ``cuda`` impls, each of the 64 conv tasks held bitwise against the
+    ``torch-int`` chain (``_lm_conv1d``) on the same [u | z], one launch on
+    the 16-byte path each; (b) layer 0's taps, bias, shift and SiLU table
+    (``conv_silu_table``, the consuming matmul's grid) on a uniform random
+    (4, 512, 16384) [u | z], x its first 8,192 columns, bitwise the plain
+    version (``causal_conv1d_ref``) and the chain, clamping at both ends;
+    (c) the timings at layer 0's real [u | z]: the kernel's device time
+    beside its byte bound, the plain version's and the chain's; (d) a
+    ``CompiledModel`` on ``cuda`` at bucket 4, the counters zeroed after
+    its capture, one served forward: one causal_conv1d launch a layer, the
+    plan's counts of the other kernels, no conv task on the ``torch``
+    label, the logits bitwise the eager lowered forward's."""
+    cfg = lm_config(get_config("falcon-mamba-7b"), LM_SEQ, family="mamba1")
+    t0 = time.perf_counter()
+    params = bench_mamba1.quantized_params(LP, json.loads(
+        BENCH_MAMBA1.read_text()), seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(int(seed) + 1)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BUCKET, LM_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    L, C = cfg.num_layers, cfg.d_inner
+    plan = plan_lm(lowering.optimized_graph(cfg), params)
+    packed = BK.pack_lm_weights(plan, params)
+    cuda_conv = get_task_impl("cuda", "conv1d", "mamba1")
+    plain_conv = get_task_impl("torch-int", "conv1d", "mamba1")
+    check(getattr(cuda_conv, "kernel", None) == "causal_conv1d" and
+          plain_conv is BK._lm_conv1d,
+          f"mamba1 conv1d impls: cuda {cuda_conv}, torch-int {plain_conv}")
+
+    # (a) every conv task of one forward on the real [u | z]
+    ctx = BK.lm_context(plan, params, cfg, packed)
+    BK.embed_tokens(ctx, plan, toks)
+    inside, first = [], None
+    vector0 = causal_conv1d_op.launches_by_path["vector"]
+    for t in plan.tasks:
+        if t.kind != "conv1d":
+            get_task_impl("cuda", t.kind, "mamba1")(t, ctx)
+            continue
+        shadow = BK.lm_context(plan, params, cfg)
+        shadow.env, shadow.specs = dict(ctx.env), dict(ctx.specs)
+        plain_conv(t, shadow)
+        cuda_conv(t, ctx)
+        torch.cuda.synchronize()
+        check(torch.equal(ctx.env[t.output], shadow.env[t.output]) and
+              ctx.specs[t.output] == shadow.specs[t.output],
+              f"mamba1 layer {t.layer} conv1d: causal_conv1d differs from "
+              f"the torch-int chain")
+        cp = params.layers[t.layer].conv
+        inside.append(inside_s8(conv_codes(
+            ctx.env[t.inputs[0]][..., :C], cp)))
+        if first is None:
+            first = (t, ctx.env[t.inputs[0]], cp, packed[t.node])
+    check(len(inside) == L and
+          causal_conv1d_op.launches_by_path["vector"] == vector0 + L,
+          f"mamba1 forward: {len(inside)} conv tasks, "
+          f"{causal_conv1d_op.launches_by_path['vector'] - vector0} vector "
+          f"launches; {L} layers")
+    check(min(inside) >= MIN_UNSATURATED,
+          f"mamba1 conv codes: only {min(inside):.3f} inside (-128, 127)")
+    emit("kernel_check", name="causal_conv1d", case="every layer of one "
+         "mamba1 forward", layers=L, bitwise=True,
+         conv_codes_inside_min=min(inside),
+         conv_codes_inside_max=max(inside))
+    del ctx, shadow
+
+    # (b) layer 0's operands on a uniform random [u | z]
+    t, xz, cp, table = first
+    shift = cp.y_spec.exp - cp.product_exp
+    out_spec = BK.consumer_xspecs(plan, params)[t.output]
+    check(torch.equal(table, BK.conv_silu_table(cp, out_spec)),
+          "the packed SiLU table is not conv_silu_table's")
+    rnd = torch.randint(-128, 128, (LM_BUCKET, LM_SEQ, 2 * C),
+                        generator=gen, device=dev, dtype=torch.int8)
+    before = dict(causal_conv1d_op.launches_by_path)
+    got = causal_conv1d_op(rnd[..., :C], cp.wq, cp.bq, shift, table)
+    torch.cuda.synchronize()
+    check(causal_conv1d_op.launches_by_path["vector"] ==
+          before["vector"] + 1, "causal_conv1d at the cell's shape: launch "
+                                "not on the vector path")
+    check(torch.equal(got, causal_conv1d_ref(rnd[..., :C], cp.wq, cp.bq,
+                                             shift, table)),
+          "causal_conv1d on a random [u | z] differs from plain")
+    shadow = BK.lm_context(plan, params, cfg)
+    shadow.put(t.inputs[0], rnd, cp.x_spec)
+    plain_conv(t, shadow)
+    check(torch.equal(got, shadow.env[t.output]),
+          "causal_conv1d on a random [u | z] differs from the chain")
+    codes = conv_codes(rnd[..., :C], cp)
+    clamped = dict(low=float((codes == -128).float().mean()),
+                   high=float((codes == 127).float().mean()))
+    check(clamped["low"] > 0 and clamped["high"] > 0,
+          f"the random case clamps at neither end or one: {clamped}")
+    emit("kernel_check", name="causal_conv1d", case="uniform random [u | z]",
+         shape=list(rnd.shape), shift=shift, bitwise=True,
+         clamped_share=clamped)
+
+    # (c) timings at layer 0's real [u | z]
+    x = xz[..., :C]
+    out = causal_conv1d_op(x, cp.wq, cp.bq, shift, table)
+
+    def task():
+        plain_conv(t, shadow)
+
+    shadow.put(t.inputs[0], xz, cp.x_spec)
+    moved = nbytes(x, cp.wq, cp.bq, table, out)
+    tm = dict(ms=device_ms(lambda: causal_conv1d_op(x, cp.wq, cp.bq, shift,
+                                                    table), REPS),
+              call_ms=call_ms(lambda: causal_conv1d_op(x, cp.wq, cp.bq,
+                                                       shift, table), REPS),
+              plain_ms=device_ms(lambda: causal_conv1d_ref(
+                  x, cp.wq, cp.bq, shift, table), LM_REPS),
+              chain_ms=device_ms(task, LM_REPS), library_ms=None,
+              bytes=moved)
+    tm["bound_ms"], tm["bound_by"] = bound(moved, 0)
+    tm["bound_share"] = tm["bound_ms"] / tm["ms"]
+    tm["ptxas"] = ptxas_by_entry("causal_conv1d")
+    emit("kernel", name="causal_conv1d", shape=[LM_BUCKET, LM_SEQ, C],
+         row_stride=xz.stride(1), taps=cp.wq.shape[0], shift=shift, **tm)
+    del shadow, rnd, got, codes
+
+    # (d) one served forward of the compiled stack
+    cm = compile_model(cfg, params, backend="cuda", batch_sizes=(LM_BUCKET,),
+                       device=dev)
+    cm.executable(LM_BUCKET)
+    kinds = [t.kind for t in plan.tasks]
+    want = dict(causal_conv1d=kinds.count("conv1d"),
+                matmul_int8=kinds.count("matmul"),
+                selective_scan=kinds.count("scan"))
+    check(want["causal_conv1d"] == L, f"the plan has {want} for {L} layers")
+    check(("conv1d", "torch") not in cm.task_counts and
+          cm.task_counts.get(("conv1d", "causal_conv1d")) == L,
+          f"task counts {cm.task_counts}")
+    saved = read_launches()
+    write_launches(zeroed_launches())
+    logits = cm(toks)
+    torch.cuda.synchronize()
+    ran = {op.__name__.removesuffix("_op"): (n, by_path)
+           for op, (n, by_path, _) in read_launches().items()}
+    write_launches(saved)
+    launches = {k: ran[k][0] for k in want}
+    check(launches == want and
+          ran["causal_conv1d"][1] == dict(vector=L, bytewise=0) and
+          all(n == 0 for k, (n, _) in ran.items() if k not in want),
+          f"one mamba1 forward launched {ran}; the plan wants {want}")
+    check(bool(torch.isfinite(logits).all()) and
+          torch.equal(logits, cm._forward(toks)),
+          "the served mamba1 logits differ from the eager lowered forward")
+    emit("lm_conv1d", model=cfg.name, family=cfg.family, layers=L,
+         init_s=init_s, launches=launches,
+         launches_by_path=ran["causal_conv1d"][1],
+         task_counts={f"{k}/{n}": v for (k, n), v in cm.task_counts.items()})
+    del cm, params, packed, xz
+    torch.cuda.empty_cache()
+    return dict(tm, launches=launches["causal_conv1d"],
+                launches_by_path=ran["causal_conv1d"][1],
+                conv_codes_inside_min=min(inside),
+                random_case_clamped_share=clamped)
+
+
 LM_KERNEL_OPS = dict(matmul_int8=matmul_int8_op,
                      flash_attention=flash_attention_op,
                      selective_scan=selective_scan_op,
@@ -4559,7 +4765,6 @@ def lm_train_phase(seed, dev):
 # phase 10: the parallel layer on one card
 # ---------------------------------------------------------------------------
 
-ROOT = Path(__file__).resolve().parent
 PAR_BUCKETS = (8, 32)
 # (c): gemma-2b at published width, bf16, 2 x 1,024 tokens, one microbatch
 PAR_TRAIN = dict(model="gemma-2b", batch=2, seq=1024, steps=6)
@@ -5116,6 +5321,7 @@ def main(argv=None):
     mm = timed("lm_matmul", lm_matmul_phase, rng, dev)
     flash = timed("lm_flash", lm_flash_phase, rng, dev)
     scan = timed("lm_scan", lm_scan_phase, rng, dev)
+    conv1d = timed("lm_conv1d", lm_conv1d_phase, args.seed, dev)
     lm_serve, lm_launches = {}, {}
     lm_tune = dict(serve={}, profile={}, seconds=0.0)
     for name in LM_MODELS:
@@ -5260,6 +5466,17 @@ def main(argv=None):
              per="off the serving path (0 launches on it); timed on "
                  "ResNet20's 20 conv layers at batch 32, s8 input, one "
                  "launch each", **conv),
+        dict(name="causal_conv1d", route="cuda",
+             source=src + "causal_conv1d.cu", replaces=None,
+             replaces_reason="no TPU kernel: the JAX package has no Mamba1 "
+                             "conv; it replaces the torch-int chain "
+                             "(_lm_conv1d), ~25 PyTorch kernels a layer",
+             bitwise=True,
+             library_reason="none: no PyTorch call computes the int8 "
+                            "causal conv with its requantize and SiLU table",
+             per="one launch at falcon-mamba-7b.p4x512's shape (4, 512, "
+                 "8192), x read out of a (4, 512, 16384) [u | z]; "
+                 "launches: one mamba1 forward at bucket 4", **conv1d),
     ]
     # the serve summary rides on the kernels line so that it survives in
     # any tail of the output that keeps the last lines

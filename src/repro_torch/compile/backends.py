@@ -38,9 +38,12 @@ on the Mamba scan; ``cuda-stream`` has no LM chain kernel and runs the
 ``features`` returns the int8 hidden state entering the unembed and
 ``lower`` adds the float last-position unembed.  The ``mamba1`` family
 (the published Mamba1 block) registers its own kinds for both backends
-(``register_task_impl(..., family="mamba1")``): ``norm`` and ``conv1d``
-(PyTorch ops on either) and its ``scan`` (``selective_scan`` on ``cuda``,
-the plain version on ``torch-int``); its matmuls are the shared impls.
+(``register_task_impl(..., family="mamba1")``): ``norm`` (PyTorch ops on
+either), ``conv1d`` (one ``causal_conv1d`` launch on ``cuda``, its SiLU a
+256-entry table :func:`pack_lm_weights` builds at lower time; the plain
+PyTorch chain on ``torch-int``) and its ``scan`` (``selective_scan`` on
+``cuda``, the plain version on ``torch-int``); its matmuls are the shared
+impls.
 """
 from __future__ import annotations
 
@@ -188,7 +191,7 @@ class _LMContext:
         self.params = params
         self.cfg = cfg
         self.consumer_xspec = consumer_xspec   # tensor -> consuming x_spec
-        self.packed = packed or {}   # matmul node -> weight packed at lower time
+        self.packed = packed or {}   # node -> weight or table built at lower time
         self.env: Dict[str, torch.Tensor] = {}  # tensor name -> value
         self.specs: Dict[str, Q.QSpec] = {}     # tensor name -> int8 grid
 
@@ -231,14 +234,48 @@ def _lm_matmul_epilogue(acc, t, mp, shape, ctx):
     ctx.put(t.output, yq.reshape(shape + (t.dout,)), mp.y_spec)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * torch.sigmoid(x)
+
+
+def consumer_xspecs(plan, params) -> Dict[str, Q.QSpec]:
+    """Each tensor a matmul of ``plan`` reads -> that matmul's input grid
+    (the grid a float task output quantizes onto)."""
+    return {t.inputs[0]: params.matmul(t.layer, t.role).x_spec
+            for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
+
+
+def conv_silu_table(cp: LP.QConv1dParams, out_spec: Q.QSpec) -> torch.Tensor:
+    """The conv task's map from its requantized int8 code to its output
+    code, for every code -128..127 in order: ``Q.quantize(silu(
+    Q.dequantize(code, cp.y_spec)), out_spec)`` by the plain chain's own
+    PyTorch functions, on the conv's device."""
+    y = cp.y_spec
+    if (y.bits, y.signed) != (8, True) or out_spec.int_dtype != torch.int8:
+        raise lowering.LoweringError(
+            f"conv1d: the table maps int8 codes to int8 codes; got y_spec "
+            f"{y} and output grid {out_spec}")
+    codes = torch.arange(-128, 128, device=cp.wq.device).to(torch.int8)
+    return Q.quantize(silu(Q.dequantize(codes, y)), out_spec)
+
+
 def pack_lm_weights(plan, params) -> Dict[str, object]:
-    """Every matmul weight of ``plan`` packed once for ``matmul_int8``'s
-    wgmma path (``(N, K)``, K-major), by matmul node: what the ``cuda``
-    impl reads, built at lower time and never inside a forward."""
+    """What the ``cuda`` impls read, by node, built at lower time and never
+    inside a forward: every matmul weight of ``plan`` packed once for
+    ``matmul_int8``'s wgmma path (``(N, K)``, K-major), and every
+    ``conv1d`` task's SiLU table (:func:`conv_silu_table`)."""
     from repro_torch.kernels.matmul_int8.ops import pack_weight
 
-    return {t.node: pack_weight(params.matmul(t.layer, t.role).wq)
-            for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
+    xspecs = consumer_xspecs(plan, params)
+    packed = {}
+    for t in plan.tasks:
+        if isinstance(t, lowering.MatmulTask):
+            packed[t.node] = pack_weight(params.matmul(t.layer, t.role).wq)
+        elif isinstance(t, lowering.Conv1dTask):
+            packed[t.node] = conv_silu_table(params.layers[t.layer].conv,
+                                             xspecs[t.output])
+    return packed
 
 
 @register_task_impl("cuda", "matmul", kernel="matmul_int8")
@@ -307,11 +344,6 @@ def _torch_attention(t, ctx):
                         config=t.config)
     _lm_attn_finish(flash_attention_plain(q, k, v, causal=t.causal, bq=bq,
                                           bk=bk), t, ctx)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: ``x * sigmoid(x)``."""
-    return x * torch.sigmoid(x)
 
 
 def _lm_scan_operands(t, ctx):
@@ -405,6 +437,25 @@ def _lm_conv1d(t, ctx):
             spec)
 
 
+@register_task_impl("cuda", "conv1d", family="mamba1", kernel="causal_conv1d")
+def _cuda_conv1d(t, ctx):
+    """:func:`_lm_conv1d` in one ``causal_conv1d`` launch, x read in place
+    out of ``[u | z]``, the SiLU through the table packed at lower time."""
+    from repro_torch.kernels.causal_conv1d.ops import causal_conv1d_op
+
+    table = ctx.packed.get(t.node)
+    if table is None:
+        raise lowering.LoweringError(
+            f"conv1d {t.node!r}: the cuda impl reads a SiLU table built at "
+            f"lower time; build the context with lm_context(plan, params, "
+            f"cfg, packed=pack_lm_weights(plan, params))")
+    cp = ctx.params.layers[t.layer].conv
+    spec = ctx.out_spec(t.output)
+    ctx.put(t.output, causal_conv1d_op(
+        ctx.env[t.inputs[0]][..., :t.channels], cp.wq, cp.bq,
+        cp.y_spec.exp - cp.product_exp, table), spec)
+
+
 def _mamba1_scan_operands(t, ctx):
     u_name, dt_name, b_name, c_name = t.inputs[:4]
     u = Q.dequantize(ctx.env[u_name], ctx.specs[u_name])
@@ -447,18 +498,15 @@ def _torch_mamba1_scan(t, ctx):
 
 for _b in ("cuda", "torch-int"):
     register_task_impl(_b, "norm", family="mamba1")(_lm_norm)
-    register_task_impl(_b, "conv1d", family="mamba1")(_lm_conv1d)
+register_task_impl("torch-int", "conv1d", family="mamba1")(_lm_conv1d)
 
 
 def lm_context(plan, params, cfg, packed=None) -> _LMContext:
     """A fresh forward context of ``plan``: each float task output's grid
-    resolved from its consuming matmul's input grid; ``packed`` the
-    weights :func:`pack_lm_weights` built (the ``cuda`` matmul reads
-    them)."""
-    consumer_xspec = {
-        t.inputs[0]: params.matmul(t.layer, t.role).x_spec
-        for t in plan.tasks if isinstance(t, lowering.MatmulTask)}
-    return _LMContext(params, cfg, consumer_xspec, packed)
+    resolved from its consuming matmul's input grid; ``packed`` what
+    :func:`pack_lm_weights` built (the ``cuda`` matmul and conv read
+    it)."""
+    return _LMContext(params, cfg, consumer_xspecs(plan, params), packed)
 
 
 def embed_tokens(ctx, plan, tokens) -> None:
@@ -476,8 +524,9 @@ def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
     in, then the task program over a tensor environment.  Impl binding
     happens HERE, at lower time, so a backend missing a kind fails before
     anything runs; so does the ``cuda`` impls' packing of every matmul
-    weight.  The closure carries ``plan``, ``task_counts`` (the plan's
-    tasks a forward runs, by ``(kind, kernel)``) and ``packed_bytes``;
+    weight and conv table.  The closure carries ``plan``, ``task_counts``
+    (the plan's tasks a forward runs, by ``(kind, kernel)``) and
+    ``packed_bytes`` (the packed matmul weights);
     with an obs session on, the planning and the packing are spans
     ``plan`` and ``pack`` on track ``compile``."""
     ob = _obs.active()
@@ -488,7 +537,8 @@ def lm_features(impl_backend: str, g, cfg, params: LP.QLMParams) -> Callable:
     t1 = ob.now() if ob is not None else None
     packed = pack_lm_weights(plan, params) if impl_backend == "cuda" \
         else None
-    packed_bytes = sum(w.t.numel() for w in (packed or {}).values())
+    packed_bytes = sum(packed[t.node].t.numel() for t in plan.tasks
+                       if packed and isinstance(t, lowering.MatmulTask))
     if ob is not None:
         ob.trace.span("plan", cat="compile", track="compile", t0=t0, t1=t1,
                       tasks=len(plan.tasks))

@@ -24,7 +24,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("conv_stem", "resblock_fused", "block_chain", "matmul_int8",
-           "flash_attention", "selective_scan", "conv2d_int8")
+           "flash_attention", "selective_scan", "conv2d_int8",
+           "causal_conv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # link flags of single kernels: matmul_int8 encodes TMA tensor maps with

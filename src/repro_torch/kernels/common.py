@@ -139,7 +139,8 @@ def conv_i32(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
 
 
 def counted_ops() -> tuple:
-    """The seven kernel wrappers that count their launches."""
+    """The eight kernel wrappers that count their launches."""
+    from repro_torch.kernels.causal_conv1d.ops import causal_conv1d_op
     from repro_torch.kernels.conv2d_int8.ops import conv2d_int8_op
     from repro_torch.kernels.conv_stem.ops import conv_stem_op
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
@@ -148,7 +149,8 @@ def counted_ops() -> tuple:
     from repro_torch.kernels.resblock_fused.ops import resblock_fused_op
     from repro_torch.kernels.selective_scan.ops import selective_scan_op
     return (conv_stem_op, resblock_fused_op, block_chain_op, matmul_int8_op,
-            flash_attention_op, selective_scan_op, conv2d_int8_op)
+            flash_attention_op, selective_scan_op, conv2d_int8_op,
+            causal_conv1d_op)
 
 
 def read_launches() -> dict:

@@ -177,7 +177,7 @@ def test_launch_counter_helpers_replay_a_capture():
     count a pass, take the delta, put the counters back, then add the
     delta once a replay."""
     ops = common.counted_ops()
-    assert len(ops) == 7 and all(hasattr(op, "launches") for op in ops)
+    assert len(ops) == 8 and all(hasattr(op, "launches") for op in ops)
     saved = common.read_launches()
     try:
         stem, chain, mm = ops[0], ops[2], ops[3]

@@ -198,6 +198,10 @@ def test_family_kinds_stay_out_of_the_shared_registries():
         BK._cuda_mamba1_scan
     assert BK.get_task_impl("cuda", "scan") is BK._cuda_scan
     assert BK.get_task_impl("cuda", "matmul", "mamba1") is BK._cuda_matmul
+    assert BK.get_task_impl("cuda", "conv1d", "mamba1") is BK._cuda_conv1d
+    assert BK._cuda_conv1d.kernel == "causal_conv1d"
+    assert BK.get_task_impl("torch-int", "conv1d", "mamba1") is \
+        BK._lm_conv1d
 
 
 # -- the port against the reference ------------------------------------------
@@ -394,12 +398,13 @@ def test_compile_model_counts_tasks_and_spans_the_lowering(seeded):
     plan = plan_lm(optimized_graph(pc), params)
     want = {}
     for t in plan.tasks:
-        kernel = {"matmul": "matmul_int8", "scan": "selective_scan"}.get(
-            t.kind, "torch")
+        kernel = {"matmul": "matmul_int8", "scan": "selective_scan",
+                  "conv1d": "causal_conv1d"}.get(t.kind, "torch")
         want[(t.kind, kernel)] = want.get((t.kind, kernel), 0) + 1
     L = pc.num_layers
     assert want == {("norm", "torch"): 2 * L, ("matmul", "matmul_int8"): 4 * L,
-                    ("conv1d", "torch"): L, ("scan", "selective_scan"): L}
+                    ("conv1d", "causal_conv1d"): L,
+                    ("scan", "selective_scan"): L}
     assert cm.task_counts == want
     c = ob.metrics.get("model_task_launches_total")
     for (kind, kernel), n in want.items():
